@@ -11,14 +11,18 @@ from .physics.types import PhysicsSettings
 
 
 def entry(device="cpu", batch: int = 8, seed: int = 0,
-          solver_backend: str = "auto"):
+          fused_substep: str = "auto", solver_backend: str = "auto"):
     """Returns `(fn, (model, env_state, obs))` on `device`, where
     `fn(model, env_state, obs) -> (obs, env_state, reward, done)` runs the
     policy and steps every env with its mean action.  Weights and pokes come
-    from torch Generators seeded with `seed + 1` and `seed`."""
+    from torch Generators seeded with `seed + 1` and `seed`.  With the
+    defaults (the JAX env's settings) the env step on a CUDA device is one
+    fused-kernel launch; `fused_substep="off"` takes the unfused step with
+    the colored-solver kernel, and `solver_backend="plain"` its plain
+    PyTorch version."""
     device = torch.device(device)
     env = LocoEnv(settings=PhysicsSettings(
-        frame_rate=FRAME_RATE, fused_substep="off",
+        frame_rate=FRAME_RATE, fused_substep=fused_substep,
         solver_backend=solver_backend), device=device)
     obs, env_state = env.reset(
         batch, torch.Generator(device=device).manual_seed(seed))

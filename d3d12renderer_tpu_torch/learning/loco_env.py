@@ -1,5 +1,5 @@
 """Batched ragdoll locomotion environment (counterpart of
-``d3d12renderer_tpu/learning/loco_env.py``, unfused path).
+``d3d12renderer_tpu/learning/loco_env.py``).
 
 Observation (66): torso velocity, 6 body-part positions and velocities in the
 torso ground frame, the smoothed action.  Action (27): per cone-twist
@@ -7,6 +7,11 @@ torso ground frame, the smoothed action.  Action (27): per cone-twist
 angle} x 6.  Reward: imitation of the standing pose times a fall factor.
 Every tensor carries a leading environment axis B; randomness (the pokes)
 comes from the `torch.Generator` held in the `EnvState`.
+
+On CUDA tensors with the default settings the whole env step after the
+poke (physics substep, fall check, reward, obs, auto-reset) is one launch of
+the fused kernel (`physics/substep_cuda.py`); `_step_core` is its plain
+version and the route everywhere else.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from ..core import maths as m
 from ..models import ragdoll as rd
+from ..physics import substep_cuda
 from ..physics.builder import SceneBuilder
 from ..physics.step import physics_step
 from ..physics.types import BodyState, PhysicsSettings
@@ -46,8 +52,8 @@ class EnvState:
 
 class LocoEnv:
     """`reset(batch, generator)` and `step(state, action)` over B envs on
-    `device`.  The default settings are the JAX env's with the fused kernel
-    off (`fused_substep="off"`), the one path this port has."""
+    `device`.  The default settings are the JAX env's,
+    `PhysicsSettings(frame_rate=60)`, so `fused_substep="auto"`."""
 
     def __init__(self, settings: Optional[PhysicsSettings] = None,
                  self_collision: bool = False, device="cpu"):
@@ -58,8 +64,7 @@ class LocoEnv:
             b, hip_position=(0.0, 1.25, 0.0), self_collision=self_collision)
         self.arch, self._state0 = b.finalize(device=self.device)
         self.info = info
-        self.settings = settings or PhysicsSettings(frame_rate=FRAME_RATE,
-                                                    fused_substep="off")
+        self.settings = settings or PhysicsSettings(frame_rate=FRAME_RATE)
 
         self._table_index = {t.kind: k for k, t in enumerate(self.arch.joints)}
         self._num_tables = len(self.arch.joints)
@@ -83,6 +88,7 @@ class LocoEnv:
         self.torso_velocity_target = torch.zeros(3, device=self.device)
         self._obs0 = self._get_obs(
             p0, torch.zeros((1, ACTION_SIZE), device=self.device))[0]
+        self._fused_step = self._fused_env_step()
 
     # -- helpers -----------------------------------------------------------
 
@@ -187,6 +193,68 @@ class LocoEnv:
         t[envs, body] += torque
         return bodies.replace(force=f, torque=t)
 
+    # -- fused whole-env-step kernel -----------------------------------------
+
+    def _action_columns(self):
+        """Override column of each runtime motor target: the kernel reads
+        the smoothed (B, 27) action itself as its override matrix."""
+        ct, h = self._table_index["cone_twist"], self._table_index["hinge"]
+        nc = rd.NUM_CONE_TWIST
+        return {(ct, "twist_target"): range(0, 3 * nc, 3),
+                (ct, "swing_target"): range(1, 3 * nc, 3),
+                (ct, "swing_axis_angle"): range(2, 3 * nc, 3),
+                (h, "motor_target"): range(3 * nc, 3 * nc + rd.NUM_HINGE)}
+
+    def post_consts(self) -> substep_cuda.PostConsts:
+        """The post stage's constants: sample points relative to each part's
+        COG, imitation targets, the reset obs and the standing pose."""
+        idx = self.part_idx.tolist()
+        parent = self.parent_idx.tolist()
+        obs_body = self.part_idx[self.obs_part_slots].tolist()
+        head = idx[self._head]
+        post_i = ([NUM_PARTS, self.local_points.shape[1], len(obs_body),
+                   ACTION_SIZE, head, idx[0]] + idx
+                  + [idx[p] if p >= 0 else -1 for p in parent] + obs_body
+                  + list(range(ACTION_SIZE)))
+        rel = self.local_points - self.arch.local_cog[self.part_idx][:, None, :]
+        s0 = self._state0
+        post_f = torch.cat([
+            torch.tensor([self.head_target_height], device=self.device),
+            rel.reshape(-1), self.target_points.reshape(-1),
+            self.target_local_rot.reshape(-1), self._obs0,
+            s0.pos.reshape(-1), s0.rot.reshape(-1), s0.vel.reshape(-1),
+            s0.omega.reshape(-1)]).to(torch.float32).contiguous()
+        return substep_cuda.PostConsts(
+            post_f=post_f,
+            post_i=torch.tensor(post_i, dtype=torch.int32, device=self.device),
+            n_extra=STATE_SIZE + 2)
+
+    def _fused_env_step(self):
+        """`fused(bodies, smoothed) -> (bodies, obs, reward, done)`, the
+        whole env step after the poke as one kernel launch on CUDA tensors
+        and `_step_core` on CPU tensors; None where the route is not built.
+        The kernel integrates one substep of 1/FRAME_RATE, while `_step_core`
+        substeps at settings.frame_rate: the route is refused unless the two
+        rates agree, as in the JAX package."""
+        if substep_cuda.should_build(self.settings, self.device) is None:
+            return None
+        if float(self.settings.frame_rate) != float(FRAME_RATE):
+            return None
+        run = substep_cuda.make_kernel_runner(
+            self.arch, self.settings, 1.0 / FRAME_RATE, self._action_columns(),
+            ACTION_SIZE, post=self.post_consts())
+        if run is None:
+            return None
+
+        def fused(bodies: BodyState, smoothed):
+            if not bodies.pos.is_cuda:
+                return self._step_core(bodies, smoothed)
+            bodies, extra = run(bodies, smoothed.to(torch.float32).contiguous())
+            return (bodies, extra[:, :STATE_SIZE], extra[:, STATE_SIZE],
+                    extra[:, STATE_SIZE + 1] > 0.5)
+
+        return fused
+
     # -- public API --------------------------------------------------------
 
     def reset(self, batch: int, generator: torch.Generator
@@ -230,7 +298,10 @@ class LocoEnv:
         smoothed = state.last_action + ACTION_SMOOTHING * (
             action - state.last_action)
         bodies = self.apply_poke(state.bodies, *poke)
-        bodies, obs, reward, done = self._step_core(bodies, smoothed)
+        if self._fused_step is not None:
+            bodies, obs, reward, done = self._fused_step(bodies, smoothed)
+        else:
+            bodies, obs, reward, done = self._step_core(bodies, smoothed)
         smoothed = torch.where(done[:, None], torch.zeros_like(smoothed),
                                smoothed)
         state = replace(state, bodies=bodies, last_action=smoothed,

@@ -4,8 +4,9 @@
 The authoring API and the compilation to structure-of-arrays tables run in
 numpy, exactly as in the JAX builder; torch tensors are made at the end on
 the requested device.  This slice compiles plane-contact scenes jointed by
-hinges and cone-twists: collider-collider pairs, terrains, force fields,
-triggers and the runtime broadphase raise `NotImplementedError`.
+distance, ball, fixed, hinge and cone-twist joints: slider joints,
+collider-collider pairs, terrains, force fields, triggers and the runtime
+broadphase raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -122,6 +123,10 @@ def _quat_mul_np(a, b):
         aw * bz + ax * by - ay * bx + az * bw,
         aw * bw - ax * bx - ay * by - az * bz,
     ])
+
+
+def _quat_conj_np(q):
+    return np.array([-q[0], -q[1], -q[2], q[3]])
 
 
 def _quat_from_to_np(a, b):
@@ -312,9 +317,8 @@ class SceneBuilder:
 
     def add_joint(self, kind: str, body_a: int, body_b: int,
                   collide_connected: bool = False, **params):
-        if kind not in ("hinge", "cone_twist"):
-            _not_ported(f"{kind} joints",
-                        "distance, ball, fixed and slider rows and preps")
+        if kind not in ("distance", "ball", "fixed", "hinge", "cone_twist"):
+            _not_ported(f"{kind} joints", "slider rows and preps")
         self.joints.append(_Joint(
             kind=kind, body_a=body_a, body_b=body_b,
             params={k: np.asarray(v, np.float32) for k, v in params.items()},
@@ -385,17 +389,43 @@ class SceneBuilder:
                               if max_twist_torque is not None else -1.0),
         )
 
-    def add_distance_joint(self, *args, **kwargs):
-        _not_ported("distance joints", "distance, ball, fixed and slider rows and preps")
+    def add_distance_joint(self, body_a, body_b, global_anchor_a,
+                           global_anchor_b, length=None):
+        """Keeps the anchors `length` apart (default: their distance now)."""
+        if length is None:
+            length = float(np.linalg.norm(
+                np.asarray(global_anchor_b, np.float64)
+                - np.asarray(global_anchor_a, np.float64)))
+        return self.add_joint(
+            "distance", body_a, body_b,
+            anchor_a=self._to_local_point(body_a, global_anchor_a),
+            anchor_b=self._to_local_point(body_b, global_anchor_b),
+            length=length,
+        )
 
-    def add_ball_joint(self, *args, **kwargs):
-        _not_ported("ball joints", "distance, ball, fixed and slider rows and preps")
+    def add_ball_joint(self, body_a, body_b, global_anchor):
+        return self.add_joint(
+            "ball", body_a, body_b,
+            anchor_a=self._to_local_point(body_a, global_anchor),
+            anchor_b=self._to_local_point(body_b, global_anchor),
+        )
 
-    def add_fixed_joint(self, *args, **kwargs):
-        _not_ported("fixed joints", "distance, ball, fixed and slider rows and preps")
+    def _init_inv_rot(self, body_a, body_b):
+        """conj(qB0) * qA0: the relative rotation the fixed joint keeps."""
+        _, qa = self._body_pose(body_a)
+        _, qb = self._body_pose(body_b)
+        return _quat_mul_np(_quat_conj_np(qb), qa)
+
+    def add_fixed_joint(self, body_a, body_b, global_anchor):
+        return self.add_joint(
+            "fixed", body_a, body_b,
+            anchor_a=self._to_local_point(body_a, global_anchor),
+            anchor_b=self._to_local_point(body_b, global_anchor),
+            init_inv_rot=self._init_inv_rot(body_a, body_b),
+        )
 
     def add_slider_joint(self, *args, **kwargs):
-        _not_ported("slider joints", "distance, ball, fixed and slider rows and preps")
+        _not_ported("slider joints", "slider rows and preps")
 
     # -- compilation -------------------------------------------------------
 

@@ -1,10 +1,10 @@
-"""Joint constraints: hinge and cone-twist with limits and motors
-(counterpart of ``d3d12renderer_tpu/physics/joints.py``).
+"""Joint constraints: distance, ball, fixed, and hinge and cone-twist with
+limits and motors (counterpart of ``d3d12renderer_tpu/physics/joints.py``).
 
 Prep runs once per substep; the solve runs once per solver iteration, color
 by color, in the reference's type order.  Runtime motor targets (the RL
-action) come in through `motor_overrides`.  Distance, ball, fixed and slider
-joints are not ported yet and raise.  Tensors carry a leading scene axis B.
+action) come in through `motor_overrides`.  Slider joints are not ported yet
+and raise.  Tensors carry a leading scene axis B.
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ from ..core import maths as m
 from .solver import ColorPlan, scatter_bodies
 from .types import JointTable, SceneArchetype
 
+DISTANCE_BETA = 0.1
 BALL_BETA = 0.1
+SLIDER_BETA = 0.1
 HINGE_ROTATION_BETA = 0.3
 HINGE_LIMIT_BETA = 0.1
 TWIST_LIMIT_BETA = 0.1
@@ -156,6 +158,73 @@ def _where(c, a, b):
     a = torch.as_tensor(a, dtype=torch.float32, device=c.device)
     b = torch.as_tensor(b, dtype=torch.float32, device=c.device)
     return torch.where(c, a, b)
+
+
+# --------------------------------------------------------------------------
+# Distance, ball, fixed
+# --------------------------------------------------------------------------
+
+def _prep_distance(table, ctx, p):
+    ia, ib, qa, qb, ra, rb, ga, gb, im_a, im_b, ii_a, ii_b, active = _common(
+        table, ctx, p)
+    u = gb - ga
+    l = m.length(u)
+    u = torch.where((l > 1e-3)[..., None],
+                    u / torch.clamp(l, min=1e-3)[..., None], torch.zeros_like(u))
+    bias = (l - p["length"]) * _bias_scale(ctx.dt, DISTANCE_BETA)
+    ca, cb = m.cross(ra, u), m.cross(rb, u)
+    to_wa, to_wb = _mv(ii_a, ca), _mv(ii_b, cb)
+    k = im_a + im_b + _rdot(ca, to_wa) + _rdot(cb, to_wb)
+    eff = _safe_div(torch.ones_like(k), k, k != 0) * active
+    return dict(ia=ia, ib=ib, ra=ra, rb=rb, u=u, bias=bias, eff=eff,
+                to_wa=to_wa, to_wb=to_wb, im_a=im_a, im_b=im_b)
+
+
+def _solve_distance(prep, va, wa, vb, wb, imp):
+    av_a = va + m.cross(wa, prep["ra"])
+    av_b = vb + m.cross(wb, prep["rb"])
+    cdot = _rdot(prep["u"], av_b - av_a) + prep["bias"]
+    lam = -prep["eff"] * cdot
+    P = lam[..., None] * prep["u"]
+    va = va - prep["im_a"][..., None] * P
+    wa = wa - prep["to_wa"] * lam[..., None]
+    vb = vb + prep["im_b"][..., None] * P
+    wb = wb + prep["to_wb"] * lam[..., None]
+    return va, wa, vb, wb
+
+
+def _prep_ball(table, ctx, p):
+    ia, ib, qa, qb, ra, rb, ga, gb, im_a, im_b, ii_a, ii_b, active = _common(
+        table, ctx, p)
+    inv_K = _ball_K_inv(ra, rb, im_a, im_b, ii_a, ii_b, active)
+    bias = (gb - ga) * _bias_scale(ctx.dt, BALL_BETA)
+    return dict(ia=ia, ib=ib, ra=ra, rb=rb, inv_K=inv_K, bias=bias,
+                im_a=im_a, im_b=im_b, ii_a=ii_a, ii_b=ii_b)
+
+
+def _solve_ball(prep, va, wa, vb, wb, imp):
+    return _solve_ball_part(prep, va, wa, vb, wb)
+
+
+def _prep_fixed(table, ctx, p):
+    ia, ib, qa, qb, ra, rb, ga, gb, im_a, im_b, ii_a, ii_b, active = _common(
+        table, ctx, p)
+    inv_K = _ball_K_inv(ra, rb, im_a, im_b, ii_a, ii_b, active)
+    t_bias = (gb - ga) * _bias_scale(ctx.dt, BALL_BETA)
+    inv_K_rot = _safe_inv3(ii_a + ii_b, active)
+    rot_err = m.quat_mul(qb, m.quat_mul(p["init_inv_rot"], m.quat_conj(qa)))
+    r_bias = rot_err[..., :3] * (2.0 * _bias_scale(ctx.dt, SLIDER_BETA))
+    return dict(ia=ia, ib=ib, ra=ra, rb=rb, inv_K=inv_K, bias=t_bias,
+                inv_K_rot=inv_K_rot, r_bias=r_bias,
+                im_a=im_a, im_b=im_b, ii_a=ii_a, ii_b=ii_b)
+
+
+def _solve_fixed(prep, va, wa, vb, wb, imp):
+    """Rotation part, then the point-to-point part."""
+    lam = -_mv(prep["inv_K_rot"], (wb - wa) + prep["r_bias"])
+    wa = wa - _mv(prep["ii_a"], lam)
+    wb = wb + _mv(prep["ii_b"], lam)
+    return _solve_ball_part(prep, va, wa, vb, wb)
 
 
 # --------------------------------------------------------------------------
@@ -412,20 +481,23 @@ def _solve_cone_twist(prep, va, wa, vb, wb, imp):
 
 def _not_ported(table, ctx, p):
     raise NotImplementedError(
-        "distance, ball, fixed and slider joints are not ported yet "
-        "(ROADMAP.md Queue 1: distance, ball, fixed and slider rows and preps)")
+        "slider joints are not ported yet (ROADMAP.md Queue 1: slider rows "
+        "and preps)")
 
 
 _PREP_FNS = {
-    "distance": _not_ported,
-    "ball": _not_ported,
-    "fixed": _not_ported,
+    "distance": _prep_distance,
+    "ball": _prep_ball,
+    "fixed": _prep_fixed,
     "hinge": _prep_hinge,
     "cone_twist": _prep_cone_twist,
     "slider": _not_ported,
 }
 
 _SOLVE_FNS = {
+    "distance": _solve_distance,
+    "ball": _solve_ball,
+    "fixed": _solve_fixed,
     "hinge": _solve_hinge,
     "cone_twist": _solve_cone_twist,
 }

@@ -1,6 +1,7 @@
 """Whole-loop colored solver: the `iterations`-long sequential-impulse solve
 (joint tables in `JOINT_SOLVE_ORDER`, then contact rows color by color) as
-one CUDA kernel, `csrc/colored_solver.cu`.
+one CUDA kernel, `csrc/colored_solver.cu` (row solves in
+`csrc/solver_rows.cuh`).
 
 Counterpart of ``d3d12renderer_tpu/physics/solver_pallas.py``
 (`make_colored_solver` and its kernel `_build_kernel`).  Beside the kernel
@@ -14,8 +15,10 @@ A solver built with backend:
 * "plain" runs the plain version on any device (tests and the chip check
   compare the two with it).
 
-The kernel library is compiled with nvcc at first use from the package's
-`csrc/*.cu` into `build/torch_kernels/<source hash>/` and bound with ctypes.
+The kernel library (this solver and the fused whole-substep kernel of
+`substep_cuda.py`) is compiled with one nvcc call at first use from the
+package's `csrc/*.cu` and `csrc/*.cuh` into
+`build/torch_kernels/<source hash>/` and bound with ctypes.
 """
 
 from __future__ import annotations
@@ -40,19 +43,24 @@ _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
+              "csrc")
 LIBRARY_NAME = "libd3d12_torch_kernels.so"
 
 # --------------------------------------------------------------------------
 # Packed prep layout.  Each table's prep is one block of scalar planes
 # [field component][row][scene], scenes innermost so that neighbouring
 # threads read neighbouring addresses.  The offsets below are mirrored by the
-# constants of csrc/colored_solver.cu (a CPU test holds the two together).
+# constants of csrc/solver_rows.cuh (a CPU test holds the two together).
 # --------------------------------------------------------------------------
 
-# The ball part shared by hinge and cone-twist rows comes first in both.
+# The ball part: a whole ball row, and the first fields of fixed, hinge and
+# cone-twist rows.
 BALL_FIELDS = (("ra", 3), ("rb", 3), ("bias", 3), ("inv_K", 9), ("im_a", 1),
                ("im_b", 1), ("ii_a", 9), ("ii_b", 9))
+DISTANCE_FIELDS = (("ra", 3), ("rb", 3), ("u", 3), ("bias", 1), ("eff", 1),
+                   ("im_a", 1), ("im_b", 1), ("to_wa", 3), ("to_wb", 3))
+FIXED_FIELDS = BALL_FIELDS + (("inv_K_rot", 9), ("r_bias", 3))
 HINGE_FIELDS = BALL_FIELDS + (
     ("axis", 3), ("motor_vel", 1), ("eff_motor", 1), ("max_imp", 1),
     ("to_wa_ax", 3), ("to_wb_ax", 3), ("limit_sign", 1), ("limit_bias", 1),
@@ -73,8 +81,11 @@ CONTACT_FIELDS = (
 CONTACT_A_FIELDS = (("inv_mass_a", 1), ("r_a", 12), ("n_to_wa", 12),
                     ("t_to_wa", 12))
 
-KIND_IDS = {"hinge": 0, "cone_twist": 1, "contact": 2}
-JOINT_FIELDS = {"hinge": HINGE_FIELDS, "cone_twist": CONE_TWIST_FIELDS}
+KIND_IDS = {"hinge": 0, "cone_twist": 1, "contact": 2, "distance": 3,
+            "ball": 4, "fixed": 5}
+JOINT_FIELDS = {"distance": DISTANCE_FIELDS, "ball": BALL_FIELDS,
+                "fixed": FIXED_FIELDS, "hinge": HINGE_FIELDS,
+                "cone_twist": CONE_TWIST_FIELDS}
 # Per-table record of the kernel's `tables` array.
 (T_KIND, T_ROWS, T_ROW_BASE, T_COLOR_BASE, T_NUM_COLORS, T_PLANE_BASE,
  T_IMP_BASE, T_A_STATIC, T_B_STATIC, TABLE_INTS) = range(10)
@@ -91,7 +102,10 @@ def layout_offsets() -> Dict[str, int]:
             off += n
         return off
 
-    put("J", BALL_FIELDS, 0)
+    out["J_NUM_FIELDS"] = put("J", BALL_FIELDS, 0)
+    out["D_NUM_FIELDS"] = put("D", DISTANCE_FIELDS, 0)
+    out["F_NUM_FIELDS"] = put("F", FIXED_FIELDS[len(BALL_FIELDS):],
+                              sum(n for _, n in BALL_FIELDS))
     out["H_NUM_FIELDS"] = put("H", HINGE_FIELDS[len(BALL_FIELDS):],
                               sum(n for _, n in BALL_FIELDS))
     out["CT_NUM_FIELDS"] = put("CT", CONE_TWIST_FIELDS[len(BALL_FIELDS):],
@@ -171,7 +185,7 @@ class ColoredSolver:
             if t.kind not in JOINT_FIELDS:
                 raise NotImplementedError(
                     f"{t.kind} rows are not ported yet (ROADMAP.md Queue 1: "
-                    "distance, ball, fixed and slider rows and preps)")
+                    "slider rows and preps)")
             self.tables.append(_table_meta(
                 t.kind, k, arch.joint_color_indices[k],
                 t.body_a.cpu().numpy(), t.body_b.cpu().numpy(),
@@ -335,16 +349,22 @@ def _nvcc() -> str:
     return found
 
 
-def build_library() -> Path:
-    """Compile csrc/*.cu into a shared library unless a build of the same
-    sources and flags exists.  Raises if nvcc fails; the compiler's output
-    (ptxas register and spill counts included) is kept in build.log."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+def build_dir() -> Path:
+    """`BUILD_DIR/<hash>`: the hash covers the flags and every csrc/*.cu and
+    csrc/*.cuh, so an edit to a shared header rebuilds the library."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    out_dir = BUILD_DIR / digest.hexdigest()[:16]
+    return BUILD_DIR / digest.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Compile csrc/*.cu (one nvcc call, one library) unless a build of the
+    same sources and flags exists.  Raises if nvcc fails; the compiler's
+    output (ptxas register and spill counts included) is kept in build.log."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    out_dir = build_dir()
     lib = out_dir / LIBRARY_NAME
     if lib.exists():
         return lib
@@ -352,7 +372,7 @@ def build_library() -> Path:
     tmp = out_dir / f"{LIBRARY_NAME}.{os.getpid()}.tmp"
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                            *map(str, sources)],
-                          capture_output=True, text=True)
+                          capture_output=True, text=True, cwd=CSRC_DIR.parent)
     (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
@@ -365,7 +385,8 @@ _library: Optional[ctypes.CDLL] = None
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library once per process."""
+    """Build (at first use) and load the kernel library once per process;
+    binds the entry points of both kernels."""
     global _library
     if _library is None:
         lib = ctypes.CDLL(str(build_library()))
@@ -377,6 +398,12 @@ def load_library() -> ctypes.CDLL:
         lib.colored_solver_launch.restype = i32
         lib.colored_solver_max_slots.restype = i32
         lib.colored_solver_max_impulses.restype = i32
+        # The fused whole-substep kernel (substep_cuda.py): a FusedArgs
+        # struct by address, the device and the stream.
+        lib.fused_substep_launch.argtypes = [ptr, i32, ptr]
+        lib.fused_substep_launch.restype = i32
+        lib.fused_substep_max_bodies.restype = i32
+        lib.fused_substep_args_size.restype = i32
         _library = lib
     return _library
 

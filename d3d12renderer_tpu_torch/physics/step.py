@@ -1,9 +1,11 @@
 """The physics step (counterpart of ``d3d12renderer_tpu/physics/step.py``).
 
-Per substep: collider poses -> plane narrowphase -> gravity, damping and
-force integration -> contact and joint prep -> the colored solve (the CUDA
-kernel for CUDA tensors) -> semi-implicit Euler.  The scene batch is the
-leading axis of every state tensor.
+Per substep, unless the fused whole-substep kernel takes it
+(`substep_cuda.make_fused_substep`, for supported archetypes on CUDA
+tensors): collider poses -> plane narrowphase -> gravity, damping and force
+integration -> contact and joint prep -> the colored solve (the CUDA kernel
+for CUDA tensors) -> semi-implicit Euler.  The scene batch is the leading
+axis of every state tensor.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core import maths as m
-from . import collide, joints as joints_mod, solver, solver_cuda
+from . import collide, joints as joints_mod, solver, solver_cuda, substep_cuda
 from .narrow import ContactTable
 from .types import BodyState, PhysicsSettings, SceneArchetype
 
@@ -62,11 +64,9 @@ class SubstepPrep:
 
 
 def _check_settings(settings: PhysicsSettings):
-    if settings.fused_substep != "off":
-        raise NotImplementedError(
-            f"fused_substep={settings.fused_substep!r}: the fused whole-substep "
-            "kernel is not ported yet (ROADMAP.md Queue 2, kernel #2); pass "
-            "PhysicsSettings(fused_substep='off')")
+    if settings.fused_substep not in ("auto", "force", "off"):
+        raise ValueError("fused_substep must be 'auto', 'force' or 'off', "
+                         f"not {settings.fused_substep!r}")
     if settings.contact_mode != "colored":
         raise NotImplementedError(
             f"contact_mode={settings.contact_mode!r} is not ported yet "
@@ -106,9 +106,17 @@ def substep_prep(arch: SceneArchetype, state: BodyState, dt: float,
 
 
 def physics_substep(arch: SceneArchetype, state: BodyState, dt: float,
-                    settings: PhysicsSettings, motor_overrides=None):
-    """One substep of every scene: returns (new_state, contacts)."""
+                    settings: PhysicsSettings, motor_overrides=None,
+                    allow_fused: bool = True):
+    """One substep of every scene: returns (new_state, contacts).  Where the
+    fused route takes the substep, the contacts never leave the kernel and
+    come back as None, as in the JAX package."""
     _check_settings(settings)
+    if allow_fused and settings.fused_substep != "off":
+        fused = substep_cuda.make_fused_substep(
+            arch, settings, dt, motor_overrides, state.pos.device)
+        if fused is not None:
+            return fused(state, motor_overrides), None
     n = arch.num_bodies
     sp = substep_prep(arch, state, dt, settings, motor_overrides)
     vel1, omega1 = sp.vel1, sp.omega1

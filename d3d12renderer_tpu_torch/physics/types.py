@@ -119,11 +119,16 @@ class SceneArchetype:
 class PhysicsSettings:
     """Same fields and defaults as the JAX `PhysicsSettings`.
 
-    `solver_backend` takes "auto" (the CUDA kernel for CUDA tensors, the
-    plain PyTorch solve for CPU tensors), "kernel" (the CUDA kernel; raises
-    on CPU tensors) or "plain" (the plain PyTorch solve on any device).
-    Only `contact_mode="colored"` and `fused_substep="off"` are ported; the
-    step raises `NotImplementedError` for the others."""
+    `fused_substep` takes "auto" (the fused whole-substep CUDA kernel for
+    supported archetypes on CUDA tensors, the unfused step otherwise),
+    "force" (as "auto", and on CPU tensors the fused route's plain version,
+    the unfused step) or "off" (always the unfused step).  `solver_backend`
+    picks the unfused step's solve: "auto" (the CUDA kernel for CUDA
+    tensors, the plain PyTorch solve for CPU tensors), "kernel" (the CUDA
+    kernel; raises on CPU tensors) or "plain" (the plain PyTorch solve on any
+    device; it also keeps the fused kernel out).  Only
+    `contact_mode="colored"` is ported; the step raises
+    `NotImplementedError` for the others."""
 
     frame_rate: int = 120
     max_substeps: int = 4

@@ -67,9 +67,11 @@ def _two_spheres(b):
     lambda b: b.finalize(),                                  # collider pair
     lambda b: b.finalize(broadphase="sap"),
     lambda b: b.add_slider_joint(0, 1, (0, 1.5, 0), (0, 1, 0)),
-    lambda b: b.add_ball_joint(0, 1, (0, 1.5, 0)),
-    lambda b: b.add_distance_joint(0, 1, (0, 1, 0), (0, 2, 0)),
-    lambda b: b.add_fixed_joint(0, 1, (0, 1.5, 0)),
+    lambda b: b.add_force_field((0, 1, 0), 1.0, 10.0),
+    lambda b: b.add_trigger((0, 1, 0), 1.0),
+    lambda b: (b.add_ball_joint(0, 1, (0, 1.5, 0)),          # jointed bodies
+               b.add_body((0, 3, 0)), b.add_sphere_collider(2, 0.5),
+               b.finalize()),                                # ... and a third
     lambda b: b.add_joint("slider", 0, 1),
     lambda b: b.add_terrain(np.zeros((4, 4))),
     lambda b: b.add_hull_collider(0, np.eye(3)),
@@ -80,6 +82,28 @@ def test_builder_refuses_what_is_not_ported(unported):
     _two_spheres(b)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         unported(b)
+
+
+@pytest.mark.parametrize("add,kind,params", [
+    (lambda b: b.add_ball_joint(0, 1, (0, 1.5, 0)), "ball",
+     {"anchor_a": [0, 0.5, 0], "anchor_b": [0, -0.5, 0]}),
+    (lambda b: b.add_distance_joint(0, 1, (0, 1, 0), (0, 2.5, 0)), "distance",
+     {"anchor_a": [0, 0, 0], "anchor_b": [0, 0.5, 0], "length": 1.5}),
+    (lambda b: b.add_fixed_joint(0, 1, (0, 1.5, 0)), "fixed",
+     {"anchor_a": [0, 0.5, 0], "init_inv_rot": [0, 0, 0, 1]}),
+])
+def test_distance_ball_fixed_joints_compile(add, kind, params):
+    """A joint between the two spheres also keeps them from colliding."""
+    b = SceneBuilder()
+    _two_spheres(b)
+    add(b)
+    arch, _ = b.finalize()
+    (table,) = arch.joints
+    assert table.kind == kind
+    assert (table.body_a.tolist(), table.body_b.tolist()) == ([0], [1])
+    for name, want in params.items():
+        np.testing.assert_allclose(table.params[name][0].numpy(), want,
+                                   atol=1e-6, err_msg=name)
 
 
 def test_grouped_spheres_compile_to_plane_rows():

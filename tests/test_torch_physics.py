@@ -222,8 +222,10 @@ def test_substep_matches_jax(both, field, atol):
 
 
 @pytest.mark.parametrize("settings,error", [
-    (PhysicsSettings(frame_rate=60), NotImplementedError),          # fused auto
-    (PhysicsSettings(frame_rate=60, fused_substep="force"), NotImplementedError),
+    (PhysicsSettings(frame_rate=60, contact_mode="runtime_gs"),     # fused auto
+     NotImplementedError),
+    (PhysicsSettings(frame_rate=60, fused_substep="force",
+                     contact_mode="split_jacobi"), NotImplementedError),
     (PhysicsSettings(frame_rate=60, fused_substep="off",
                      contact_mode="split_jacobi"), NotImplementedError),
     (PhysicsSettings(frame_rate=60, fused_substep="off",

@@ -1,10 +1,12 @@
 """Port-level contracts of d3d12renderer_tpu_torch: it imports no JAX, its
-solver dispatches by device, and the CUDA kernel's prep layout matches the
-wrapper that packs it.  Tests marked `cuda` need an NVIDIA GPU and skip
-without one; `python3 chip_smoke.py` runs the same comparison on the card.
+solver dispatches by device, the CUDA kernels' prep layout matches the
+wrapper that packs it, and the build hashes every source.  Tests marked
+`cuda` need an NVIDIA GPU and skip without one; `python3 chip_smoke.py` runs
+the same comparisons on the card.
 """
 
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -12,8 +14,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from d3d12renderer_tpu_torch.learning.loco_env import ACTION_SIZE, LocoEnv
-from d3d12renderer_tpu_torch.physics import solver_cuda, step
+from d3d12renderer_tpu_torch.learning.loco_env import (
+    ACTION_SIZE, STATE_SIZE, LocoEnv)
+from d3d12renderer_tpu_torch.physics import solver_cuda, step, substep_cuda
 from d3d12renderer_tpu_torch.physics.types import PhysicsSettings
 
 torch.set_num_threads(1)
@@ -89,14 +92,18 @@ def test_unknown_backend_is_refused(small_prep):
 
 
 def test_kernel_layout_constants_match_the_wrapper():
-    """The offsets written in colored_solver.cu are the wrapper's layout."""
-    src = (solver_cuda.CSRC_DIR / "colored_solver.cu").read_text()
+    """The offsets written in solver_rows.cuh, which both kernels include,
+    are the wrapper's layout."""
+    src = (solver_cuda.CSRC_DIR / "solver_rows.cuh").read_text()
+    assert '#include "solver_rows.cuh"' in (
+        solver_cuda.CSRC_DIR / "colored_solver.cu").read_text()
     consts = {k: int(v) for k, v in
               re.findall(r"constexpr int ([A-Z0-9_]+) = (\d+);", src)}
     for name, offset in solver_cuda.layout_offsets().items():
         assert consts.get(name) == offset, name
     kinds = {k.lower(): consts[f"KIND_{k.upper()}"]
-             for k in ("hinge", "cone_twist", "contact")}
+             for k in ("hinge", "cone_twist", "contact", "distance", "ball",
+                       "fixed")}
     assert kinds == solver_cuda.KIND_IDS
     for i, name in enumerate(("T_KIND", "T_ROWS", "T_ROW_BASE", "T_COLOR_BASE",
                               "T_NUM_COLORS", "T_PLANE_BASE", "T_IMP_BASE",
@@ -155,6 +162,21 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     assert not list(tmp_path.rglob(solver_cuda.LIBRARY_NAME))
 
 
+def test_header_edit_changes_the_build_dir(tmp_path, monkeypatch):
+    """The build directory hashes csrc/*.cuh as well as csrc/*.cu, so an
+    edit to the shared header cannot reuse a stale library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(solver_cuda.CSRC_DIR, csrc)
+    monkeypatch.setattr(solver_cuda, "CSRC_DIR", csrc)
+    before = solver_cuda.build_dir()
+    header = csrc / "solver_rows.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    after = solver_cuda.build_dir()
+    assert after != before and after.parent == before.parent
+    assert solver_cuda.build_dir() == after
+    assert "-I" in solver_cuda.NVCC_FLAGS
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA)")
@@ -194,3 +216,45 @@ def test_auto_backend_launches_the_kernel_on_cuda():
                                                      device="cuda"))
     assert solver_cuda.colored_solve_cuda.launches == before + 1
     assert torch.isfinite(obs).all()
+
+
+def _fused_vs_plain(batch, iterations):
+    """One env step at `batch` envs from disturbed states, through the fused
+    kernel and through its plain version (the unfused step, plain solve)."""
+    dev = torch.device("cuda")
+    env = LocoEnv(settings=PhysicsSettings(frame_rate=60,
+                                           solver_iterations=iterations,
+                                           fused_substep="off",
+                                           solver_backend="plain"),
+                  device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    _, st = env.reset(batch, gen)
+    for _ in range(5):
+        act = torch.rand((batch, ACTION_SIZE), generator=gen, device=dev) * 2 - 1
+        _, st, _, _ = env.step(st, act)
+    act = torch.rand((batch, ACTION_SIZE), generator=gen, device=dev) * 2 - 1
+    b = env.apply_poke(st.bodies, *env.draw_poke(gen, batch))
+    fused = LocoEnv(settings=PhysicsSettings(frame_rate=60,
+                                             solver_iterations=iterations),
+                    device=dev)._fused_step
+    before = substep_cuda.fused_substep_cuda.launches
+    got = fused(b, act)
+    assert substep_cuda.fused_substep_cuda.launches == before + 1
+    want = env._step_core(b, act)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [256, 1000])
+def test_fused_kernel_matches_plain_on_cuda(batch):
+    """B=256, and a ragged B=1000 (the last block of 128 part-filled).
+    Bounds of chip_smoke.py: vel 1e-3, omega 5e-3, obs/reward 1e-3; done
+    equal except where the head height lies within 1e-4 of 1 m."""
+    _need_cuda()
+    (gb, gobs, grew, gdone), (pb, pobs, prew, pdone) = _fused_vs_plain(batch, 30)
+    assert gobs.shape == (batch, STATE_SIZE)
+    torch.testing.assert_close(gb.vel, pb.vel, rtol=0, atol=1e-3)
+    torch.testing.assert_close(gb.omega, pb.omega, rtol=0, atol=5e-3)
+    torch.testing.assert_close(gobs, pobs, rtol=0, atol=1e-3)
+    torch.testing.assert_close(grew, prew, rtol=0, atol=1e-3)
+    assert torch.equal(gdone, pdone)
