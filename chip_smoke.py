@@ -1,14 +1,21 @@
 """Chip check of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Builds the port's CUDA kernels (the colored solver and the fused
-whole-substep kernel) from the sources beside this script, holds each
-against its plain PyTorch version at the main path's shapes, then drives the
-main path (`d3d12renderer_tpu_torch.entry`: policy forward + batched ragdoll
-env step, one fused-kernel launch per step) at 4096 envs, and the unfused
-route whose solve is the colored-solver kernel, and checks what comes out.
-Each phase prints one line; the line before the last is a JSON summary of
-the kernels, the last line `{"ok": true, "device": {...}}`.  Any failure
-exits non-zero.
+Builds the port's CUDA kernels (the colored solver, the fused whole-substep
+kernel and the two ray kernels) and the native BVH builder from the sources
+beside this script, holds each kernel against its plain PyTorch version at
+its path's shapes, then drives the paths:
+
+* locomotion (`d3d12renderer_tpu_torch.entry`: policy forward + batched
+  ragdoll env step, one fused-kernel launch per step) at 4096 envs, and the
+  unfused route whose solve is the colored-solver kernel;
+* path tracing (`entry.pathtrace_entry`: the 256,798-triangle atrium at
+  1920x1080, depth 3, sun NEE + MIS; its ray queries go through the BVH ray
+  kernel), and a 322-triangle scene at 1920x1080 whose queries go through
+  the brute-force ray kernel;
+
+and checks what comes out.  Each phase prints one line; the line before the
+last is a JSON summary of the kernels, the last line
+`{"ok": true, "device": {...}}`.  Any failure exits non-zero.
 
     python3 chip_smoke.py
 """
@@ -50,10 +57,136 @@ DONE_BAND = 1e-4
 REF_STEPS = 5
 REF_TOL = 1e-3
 
+# Path tracing: 1080p frames of the atrium at depth 3.
+PT_W, PT_H, PT_DEPTH = 1920, 1080, 3
+PT_FRAMES = 3
+RAY_SUBSET = 16384
+BVH_REPS = 20
+# The brute-force kernel tests every row: one 1080p launch over the atrium
+# takes seconds, so it is timed over fewer launches there.
+BRUTE_REPS = {"atrium": 2, "grid": 3, "small": 20}
+# The ray kernels round every operation of the plane test as the plain
+# version does (csrc/ray_plane.cuh), so they agree bit for bit: no ray may
+# differ except at an edge (|min(u, v, 1-u-v)| <= EDGE_EPS) or a tie in t
+# (within TIE_EPS relative), and t may differ by MAX_DT_REL on the others.
+EDGE_EPS = 1e-5
+TIE_EPS = 1e-6
+MAX_DT_REL = 1e-6
+# Card against CPU over the slice (64x48, depth 3): one flipped hit changes a
+# whole path, so pixels are compared one by one.
+SLICE_W, SLICE_H = 64, 48
+SLICE_PIXEL_TOL = 1e-3
+SLICE_SHARE = 0.99
+SLICE_MEAN_TOL = 1e-3
+
+# Roofline of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and fp32
+# operations/s outside the tensor cores, at the 700 W limit.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# Float operations per row solve, counted from csrc/solver_rows.cuh (a
+# multiply and an add count 2; min/max clamps count 1): the ball part 114,
+# distance 62, fixed 174 (rotation 60 + ball), hinge 250 (motor, limit and
+# rotation parts + ball), cone-twist 255 (four 1-D parts + ball); a contact
+# point against the static world 85 (friction then normal).
+ROW_FLOP = {"ball": 114, "distance": 62, "fixed": 174, "hinge": 250,
+            "cone_twist": 255}
+CONTACT_POINT_FLOP = 85
+# The ray plane test (csrc/ray_plane.cuh): 6 three-term dots (5 each), the
+# quotient, u, v and the accept terms = 42; a slab test of a node box: 6
+# subtractions, 6 products and 12 min/max = 24.
+PLANE_TEST_FLOP = 42
+BOX_TEST_FLOP = 24
+
 
 def fail(msg: str):
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def bound(bytes_moved, flop):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the fp32 peak."""
+    mem_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    op_ms = 1e3 * flop / FP32_FLOP_PER_S
+    return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
+
+
+def solve_flop(tables, batch, points, iterations):
+    """Operations of one `iterations`-long solve: every joint row of every
+    scene, and the active contact points (`points`, summed over scenes)."""
+    rows = sum(m.perm.shape[0] * ROW_FLOP[m.kind] for m in tables
+               if m.kind != "contact")
+    return iterations * (batch * rows + points * CONTACT_POINT_FLOP)
+
+
+def ptxas_summary(log: str, name: str) -> str:
+    """Registers, stack and spills of the kernel whose mangled name holds
+    `name`, from nvcc's `-Xptxas -v` output."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and name in line:
+            props = " ".join(l.strip() for l in lines[i + 1:i + 4]
+                             if "stack frame" in l or "registers" in l)
+            return f"{name}: {props}"
+    fail(f"ptxas output has no entry function {name}")
+
+
+def demo_scene(mesh):
+    """examples/render_scene.py's scene with ico spheres of subdivision 2:
+    1,678 triangles, more than one 1024-row chunk."""
+    import math
+
+    return [
+        (mesh.quad(half=30.0), 0),
+        (mesh.ico_sphere(1.0, 2).transformed(translate=(0, 1.0, 0)), 1),
+        (mesh.ico_sphere(0.8, 2).transformed(translate=(-2.2, 0.8, 0.6)), 2),
+        (mesh.box((0.7, 0.7, 0.7)).transformed(
+            translate=(2.2, 0.7, -0.5),
+            rotate=(0.0, math.sin(0.3), 0.0, math.cos(0.3))), 3),
+        (mesh.torus(0.9, 0.3).transformed(translate=(0.8, 0.3, 2.2)), 4),
+    ]
+
+
+class RecordingSampler:
+    """Wraps a sampler and keeps a CPU copy of every draw, in order."""
+
+    def __init__(self, inner):
+        self.inner, self.draws = inner, []
+
+    def _keep(self, x):
+        self.draws.append(x.cpu())
+        return x
+
+    def uniform(self, shape):
+        return self._keep(self.inner.uniform(shape))
+
+    def normal(self, shape):
+        return self._keep(self.inner.normal(shape))
+
+    def randint(self, shape, high):
+        return self._keep(self.inner.randint(shape, high))
+
+
+class ReplaySampler:
+    """Hands out recorded draws in order, checking their shapes."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+
+    def _next(self, shape):
+        x = self.draws.pop(0)
+        if tuple(x.shape) != tuple(shape):
+            fail(f"replayed draw of shape {tuple(x.shape)} for {shape}")
+        return x
+
+    def uniform(self, shape):
+        return self._next(shape)
+
+    def normal(self, shape):
+        return self._next(shape)
+
+    def randint(self, shape, high):
+        return self._next(shape)
 
 
 def chain_scene(builder):
@@ -86,6 +219,434 @@ def chain_scene(builder):
     return builder.finalize(device="cuda")
 
 
+def path_tracing(card, cuda_ms):
+    """The path-tracing phases: the BVHs, both ray kernels against the plain
+    version and their times at 1080p, the atrium main path, the brute-force
+    path, the card against the CPU.  Returns the two ray kernels' entries of
+    the kernels line."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch.core import maths as m
+    from d3d12renderer_tpu_torch.entry import pathtrace_entry
+    from d3d12renderer_tpu_torch.ops import ray_trace as rt
+    from d3d12renderer_tpu_torch.render import bvh as bvh_mod
+    from d3d12renderer_tpu_torch.render import camera as cam_mod
+    from d3d12renderer_tpu_torch.render import lights as lights_mod
+    from d3d12renderer_tpu_torch.render import mesh
+    from d3d12renderer_tpu_torch.render import pathtracer as pt
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    bvh_k, brute_k = rt.ray_closest_hit_bvh, rt.ray_closest_hit_brute
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    # 9. BVHs of the two benchmark scenes.
+    def depth(b):
+        count = b.node_count.cpu().numpy()
+        miss = b.node_miss.cpu().numpy()
+        level = np.zeros(count.shape[0], np.int64)
+        for i in np.nonzero(count == 0)[0]:
+            level[i + 1] = level[miss[i + 1]] = level[i] + 1
+        return int(level.max()) + 1
+
+    scenes, notes = {}, []
+    small_meshes = [(mesh.quad(5.0), 0), (mesh.ico_sphere(1.0, 2).transformed(
+        translate=(0, 1.0, 0)), 1)]
+    for name, meshes in (("atrium", mesh.atrium_scene(1.4)),
+                         ("grid", mesh.sphere_grid_scene(16, 26)),
+                         ("small", small_meshes)):
+        t0 = time.perf_counter()
+        b = bvh_mod.build_bvh(meshes, device=dev)
+        rt.kernel_tables(b)
+        sync()
+        secs = time.perf_counter() - t0
+        scenes[name] = b
+        notes.append(f"{name} {int(b.tri_valid.sum())} tris in {len(meshes)} "
+                     f"parts: {secs:.2f} s, {b.node_min.shape[0]} nodes, "
+                     f"depth {depth(b)}")
+    if int(scenes["atrium"].tri_valid.sum()) != 256_798:
+        fail("the atrium does not have 256,798 triangles")
+    print(f"BVH (native builder + dense tables, on the card): "
+          f"{' | '.join(notes)}", flush=True)
+
+    # 10. Both ray kernels against the plain all-pairs version on the card.
+    def wavefront(eye, target):
+        camera = cam_mod.look_at(eye, target, device=dev,
+                                 v_fov=math.radians(60), aspect=PT_W / PT_H)
+        o, d = cam_mod.generate_rays(camera, PT_W, PT_H)
+        perm = torch.as_tensor(pt._tile_perm(PT_W, PT_H)[0], device=dev)
+        return o[perm].contiguous(), d[perm].contiguous()
+
+    def bounces(b, o, d):
+        """Rays from the primary hits, cosine-distributed about the
+        geometric normal that faces the ray."""
+        res = bvh_mod.closest_hit(b, o, d)
+        hit = res["hit"]
+        tri = res["tri"][hit].long()
+        gn = m.noz(m.cross(b.tri_e1[tri], b.tri_e2[tri]))
+        gn = torch.where((torch.sum(gn * d[hit], -1) > 0)[:, None], -gn, gn)
+        p = o[hit] + d[hit] * res["t"][hit][:, None] + gn * 1e-3
+        u1, u2 = torch.rand((2, p.shape[0]), generator=gen, device=dev)
+        t1, t2 = m.orthonormal_basis(gn)
+        l = (t1 * (u1.sqrt() * torch.cos(2 * math.pi * u2))[:, None]
+             + t2 * (u1.sqrt() * torch.sin(2 * math.pi * u2))[:, None]
+             + gn * (1 - u1).sqrt()[:, None])
+        return p.contiguous(), m.noz(l).contiguous()
+
+    def at_margin(planes, o, d, tm):
+        """Rays (a few) with a row at an edge or a tie in t, from the
+        all-pairs test in float64."""
+        p = planes.double()
+        out = []
+        for i in range(0, o.shape[0], 64):
+            oo, dd = o[i:i + 64].double(), d[i:i + 64].double()
+            t = (p[:, 3] - oo @ p[:, 0:3].T) / (dd @ p[:, 0:3].T)
+            u = oo @ p[:, 4:7].T + p[:, 7] + t * (dd @ p[:, 4:7].T)
+            v = oo @ p[:, 8:11].T + p[:, 11] + t * (dd @ p[:, 8:11].T)
+            inside = torch.minimum(torch.minimum(u, v), 1 - (u + v))
+            window = ((t >= 1e-4 * (1 - TIE_EPS))
+                      & (t <= tm[i:i + 64].double()[:, None] * (1 + TIE_EPS)))
+            edge = ((inside.abs() <= EDGE_EPS) & window).any(1)
+            acc = torch.where((inside >= -EDGE_EPS) & window, t, torch.inf)
+            two = acc.topk(2, dim=1, largest=False).values
+            out.append(edge | (two[:, 1] - two[:, 0] <= TIE_EPS * two[:, 0]))
+        return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool,
+                                                       device=dev)
+
+    def check(name, got, want, planes, o, d, tm, any_hit):
+        """(mismatches, mismatches outside the margins, max |dt| relative,
+        max |dt|) of one kernel's (t, tri) against the plain version's."""
+        (t, tri), (wt, wtri) = got, want
+        bad = ((tri >= 0) != (wtri >= 0)) if any_hit else (tri != wtri)
+        n_bad = int(bad.sum())
+        if n_bad > 4096:
+            fail(f"{name}: {n_bad} rays disagree with the plain version")
+        idx = torch.nonzero(bad)[:, 0]
+        outside = int((~at_margin(planes, o[idx], d[idx], tm[idx])).sum())
+        same = ~bad & (wtri >= 0)
+        if any_hit or not bool(same.any()):
+            return n_bad, outside, 0.0, 0.0
+        dt = (t[same] - wt[same]).abs()
+        return (n_bad, outside, (dt / wt[same].abs()).max().item(),
+                dt.max().item())
+
+    full = {}
+    for name, eye, target in (("atrium", (8.0, 6.0, -14.0), (0.0, 3.0, 0.0)),
+                              ("grid", (0.0, 4.0, -10.0), (0.0, 0.5, 0.0)),
+                              ("small", (0.0, 2.5, 6.0), (0.0, 1.0, 0.0))):
+        o, d = wavefront(eye, target)
+        full[name, "primary"] = (o, d)
+        if name != "small":
+            full[name, "bounce"] = bounces(scenes[name], o, d)
+
+    lines, max_dt = [], {"bvh": 0.0, "brute": 0.0}
+    planes, nodes = rt.kernel_tables(scenes["atrium"])
+    for wf in ("primary", "bounce"):
+        o, d = full["atrium", wf]
+        idx = torch.arange(0, o.shape[0], o.shape[0] // RAY_SUBSET,
+                           device=dev)[:RAY_SUBSET]
+        o, d = o[idx].contiguous(), d[idx].contiguous()
+        for mode in ("closest", "any"):
+            any_hit = mode == "any"
+            tm = (torch.rand(o.shape[0], generator=gen, device=dev) * 19.5
+                  + 0.5 if any_hit else torch.full((o.shape[0],), 1e30,
+                                                   device=dev))
+            want = rt.closest_hit_plain(planes, o, d, tm)
+            for kname, got in (
+                    ("bvh", bvh_k(planes, nodes, o, d, tm, any_hit)),
+                    ("brute", brute_k(planes, o, d, tm, any_hit))):
+                n_bad, outside, dt_rel, dt_abs = check(
+                    kname, got, want, planes, o, d, tm, any_hit)
+                max_dt[kname] = max(max_dt[kname], dt_abs)
+                lines.append(f"{kname} {wf} {mode}: {n_bad} differ "
+                             f"({outside} outside margins), max |dt| rel "
+                             f"{dt_rel:.2e}")
+                if outside or dt_rel > MAX_DT_REL:
+                    fail(f"{kname} disagrees with the plain version "
+                         f"({wf}, {mode})")
+            hits = int((want[1] >= 0).sum())
+            lines[-1] += f" [{hits} of {o.shape[0]} rays hit]"
+    splanes = rt.kernel_tables(scenes["small"])[0]
+    o, d = full["small", "primary"]
+    for mode in ("closest", "any"):
+        any_hit = mode == "any"
+        tm = (torch.rand(o.shape[0], generator=gen, device=dev) * 6 + 0.5
+              if any_hit else torch.full((o.shape[0],), 1e30, device=dev))
+        want = rt.closest_hit_plain(splanes, o, d, tm)
+        n_bad, outside, dt_rel, dt_abs = check(
+            "brute", brute_k(splanes, o, d, tm, any_hit), want, splanes, o,
+            d, tm, any_hit)
+        max_dt["brute"] = max(max_dt["brute"], dt_abs)
+        lines.append(f"brute small 1080p {mode}: {n_bad} differ ({outside} "
+                     f"outside margins), max |dt| rel {dt_rel:.2e}")
+        if outside or dt_rel > MAX_DT_REL:
+            fail(f"brute disagrees with the plain version (small, {mode})")
+    print(f"ray kernels vs plain on the card ({RAY_SUBSET} rays strided from "
+          f"each atrium 1080p wavefront; all 1080p rays on the "
+          f"{int(scenes['small'].tri_valid.sum())}-tri scene): "
+          f"{'; '.join(lines)} | bounds: none outside |min(u,v,1-u-v)| <= "
+          f"{EDGE_EPS} or a t tie within {TIE_EPS}, |dt| rel <= "
+          f"{MAX_DT_REL}", flush=True)
+
+    # Times at 1080p (CUDA events, after a warm launch) and the work each
+    # launch did, for the bounds.
+    def work(fn):
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        fn(stats)
+        sync()
+        tests, boxes = stats.tolist()
+        return tests, boxes
+
+    # The launches share one error word, read after each timing: no host
+    # sync between the timed launches.
+    times, err = [], rt.new_error_word(dev)
+    for (name, wf), (o, d) in full.items():
+        planes, nodes = rt.kernel_tables(scenes[name])
+        tm = torch.full((o.shape[0],), 1e30, device=dev)
+        entry = [f"{name} {wf} ({o.shape[0]} rays)"]
+        for kname in ("bvh", "brute"):
+            if kname == "bvh" and name == "small":
+                continue
+            reps = BVH_REPS if kname == "bvh" else BRUTE_REPS[name]
+            if kname == "bvh":
+                def fn(stats=None):
+                    return bvh_k(planes, nodes, o, d, tm, stats=stats,
+                                 error=err)
+            else:
+                def fn(stats=None):
+                    return brute_k(planes, o, d, tm, stats=stats, error=err)
+            ms = cuda_ms(fn, reps)
+            rt.raise_on_error(err)
+            tests, boxes = work(fn)
+            times.append((name, wf, kname, ms, tests, boxes, o.shape[0]))
+            entry.append(f"{kname} {ms:.3f} ms ({o.shape[0] / ms / 1e3:.1f} "
+                         f"Mrays/s, {reps} launches, {tests / o.shape[0]:.1f} "
+                         f"plane tests and {boxes / o.shape[0]:.1f} box "
+                         f"tests per ray)")
+        print(f"ray kernel times at 1080p: {' | '.join(entry)} | {card}",
+              flush=True)
+
+    def ray_bound(name, rays, tests, boxes):
+        b = scenes[name]
+        return bound(rays * (12 + 12 + 4 + 4 + 4)
+                     + b.dense.n.shape[0] * 4 * rt.PLANE_COLS
+                     + (b.node_min.shape[0] * 4 * rt.NODE_COLS
+                        if boxes else 0),
+                     tests * PLANE_TEST_FLOP + boxes * BOX_TEST_FLOP)
+
+    def kernel_time(name, wf, kname):
+        for t in times:
+            if t[:3] == (name, wf, kname):
+                return t
+        fail(f"no time for {kname} on {name} {wf}")
+
+    # The plain version at the kernels' main-path shapes, once each: the
+    # BVH kernel's (the atrium's primary wavefront) and the brute-force
+    # kernel's (the small scene's).
+    plain = {}
+    for name, kname in (("atrium", "bvh"), ("small", "brute")):
+        o, d = full[name, "primary"]
+        planes, nodes = rt.kernel_tables(scenes[name])
+        tm = torch.full((o.shape[0],), 1e30, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = rt.closest_hit_plain(planes, o, d, tm)
+        end.record()
+        sync()
+        got = (bvh_k(planes, nodes, o, d, tm) if kname == "bvh"
+               else brute_k(planes, o, d, tm))
+        n_bad, outside, dt_rel, dt_abs = check(kname, got, want, planes, o,
+                                               d, tm, False)
+        if outside or dt_rel > MAX_DT_REL:
+            fail(f"{kname} disagrees with the plain version on all of "
+                 f"{name}'s primary rays")
+        max_dt[kname] = max(max_dt[kname], dt_abs)
+        plain[kname] = start.elapsed_time(end)
+        print(f"plain version on {name}'s 1080p primary wavefront: "
+              f"{plain[kname]:.1f} ms (one run); {kname} kernel vs plain "
+              f"there: {n_bad} differ ({outside} outside margins), max |dt| "
+              f"rel {dt_rel:.2e}", flush=True)
+
+    # 11. The path tracer's main path: pathtrace_entry at 1920x1080, depth
+    # 3, sun NEE + MIS; every ray query through the BVH kernel.
+    def frames(fn, args, count):
+        fn(*args)                                       # warm frame
+        sync()
+        bvh_k.launches = brute_k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rays = []
+        t0 = time.perf_counter()
+        for _ in range(count):
+            img, n = fn(*args)
+            rays.append(n)
+        sync()
+        secs = time.perf_counter() - t0
+        rays = [int(n) for n in rays]
+        if img.shape != (PT_H, PT_W, 3) or not bool(torch.isfinite(img).all()):
+            fail("the frame is not a finite 1080p image")
+        if not img.mean().item() > 0:
+            fail("the frame is black")
+        return (img, rays, 1e3 * secs / count, sum(rays) / secs / 1e6,
+                (bvh_k.launches, brute_k.launches),
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    fn, args = pathtrace_entry(width=PT_W, height=PT_H,
+                               recursion_depth=PT_DEPTH)
+    img, rays, frame_ms, mrays, (n_bvh, n_brute), peak = frames(
+        fn, args, PT_FRAMES)
+    if n_bvh == 0 or n_brute:
+        fail(f"main path: {n_bvh} BVH and {n_brute} brute-force launches in "
+             f"{PT_FRAMES} frames")
+    pt_launches = n_bvh
+    with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args)
+        sync()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    ray_ms = sum(e.time_range.elapsed_us() for e in kernels
+                 if "ray_closest_hit" in e.name) / 1e3
+    # The bounce regroup, which every query of bounces 1-3 runs (6 of the
+    # frame's 8): one closest-hit query over the atrium's 1080p bounce
+    # wavefront with and without it, in turns; and its sort key alone.
+    bo, bd = full["atrium", "bounce"]
+    err = rt.new_error_word(dev)
+
+    def bounce_query(regroup):
+        return lambda: bvh_mod.closest_hit(scenes["atrium"], bo, bd,
+                                           regroup=regroup, error=err)
+
+    rg_ms = {True: [], False: []}
+    for regroup in (True, False, False, True):
+        rg_ms[regroup].append(cuda_ms(bounce_query(regroup), BVH_REPS))
+    rt.raise_on_error(err)
+    perm_ms = cuda_ms(lambda: rt.regroup_perm(
+        bo, bd, *scenes["atrium"].cache["regroup_bounds"]), BVH_REPS)
+    print(f"path trace main path (pathtrace_entry: atrium "
+          f"{int(scenes['atrium'].tri_valid.sum())} tris, {PT_W}x{PT_H}, "
+          f"depth {PT_DEPTH}, spp 1, sun NEE + MIS): {PT_FRAMES} frames, "
+          f"rays_traced {rays}, {frame_ms:.1f} ms per frame, "
+          f"{mrays:.2f} Mrays/s end to end, BVH-kernel launches per frame "
+          f"{n_bvh / PT_FRAMES:.1f} (brute {n_brute}), peak memory "
+          f"{peak:.2f} GiB, image mean {img.mean().item():.4f} | profiler, "
+          f"one frame: {len(kernels)} kernels, device busy {dev_ms:.1f} of "
+          f"{prof_ms:.1f} ms ({100 * dev_ms / prof_ms:.1f}%), ray kernels "
+          f"{ray_ms:.1f} ms ({100 * ray_ms / dev_ms:.1f}% of device time) | "
+          f"bounce regroup, one closest-hit query over the atrium's "
+          f"{bo.shape[0]} bounce rays, ms on {rg_ms[True]} / off "
+          f"{rg_ms[False]} (in turns on, off, off, on), regroup_perm alone "
+          f"{perm_ms:.3f} ms | {card}", flush=True)
+    del args
+
+    # 12. The brute-force kernel's path: the same path tracer on the
+    # 322-triangle scene (one chunk) at 1920x1080.
+    small = pt.Scene(
+        bvh=scenes["small"],
+        materials=pt.Materials(
+            albedo=torch.tensor([[0.5, 0.5, 0.5], [0.8, 0.2, 0.1]],
+                                device=dev),
+            emissive=torch.zeros((2, 3), device=dev),
+            roughness=torch.tensor([0.7, 0.3], device=dev),
+            metallic=torch.tensor([0.0, 0.0], device=dev)),
+        sky=pt.default_sky(device=dev)).with_shading_table()
+    small_cam = cam_mod.look_at((0.0, 2.5, 6.0), (0.0, 1.0, 0.0), device=dev,
+                                v_fov=math.radians(60), aspect=PT_W / PT_H)
+    settings = pt.PathTracerSettings(recursion_depth=PT_DEPTH)
+    sampler = pt.Sampler(torch.Generator(device=dev).manual_seed(2))
+
+    def small_frame(scene, camera, sampler):
+        with torch.inference_mode():
+            return pt.render(scene, camera, PT_W, PT_H, settings, 1, sampler)
+
+    _, s_rays, s_ms, s_mrays, (s_bvh, s_brute), _ = frames(
+        small_frame, (small, small_cam, sampler), 1)
+    if s_brute == 0 or s_bvh:
+        fail(f"small-scene path: {s_bvh} BVH and {s_brute} brute-force "
+             "launches")
+    print(f"brute-force path (path tracer on the "
+          f"{int(scenes['small'].tri_valid.sum())}-tri scene, {PT_W}x{PT_H}, "
+          f"depth {PT_DEPTH}): one frame, rays_traced {s_rays[0]}, "
+          f"{s_ms:.1f} ms, {s_mrays:.2f} Mrays/s, brute-force launches "
+          f"{s_brute} (BVH {s_bvh}) | {card}", flush=True)
+
+    # 13. The card against the CPU over the whole slice: the card's draws
+    # replayed into the CPU path (plain ray version), a 1,678-tri scene with
+    # two point lights at 64x48, depth 3.
+    def demo(device):
+        return pt.Scene(
+            bvh=bvh_mod.build_bvh(demo_scene(mesh), device=device),
+            materials=pt.Materials(
+                albedo=torch.tensor([[0.45, 0.45, 0.45], [0.75, 0.15, 0.12],
+                                     [0.95, 0.93, 0.88], [0.15, 0.3, 0.75],
+                                     [0.2, 0.7, 0.3]], device=device),
+                emissive=torch.zeros((5, 3), device=device),
+                roughness=torch.tensor([0.7, 0.35, 0.12, 0.5, 0.4],
+                                       device=device),
+                metallic=torch.tensor([0.0, 0.0, 1.0, 0.0, 0.0],
+                                      device=device)),
+            sky=pt.default_sky(device=device),
+            point_lights=lights_mod.make_point_lights(
+                [[-1.0, 2.5, 2.0], [2.8, 2.0, 1.5]],
+                [[9000.0, 7000.0, 4000.0], [2000.0, 4000.0, 9000.0]],
+                [18.0, 18.0], device=device)).with_shading_table()
+
+    def demo_cam(device):
+        return cam_mod.look_at((6, 3.2, 7), (0, 0.8, 0), device=device,
+                               v_fov=math.radians(45),
+                               aspect=SLICE_W / SLICE_H)
+
+    rec = RecordingSampler(pt.Sampler(
+        torch.Generator(device=dev).manual_seed(5)))
+    bvh_k.launches = 0
+    with torch.inference_mode():
+        g_img, g_rays = pt.render(demo(dev), demo_cam(dev), SLICE_W, SLICE_H,
+                                  settings, 1, rec)
+        sync()
+        if bvh_k.launches == 0:
+            fail("the card's slice run launched no BVH kernel")
+        c_img, c_rays = pt.render(demo("cpu"), demo_cam("cpu"), SLICE_W,
+                                  SLICE_H, settings, 1,
+                                  ReplaySampler(rec.draws))
+    err = (g_img.cpu() - c_img).abs()
+    close = (err <= SLICE_PIXEL_TOL * (1 + c_img.abs())).all(-1)
+    share, mean_err = close.float().mean().item(), err.mean().item()
+    print(f"card vs CPU over the slice ({SLICE_W}x{SLICE_H}, depth "
+          f"{PT_DEPTH}, 1,678 tris, 2 point lights, the card's draws "
+          f"replayed on the CPU): {100 * share:.2f}% of pixels within "
+          f"{SLICE_PIXEL_TOL} abs + rel (bound {100 * SLICE_SHARE:.0f}%), "
+          f"mean abs error {mean_err:.2e} (bound {SLICE_MEAN_TOL}), "
+          f"rays_traced {int(g_rays)} (card) / {int(c_rays)} (CPU)",
+          flush=True)
+    if share < SLICE_SHARE or not mean_err < SLICE_MEAN_TOL:
+        fail("the card's frame disagrees with the CPU path")
+
+    bvh_t = kernel_time("atrium", "primary", "bvh")
+    brute_t = kernel_time("small", "primary", "brute")
+    entries = []
+    for kname, t, launches, replaces in (
+            ("bvh", bvh_t, pt_launches,
+             "d3d12renderer_tpu/ops/ray_trace_pallas.py:333"),
+            ("brute", brute_t, s_brute,
+             "d3d12renderer_tpu/ops/ray_trace_pallas.py:157")):
+        name, _, _, ms, tests, boxes, rays_n = t
+        b_ms, b_by = ray_bound(name, rays_n, tests, boxes)
+        entries.append({
+            "name": f"ray_closest_hit_{kname}", "route": "cuda",
+            "source": "d3d12renderer_tpu_torch/csrc/ray_trace.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_dt[kname], "ms": ms, "plain_ms": plain[kname],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return entries
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -100,6 +661,7 @@ def main():
              "this checkout")
     from torch.autograd import DeviceType
 
+    from d3d12renderer_tpu_torch import cuda_build
     from d3d12renderer_tpu_torch.entry import entry
     from d3d12renderer_tpu_torch.learning.loco_env import (
         ACTION_SIZE, FRAME_RATE, STATE_SIZE, LocoEnv)
@@ -139,15 +701,23 @@ def main():
           f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. Build: one nvcc call, both kernels in one library.
+    # 2. Build: one nvcc call, every kernel in one library; the native BVH
+    # builder with g++.
     t0 = time.perf_counter()
-    lib_path = solver_cuda.build_library()
-    solver_cuda.load_library()
+    lib_path = cuda_build.build_library()
+    cuda_build.load_library()
     build_s = time.perf_counter() - t0
     log = (lib_path.parent / "build.log").read_text()
     ptxas = " ".join(l.strip() for l in log.splitlines()
                      if "registers" in l or "spill" in l or "entry" in l)
     print(f"build: {build_s:.1f} s -> {lib_path} | {ptxas}", flush=True)
+    t0 = time.perf_counter()
+    host_lib = cuda_build.build_host_library()
+    cuda_build.load_host_library()
+    host_s = time.perf_counter() - t0
+    print(f"ray kernels: {ptxas_summary(log, 'ray_closest_hit_bvh')} | "
+          f"{ptxas_summary(log, 'ray_closest_hit_brute')} | native BVH "
+          f"builder: {host_s:.1f} s -> {host_lib}", flush=True)
 
     # 3. Colored solver vs plain on the preps of a disturbed batch.
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -207,6 +777,11 @@ def main():
           flush=True)
     if not (err_v <= VEL_TOL and err_w <= OMEGA_TOL):
         fail("the colored kernel disagrees with its plain version")
+    # Bound: the packed prep read once, vel/omega in and out; the solve's
+    # operations at this batch's active contact points.
+    colored_bound = bound(
+        4 * (prep.numel() + 4 * sp.vel1.numel()),
+        solve_flop(solver.tables, BATCH, points, ITERATIONS))
 
     # 4. Fused kernel vs its plain version: one whole env step from the state
     # after the warm steps, with the same smoothed action and poke.
@@ -265,6 +840,16 @@ def main():
         p_ms.append(cuda_ms(lambda: penv._step_core(bodies, smoothed), 1))
         u_ms.append(cuda_ms(lambda: env._step_core(bodies, smoothed), 10))
         f_ms.append(cuda_ms(fused_only, 20))
+        # Bound: body state in and out, the action in, obs/reward/done out;
+        # the solve's operations at this step's active contact points (the
+        # narrowphase, prep and post stage are left out: a lower bound).
+        fsp = step.substep_prep(fenv.arch, bodies, 1.0 / FRAME_RATE,
+                                fenv.settings, fenv._motor_overrides(smoothed))
+        f_points = int(fsp.contact_prep.pmask.sum().item())
+        fused_bound = bound(
+            4 * BATCH * (2 * 19 * bodies.pos.shape[1] + ACTION_SIZE
+                         + STATE_SIZE + 2),
+            solve_flop(solver.tables, BATCH, f_points, ITERATIONS))
     print(f"fused kernel vs plain (B={BATCH}, one env step, {ITERATIONS} "
           f"iterations): max err {json.dumps(f_errs)}, done flips {f_flips}; "
           f"vs the unfused kernel route: {json.dumps(r_errs)}, done flips "
@@ -442,6 +1027,8 @@ def main():
     if bool(fell.any()) or not mean_reward > 0.5:
         fail("the ragdolls did not stand")
 
+    rays = path_tracing(card, cuda_ms)
+
     print(json.dumps({"kernels": [{
         "name": "colored_solver",
         "route": "cuda",
@@ -451,6 +1038,9 @@ def main():
         "max_abs_err": colored_err,
         "ms": min(kernel_ms),
         "plain_ms": min(plain_ms),
+        "bound_ms": colored_bound[0],
+        "bound_by": colored_bound[1],
+        "library_ms": None,
     }, {
         "name": "fused_substep",
         "route": "cuda",
@@ -460,7 +1050,10 @@ def main():
         "max_abs_err": fused_err,
         "ms": min(f_ms),
         "plain_ms": min(p_ms),
-    }]}))
+        "bound_ms": fused_bound[0],
+        "bound_by": fused_bound[1],
+        "library_ms": None,
+    }] + rays}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,20 +3,26 @@ numpy (neither side's tensors cross over)."""
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
+from .cuda_build import resolve_device
 from .learning.loco_env import EnvState
 from .learning.networks import ActorCritic
 from .physics.types import BodyState, SceneArchetype
+from .render import bvh as bvh_mod
+from .render.camera import Camera
+from .render.lights import PointLights
+from .render.pathtracer import Materials, Sky
 
 _DENSE = ("pi_0", "pi_1", "action_head", "vf_0", "vf_1", "value_head")
 _BODY_FIELDS = ("pos", "rot", "vel", "omega", "force", "torque")
 
 
-def actor_critic_from_flax(params_np: Mapping, device="cpu") -> ActorCritic:
+def actor_critic_from_flax(params_np: Mapping,
+                          device="cuda") -> ActorCritic:
     """Build the port's ActorCritic from flax `ActorCritic` parameters as
     numpy arrays (`{"params": {...}}` or the inner dict).  flax Dense kernels
     are (in, out); torch Linear weights are (out, in)."""
@@ -33,12 +39,72 @@ def actor_critic_from_flax(params_np: Mapping, device="cpu") -> ActorCritic:
                 np.asarray(p[name]["bias"], np.float32)))
         model.log_std.copy_(torch.as_tensor(
             np.asarray(p["log_std"], np.float32)))
-    return model.to(device)
+    return model.to(resolve_device(device))
 
 
-def body_state_from_numpy(src, device="cpu") -> BodyState:
+def _get(src, name):
+    """A field of an object or a mapping; None where it has none."""
+    return src.get(name) if isinstance(src, Mapping) else getattr(src, name,
+                                                                   None)
+
+
+def _tensor(x, device) -> Optional[torch.Tensor]:
+    """numpy-convertible -> tensor on `device`, keeping the dtype (float64
+    becomes float32); None stays None."""
+    if x is None:
+        return None
+    x = np.array(x)
+    return torch.as_tensor(x.astype(np.float32) if x.dtype == np.float64
+                           else x, device=device)
+
+
+def _fields(cls, src, device, names=None):
+    names = names or cls.__dataclass_fields__
+    return cls(**{f: _tensor(_get(src, f), device) for f in names})
+
+
+def dense_from_numpy(src, device="cuda") -> bvh_mod.DenseTris:
+    """The port's DenseTris from the JAX package's (or any object with the
+    same fields as numpy-convertible arrays)."""
+    return _fields(bvh_mod.DenseTris, src, resolve_device(device))
+
+
+def bvh_from_numpy(src, device="cuda") -> bvh_mod.BVH:
+    """The port's BVH from the JAX package's; its dense table is carried
+    over, or built when the source has none."""
+    device = resolve_device(device)
+    bvh = _fields(bvh_mod.BVH, src, device, bvh_mod.BVH_FIELDS)
+    dense = _get(src, "dense")
+    bvh.dense = (dense_from_numpy(dense, device) if dense is not None
+                 else bvh_mod.build_dense(bvh))
+    return bvh
+
+
+def materials_from_numpy(src, device="cuda") -> Materials:
+    return _fields(Materials, src, resolve_device(device))
+
+
+def sky_from_numpy(src, device="cuda") -> Sky:
+    return _fields(Sky, src, resolve_device(device))
+
+
+def point_lights_from_numpy(src, device="cuda") -> PointLights:
+    return _fields(PointLights, src, resolve_device(device))
+
+
+def camera_from_numpy(src, device="cuda") -> Camera:
+    device = resolve_device(device)
+    return Camera(position=_tensor(_get(src, "position"), device),
+                  rotation=_tensor(_get(src, "rotation"), device),
+                  **{f: float(_get(src, f))
+                     for f in ("v_fov", "aspect", "near", "far")})
+
+
+def body_state_from_numpy(src, device="cuda") -> BodyState:
     """BodyState from any object or mapping with (B, N, k) numpy-convertible
     pos / rot / vel / omega / force / torque."""
+    device = resolve_device(device)
+
     def get(name):
         x = src[name] if isinstance(src, Mapping) else getattr(src, name)
         return torch.as_tensor(np.array(x, np.float32), device=device)
@@ -47,7 +113,8 @@ def body_state_from_numpy(src, device="cpu") -> BodyState:
 
 
 def env_state_from_numpy(bodies, last_action, steps,
-                         generator: torch.Generator, device="cpu") -> EnvState:
+                         generator: torch.Generator, device="cuda") -> EnvState:
+    device = resolve_device(device)
     return EnvState(
         bodies=body_state_from_numpy(bodies, device),
         last_action=torch.as_tensor(np.array(last_action, np.float32),

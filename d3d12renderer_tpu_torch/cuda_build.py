@@ -1,0 +1,169 @@
+"""Build and bind the port's native code, at first use, from `csrc/`.
+
+* The CUDA kernels: every `csrc/*.cu` in ONE nvcc call for `sm_90a` into one
+  shared library with a plain C interface, `build/torch_kernels/<hash>/`,
+  loaded with ctypes (`load_library`).  The hash covers the flags and every
+  `csrc/*.cu` and `csrc/*.cuh`, so an edit to a shared header rebuilds.
+  nvcc's output, ptxas register / stack / spill counts of every kernel
+  included, is kept in `build.log` beside the library.
+* The host builder of the BVH: `csrc/bvh_build.cpp`, built with g++ into
+  `build/torch_native/<hash>/` (`load_host_library`).
+
+Nothing is built when a module is imported.  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
+
+_PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = _PACKAGE_DIR / "csrc"
+BUILD_DIR = _PACKAGE_DIR.parent / "build" / "torch_kernels"
+HOST_BUILD_DIR = _PACKAGE_DIR.parent / "build" / "torch_native"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
+              "csrc")
+LIBRARY_NAME = "libd3d12_torch_kernels.so"
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+HOST_SOURCE = "bvh_build.cpp"
+HOST_LIBRARY_NAME = "libd3d12_torch_host.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the native BVH builder "
+                           f"(csrc/{HOST_SOURCE}) needs a C++ compiler")
+    return found
+
+
+def _hashed_dir(root: Path, flags: Sequence[str], sources) -> Path:
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return root / digest.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    """`BUILD_DIR/<hash>` of the flags and every csrc/*.cu and csrc/*.cuh."""
+    return _hashed_dir(BUILD_DIR, NVCC_FLAGS,
+                       sorted(CSRC_DIR.glob("*.cu"))
+                       + sorted(CSRC_DIR.glob("*.cuh")))
+
+
+def _compile(cmd, out_dir: Path, name: str, what: str) -> Path:
+    """Run `cmd + ["-o", tmp]` unless `out_dir/name` exists; the compiler's
+    output goes to `out_dir/build.log`; the library appears atomically."""
+    lib = out_dir / name
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{name}.{os.getpid()}.tmp"
+    proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True,
+                          text=True, cwd=CSRC_DIR.parent)
+    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed (rc={proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def build_library() -> Path:
+    """Compile csrc/*.cu (one nvcc call, one library) unless a build of the
+    same sources and flags exists."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    return _compile([_nvcc(), *NVCC_FLAGS, *map(str, sources)], build_dir(),
+                    LIBRARY_NAME, "nvcc")
+
+
+def build_host_library() -> Path:
+    """Compile csrc/bvh_build.cpp with g++ unless a build exists."""
+    src = CSRC_DIR / HOST_SOURCE
+    out_dir = _hashed_dir(HOST_BUILD_DIR, HOST_FLAGS, [src])
+    return _compile([_gxx(), *HOST_FLAGS, str(src)], out_dir,
+                    HOST_LIBRARY_NAME, "g++")
+
+
+_library: Optional[ctypes.CDLL] = None
+_host_library: Optional[ctypes.CDLL] = None
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library once per process;
+    binds the entry points of every kernel."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build_library()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        # The colored solver (physics/solver_cuda.py).
+        lib.colored_solver_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,          # vel/omega in, out; prep
+            ptr, i32, ptr, ptr, ptr, ptr,     # tables, count, colors, a, b, dyn
+            i32, i32, i32, i32, i32, ptr]     # slots, imps, B, iters, dev, stream
+        lib.colored_solver_launch.restype = i32
+        lib.colored_solver_max_slots.restype = i32
+        lib.colored_solver_max_impulses.restype = i32
+        # The fused whole-substep kernel (physics/substep_cuda.py): a
+        # FusedArgs struct by address, the device and the stream.
+        lib.fused_substep_launch.argtypes = [ptr, i32, ptr]
+        lib.fused_substep_launch.restype = i32
+        lib.fused_substep_max_bodies.restype = i32
+        lib.fused_substep_args_size.restype = i32
+        # The two ray kernels (ops/ray_trace.py): a RayArgs struct by
+        # address, the device and the stream.
+        for name in ("ray_closest_hit_bvh_launch",
+                     "ray_closest_hit_brute_launch"):
+            getattr(lib, name).argtypes = [ptr, i32, ptr]
+            getattr(lib, name).restype = i32
+        lib.ray_args_size.restype = i32
+        lib.ray_max_stack.restype = i32
+        _library = lib
+    return _library
+
+
+def load_host_library() -> ctypes.CDLL:
+    """Build (at first use) and load the native BVH builder."""
+    global _host_library
+    if _host_library is None:
+        lib = ctypes.CDLL(str(build_host_library()))
+        ptr = ctypes.c_void_p
+        lib.bvh_build.argtypes = [ptr, ptr, ptr, ctypes.c_int64,
+                                  ctypes.c_int32, ctypes.c_int64,
+                                  ptr, ptr, ptr, ptr, ptr, ptr]
+        lib.bvh_build.restype = ctypes.c_int64
+        _host_library = lib
+    return _host_library
+
+
+def resolve_device(device) -> torch.device:
+    """`torch.device(device)`, refusing a CUDA device when there is none:
+    the port's entry points default to the card and never fall back to the
+    CPU quietly; pass `device="cpu"` to run on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA device is available; "
+            "pass device='cpu' to run the port on the CPU")
+    return device

@@ -5,12 +5,13 @@ from __future__ import annotations
 
 import torch
 
+from .cuda_build import resolve_device
 from .learning.loco_env import ACTION_SIZE, FRAME_RATE, STATE_SIZE, LocoEnv
 from .learning.networks import ActorCritic
 from .physics.types import PhysicsSettings
 
 
-def entry(device="cpu", batch: int = 8, seed: int = 0,
+def entry(device="cuda", batch: int = 8, seed: int = 0,
           fused_substep: str = "auto", solver_backend: str = "auto"):
     """Returns `(fn, (model, env_state, obs))` on `device`, where
     `fn(model, env_state, obs) -> (obs, env_state, reward, done)` runs the
@@ -20,7 +21,7 @@ def entry(device="cpu", batch: int = 8, seed: int = 0,
     fused-kernel launch; `fused_substep="off"` takes the unfused step with
     the colored-solver kernel, and `solver_backend="plain"` its plain
     PyTorch version."""
-    device = torch.device(device)
+    device = resolve_device(device)
     env = LocoEnv(settings=PhysicsSettings(
         frame_rate=FRAME_RATE, fused_substep=fused_substep,
         solver_backend=solver_backend), device=device)
@@ -36,3 +37,55 @@ def entry(device="cpu", batch: int = 8, seed: int = 0,
         return env.step(env_state, mean)
 
     return fn, (model, env_state, obs)
+
+
+# bench.py:358-365: floor, column stone, trim, balustrade, fountain metal,
+# cloth banners.
+ATRIUM_ALBEDO = [[0.55, 0.5, 0.45], [0.7, 0.66, 0.6], [0.75, 0.72, 0.65],
+                 [0.6, 0.58, 0.52], [0.9, 0.88, 0.85], [0.6, 0.15, 0.12]]
+ATRIUM_ROUGHNESS = [0.6, 0.7, 0.55, 0.65, 0.15, 0.8]
+ATRIUM_METALLIC = [0.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+
+
+def pathtrace_entry(device="cuda", width: int = 1920, height: int = 1080,
+                    recursion_depth: int = 3, seed: int = 0):
+    """The path tracer's main path (counterpart of `bench_pt_e2e`'s set-up,
+    `bench.py:356-372`): the 256,798-triangle atrium (`atrium_scene(1.4)`)
+    with its six materials under `default_sky()`, seen by
+    `look_at((8, 6, -14), (0, 3, 0))` at 60 degrees and width/height aspect.
+
+    Returns `(fn, (scene, camera, sampler))`, where
+    `fn(scene, camera, sampler) -> (image (H, W, 3), rays_traced)` renders
+    one frame at one sample per pixel, depth `recursion_depth`, with sun NEE
+    and MIS; each call draws new numbers from `sampler` (a
+    `torch.Generator` seeded with `seed`)."""
+    import math
+
+    from .render import bvh as bvh_mod
+    from .render import pathtracer as pt
+    from .render.camera import look_at
+    from .render.mesh import atrium_scene
+
+    device = resolve_device(device)
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    bvh = bvh_mod.build_bvh(atrium_scene(1.4), device=device)
+    materials = pt.Materials(albedo=f32(ATRIUM_ALBEDO),
+                             emissive=torch.zeros((6, 3), device=device),
+                             roughness=f32(ATRIUM_ROUGHNESS),
+                             metallic=f32(ATRIUM_METALLIC))
+    scene = pt.Scene(bvh=bvh, materials=materials,
+                     sky=pt.default_sky(device=device)).with_shading_table()
+    camera = look_at((8.0, 6.0, -14.0), (0.0, 3.0, 0.0), device=device,
+                     v_fov=math.radians(60), aspect=width / height)
+    settings = pt.PathTracerSettings(recursion_depth=recursion_depth)
+    sampler = pt.Sampler(torch.Generator(device=device).manual_seed(seed))
+
+    @torch.inference_mode()
+    def fn(scene, camera, sampler):
+        return pt.render(scene, camera, width, height, settings, spp=1,
+                         sampler=sampler)
+
+    return fn, (scene, camera, sampler)

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core import maths as m
+from ..cuda_build import resolve_device
 from ..models import ragdoll as rd
 from ..physics import substep_cuda
 from ..physics.builder import SceneBuilder
@@ -56,8 +57,8 @@ class LocoEnv:
     `PhysicsSettings(frame_rate=60)`, so `fused_substep="auto"`."""
 
     def __init__(self, settings: Optional[PhysicsSettings] = None,
-                 self_collision: bool = False, device="cpu"):
-        self.device = torch.device(device)
+                 self_collision: bool = False, device="cuda"):
+        self.device = resolve_device(device)
         b = SceneBuilder()
         b.add_static_plane((0.0, 1.0, 0.0), 0.0, friction=1.0, restitution=0.1)
         info = rd.build_humanoid_ragdoll(

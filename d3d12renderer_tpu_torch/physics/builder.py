@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..cuda_build import resolve_device
 from .types import (
     SHAPE_BOX,
     SHAPE_CAPSULE,
@@ -483,9 +484,10 @@ class SceneBuilder:
         return True
 
     def finalize(self, dtype=np.float32, broadphase: str = "static",
-                 device="cpu"):
+                 device="cuda"):
         """Compile into (SceneArchetype, BodyState) on `device`; the state
         has a leading batch axis of 1."""
+        device = resolve_device(device)
         if broadphase != "static":
             _not_ported("the runtime broadphase", "slice 2, physics/broadphase.py")
         for i in range(len(self.colliders)):

@@ -15,6 +15,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 
 from ..core import maths as m
+from ..cuda_build import resolve_device
 from .solver import ColorPlan, scatter_bodies
 from .types import JointTable, SceneArchetype
 
@@ -520,7 +521,8 @@ def prep_all(arch: SceneArchetype, ctx: JointContext,
 
 
 def init_impulses(arch: SceneArchetype, batch: int, dtype=torch.float32,
-                  device="cpu"):
+                  device="cuda"):
+    device = resolve_device(device)
     return tuple(
         torch.zeros((batch, t.body_a.shape[0], IMPULSE_DIMS[t.kind]),
                     dtype=dtype, device=device)

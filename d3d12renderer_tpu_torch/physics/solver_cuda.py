@@ -15,37 +15,23 @@ A solver built with backend:
 * "plain" runs the plain version on any device (tests and the chip check
   compare the two with it).
 
-The kernel library (this solver and the fused whole-substep kernel of
-`substep_cuda.py`) is compiled with one nvcc call at first use from the
-package's `csrc/*.cu` and `csrc/*.cuh` into
-`build/torch_kernels/<source hash>/` and bound with ctypes.
+The kernel library (this solver, the fused whole-substep kernel of
+`substep_cuda.py` and the ray kernels of `ops/ray_trace.py`) is built and
+bound by `cuda_build.py`.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
-from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from ..cuda_build import load_library
 from . import joints as joints_mod
 from . import solver as solver_mod
 from .types import SceneArchetype
-
-_PACKAGE_DIR = Path(__file__).resolve().parent.parent
-CSRC_DIR = _PACKAGE_DIR / "csrc"
-BUILD_DIR = _PACKAGE_DIR.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
-              "csrc")
-LIBRARY_NAME = "libd3d12_torch_kernels.so"
 
 # --------------------------------------------------------------------------
 # Packed prep layout.  Each table's prep is one block of scalar planes
@@ -331,81 +317,6 @@ def make_colored_solver(arch: SceneArchetype, num_pairs: int, iterations: int,
     if key not in arch.cache:
         arch.cache[key] = ColoredSolver(arch, num_pairs, iterations, backend)
     return arch.cache[key]
-
-
-# --------------------------------------------------------------------------
-# Build and bind
-# --------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
-    return found
-
-
-def build_dir() -> Path:
-    """`BUILD_DIR/<hash>`: the hash covers the flags and every csrc/*.cu and
-    csrc/*.cuh, so an edit to a shared header rebuilds the library."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh")):
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    return BUILD_DIR / digest.hexdigest()[:16]
-
-
-def build_library() -> Path:
-    """Compile csrc/*.cu (one nvcc call, one library) unless a build of the
-    same sources and flags exists.  Raises if nvcc fails; the compiler's
-    output (ptxas register and spill counts included) is kept in build.log."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    out_dir = build_dir()
-    lib = out_dir / LIBRARY_NAME
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIBRARY_NAME}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, sources)],
-                          capture_output=True, text=True, cwd=CSRC_DIR.parent)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
-    return lib
-
-
-_library: Optional[ctypes.CDLL] = None
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library once per process;
-    binds the entry points of both kernels."""
-    global _library
-    if _library is None:
-        lib = ctypes.CDLL(str(build_library()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.colored_solver_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr,          # vel/omega in, out; prep
-            ptr, i32, ptr, ptr, ptr, ptr,     # tables, count, colors, a, b, dyn
-            i32, i32, i32, i32, i32, ptr]     # slots, imps, B, iters, dev, stream
-        lib.colored_solver_launch.restype = i32
-        lib.colored_solver_max_slots.restype = i32
-        lib.colored_solver_max_impulses.restype = i32
-        # The fused whole-substep kernel (substep_cuda.py): a FusedArgs
-        # struct by address, the device and the stream.
-        lib.fused_substep_launch.argtypes = [ptr, i32, ptr]
-        lib.fused_substep_launch.restype = i32
-        lib.fused_substep_max_bodies.restype = i32
-        lib.fused_substep_args_size.restype = i32
-        _library = lib
-    return _library
 
 
 def colored_solve_cuda(vel1, omega1, prep, arrays: KernelArrays,

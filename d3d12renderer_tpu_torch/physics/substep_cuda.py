@@ -28,8 +28,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..cuda_build import load_library
 from . import joints as joints_mod
-from .solver_cuda import ColoredSolver, KernelArrays, load_library
+from .solver_cuda import ColoredSolver, KernelArrays
 from .types import (SHAPE_BOX, SHAPE_CAPSULE, SHAPE_SPHERE, BodyState,
                     PhysicsSettings, SceneArchetype)
 

@@ -20,7 +20,7 @@ torch.set_num_threads(1)
 def envs():
     return (JaxLocoEnv(settings=JaxSettings(frame_rate=60, fused_substep="off",
                                             solver_backend="xla")),
-            LocoEnv())
+            LocoEnv(device="cpu"))
 
 
 def test_ragdoll_archetype_matches_jax(envs):
@@ -64,14 +64,14 @@ def _two_spheres(b):
 
 
 @pytest.mark.parametrize("unported", [
-    lambda b: b.finalize(),                                  # collider pair
-    lambda b: b.finalize(broadphase="sap"),
+    lambda b: b.finalize(device="cpu"),                                # collider pair
+    lambda b: b.finalize(broadphase="sap", device="cpu"),
     lambda b: b.add_slider_joint(0, 1, (0, 1.5, 0), (0, 1, 0)),
     lambda b: b.add_force_field((0, 1, 0), 1.0, 10.0),
     lambda b: b.add_trigger((0, 1, 0), 1.0),
     lambda b: (b.add_ball_joint(0, 1, (0, 1.5, 0)),          # jointed bodies
                b.add_body((0, 3, 0)), b.add_sphere_collider(2, 0.5),
-               b.finalize()),                                # ... and a third
+               b.finalize(device="cpu")),                                # ... and a third
     lambda b: b.add_joint("slider", 0, 1),
     lambda b: b.add_terrain(np.zeros((4, 4))),
     lambda b: b.add_hull_collider(0, np.eye(3)),
@@ -97,7 +97,7 @@ def test_distance_ball_fixed_joints_compile(add, kind, params):
     b = SceneBuilder()
     _two_spheres(b)
     add(b)
-    arch, _ = b.finalize()
+    arch, _ = b.finalize(device="cpu")
     (table,) = arch.joints
     assert table.kind == kind
     assert (table.body_a.tolist(), table.body_b.tolist()) == ([0], [1])
@@ -112,7 +112,7 @@ def test_grouped_spheres_compile_to_plane_rows():
     g = b.new_no_collide_group()
     b.set_no_collide_group(a, g)
     b.set_no_collide_group(c, g)
-    arch, state = b.finalize()
+    arch, state = b.finalize(device="cpu")
     assert arch.vs_plane_body.tolist() == [0, 1]
     assert [i.tolist() for i in arch.contact_color_indices] == [[0, 1]]
     assert state.pos.shape == (1, 2, 3)

@@ -30,6 +30,7 @@ from d3d12renderer_tpu.physics import substep_pallas
 from d3d12renderer_tpu.physics.builder import SceneBuilder as JaxSceneBuilder
 from d3d12renderer_tpu.physics.types import BodyState as JaxBodyState
 from d3d12renderer_tpu.physics.types import PhysicsSettings as JaxSettings
+from d3d12renderer_tpu_torch import cuda_build
 from d3d12renderer_tpu_torch.convert import (
     archetype_to_numpy, body_state_from_numpy, env_state_from_numpy)
 from d3d12renderer_tpu_torch.learning.loco_env import (
@@ -75,7 +76,8 @@ def _build_chain(builder_cls):
     b.add_hinge_joint(bodies[2], bodies[3], (1.75, 0.35, 0.0), (0.0, 0.0, 1.0),
                       min_limit=-0.5, max_limit=0.5, motor_type=1.0,
                       motor_target=0.3, max_torque=50.0)
-    return b.finalize()
+    return b.finalize(**({"device": "cpu"} if builder_cls is SceneBuilder
+                         else {}))
 
 
 def _chain_state(state0, batch=3, seed=0):
@@ -100,7 +102,7 @@ def chains():
 @pytest.fixture(scope="module")
 def loco():
     return (JaxLocoEnv(settings=JaxSettings(frame_rate=60)),
-            LocoEnv(settings=PhysicsSettings(frame_rate=60)))
+            LocoEnv(settings=PhysicsSettings(frame_rate=60), device="cpu"))
 
 
 # --------------------------------------------------------------------------
@@ -316,7 +318,7 @@ def test_packed_rows_follow_the_solver_order(loco, chains, which):
 def test_kernel_constants_match_the_wrapper():
     """The constants and the FusedArgs struct of fused_substep.cu are the
     wrapper's layout."""
-    src = (solver_cuda.CSRC_DIR / "fused_substep.cu").read_text()
+    src = (cuda_build.CSRC_DIR / "fused_substep.cu").read_text()
     consts = {k: int(v) for k, v in
               re.findall(r"constexpr int ([A-Z0-9_]+) = (\d+);", src)}
     for name, offset in substep_cuda.const_offsets().items():
@@ -357,7 +359,7 @@ def _rollouts(jax_fused, port_fused, batch, steps, iterations, seed):
         frame_rate=60, solver_iterations=iterations, fused_substep=jax_fused))
     tenv = LocoEnv(settings=PhysicsSettings(
         frame_rate=60, solver_iterations=iterations,
-        fused_substep=port_fused))
+        fused_substep=port_fused), device="cpu")
     rng = np.random.default_rng(seed)
     actions = rng.uniform(-0.5, 0.5, (steps, batch, ACTION_SIZE))
     actions[..., 1:3 * 7:3] = np.where(
@@ -370,7 +372,8 @@ def _rollouts(jax_fused, port_fused, batch, steps, iterations, seed):
     _, tst = tenv.reset(batch, torch.Generator().manual_seed(0))
     tst = env_state_from_numpy(
         {f: np.asarray(getattr(jst.bodies, f)) for f in FIELDS},
-        np.asarray(jst.last_action), np.asarray(jst.steps), tst.generator)
+        np.asarray(jst.last_action), np.asarray(jst.steps), tst.generator,
+        device="cpu")
     jstep_fn = jax.jit(jax.vmap(jenv.step))
     keys_now = jst.rng
     out = []
@@ -484,7 +487,7 @@ def chain_runs(chains):
         jarch, st, DT, jset, None, allow_fused=False)[0]))
     jst = JaxBodyState(**{k: jnp.asarray(v) for k, v in s.items()})
     jpreps = jax.jit(jax.vmap(jax_prep))(jst)
-    tst = body_state_from_numpy(s)
+    tst = body_state_from_numpy(s, device="cpu")
     with torch.no_grad():
         tpreps = step.substep_prep(tarch, tst, DT, tset).joint_preps
         jout, tout = [], []
@@ -590,7 +593,7 @@ def host_kernel(tmp_path_factory):
     (d / "harness.cpp").write_text(_HARNESS)
     lib = d / "libhost_fused.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", f"-I{d}", f"-I{solver_cuda.CSRC_DIR}",
+                    "-fPIC", f"-I{d}", f"-I{cuda_build.CSRC_DIR}",
                     str(d / "harness.cpp"), "-o", str(lib)],
                    check=True, capture_output=True, text=True)
     host = ctypes.CDLL(str(lib))
@@ -621,7 +624,8 @@ def disturbed_loco():
     and one poke each, the last one sunk 1.5 m so that it falls and resets;
     4 solver iterations."""
     env = LocoEnv(settings=PhysicsSettings(frame_rate=60, solver_iterations=4,
-                                           fused_substep="off"))
+                                           fused_substep="off"),
+                  device="cpu")
     gen = torch.Generator().manual_seed(0)
     _, st = env.reset(4, gen)
     b = st.bodies
@@ -669,7 +673,7 @@ def test_host_kernel_chain_substep_matches_plain(host_kernel, chains):
     """The physics substep alone (no post stage) on the distance / ball /
     fixed / hinge chain with a hole, 30 iterations: rows of kinds 3-5."""
     tarch, tstate0 = chains[2], chains[3]
-    state = body_state_from_numpy(_chain_state(tstate0))
+    state = body_state_from_numpy(_chain_state(tstate0), device="cpu")
     settings = PhysicsSettings(frame_rate=60, fused_substep="off",
                                solver_backend="plain")
     with torch.no_grad():

@@ -83,10 +83,11 @@ def trajectories():
     jst = jst.replace(bodies=jst.bodies.replace(pos=jnp.asarray(pos)))
     bodies_np = {f: np.asarray(getattr(jst.bodies, f)) for f in FIELDS}
 
-    tenv = LocoEnv()
+    tenv = LocoEnv(device="cpu")
     tobs0, tst = tenv.reset(B, torch.Generator().manual_seed(0))
     tst = env_state_from_numpy(bodies_np, np.asarray(jst.last_action),
-                               np.asarray(jst.steps), tst.generator)
+                               np.asarray(jst.steps), tst.generator,
+                               device="cpu")
 
     jstep = jax.jit(jax.vmap(jenv.step))
     out = {"jax": [], "port": [], "pokes": pokes, "obs0": (jobs0, tobs0)}
@@ -150,7 +151,7 @@ def test_actor_critic_from_flax_matches(flax_params, output):
     obs = np.random.default_rng(2).normal(0, 1, (16, STATE_SIZE)).astype(np.float32)
     want = dict(zip(("mean", "log_std", "value"),
                     net.apply(params, jnp.asarray(obs))))[output]
-    model = actor_critic_from_flax(params)
+    model = actor_critic_from_flax(params, device="cpu")
     with torch.no_grad():
         got = dict(zip(("mean", "log_std", "value"),
                        model(torch.as_tensor(obs))))[output]
@@ -185,7 +186,7 @@ def test_actor_critic_seeded_init_is_reproducible():
 
 
 def test_entry_runs_on_cpu():
-    fn, (model, state, obs) = entry(batch=2, seed=3)
+    fn, (model, state, obs) = entry(device="cpu", batch=2, seed=3)
     obs, state, reward, done = fn(model, state, obs)
     assert obs.shape == (2, STATE_SIZE) and reward.shape == (2,)
     assert done.dtype == torch.bool
@@ -194,7 +195,7 @@ def test_entry_runs_on_cpu():
 
 
 def test_vec_env_draws_pokes_from_its_generator():
-    env = LocoEnv()
+    env = LocoEnv(device="cpu")
     reset, step = make_vec_env(env, 3)
     for _ in range(2):
         gen = torch.Generator().manual_seed(11)
@@ -210,7 +211,7 @@ def test_vec_env_draws_pokes_from_its_generator():
 
 
 def test_apply_poke_pushes_one_part():
-    env = LocoEnv()
+    env = LocoEnv(device="cpu")
     _, st = env.reset(2, torch.Generator())
     do = torch.tensor([True, False])
     part = torch.tensor([1, 1])

@@ -61,7 +61,7 @@ def _inputs(state0):
 def both():
     """JAX and port results on the same inputs, computed once."""
     jenv = JaxLocoEnv(settings=JAX_SETTINGS)
-    tenv = LocoEnv()
+    tenv = LocoEnv(device="cpu")
     state_np, action_np = _inputs(jenv._state0)
     arch = jenv.arch
     num_pairs = int(arch.vs_plane_collider.shape[0])
@@ -95,7 +95,7 @@ def both():
     jout = jax.jit(jax.vmap(jax_prep_and_solve))(jstate, jaction)
     jsub = jax.jit(jax.vmap(jax_substep))(jstate, jaction)
 
-    tstate = body_state_from_numpy(state_np)
+    tstate = body_state_from_numpy(state_np, device="cpu")
     taction = torch.as_tensor(action_np)
     with torch.no_grad():
         sp = step.substep_prep(tenv.arch, tstate, DT, tenv.settings,

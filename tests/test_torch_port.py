@@ -5,6 +5,7 @@ wrapper that packs it, and the build hashes every source.  Tests marked
 the same comparisons on the card.
 """
 
+import inspect
 import re
 import shutil
 import subprocess
@@ -14,6 +15,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from d3d12renderer_tpu_torch import cuda_build
 from d3d12renderer_tpu_torch.learning.loco_env import (
     ACTION_SIZE, STATE_SIZE, LocoEnv)
 from d3d12renderer_tpu_torch.physics import solver_cuda, step, substep_cuda
@@ -48,7 +50,7 @@ def test_sources_import_neither_jax_nor_the_jax_package():
 @pytest.fixture(scope="module")
 def small_prep():
     """Preps of 3 disturbed ragdolls lowered onto the ground."""
-    env = LocoEnv()
+    env = LocoEnv(device="cpu")
     gen = torch.Generator().manual_seed(0)
     _, st = env.reset(3, gen)
     b = st.bodies
@@ -94,9 +96,9 @@ def test_unknown_backend_is_refused(small_prep):
 def test_kernel_layout_constants_match_the_wrapper():
     """The offsets written in solver_rows.cuh, which both kernels include,
     are the wrapper's layout."""
-    src = (solver_cuda.CSRC_DIR / "solver_rows.cuh").read_text()
+    src = (cuda_build.CSRC_DIR / "solver_rows.cuh").read_text()
     assert '#include "solver_rows.cuh"' in (
-        solver_cuda.CSRC_DIR / "colored_solver.cu").read_text()
+        cuda_build.CSRC_DIR / "colored_solver.cu").read_text()
     consts = {k: int(v) for k, v in
               re.findall(r"constexpr int ([A-Z0-9_]+) = (\d+);", src)}
     for name, offset in solver_cuda.layout_offsets().items():
@@ -155,26 +157,64 @@ def test_pack_prep_places_fields_where_the_kernel_reads_them(small_prep):
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(solver_cuda, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(solver_cuda, "_nvcc", lambda: "false")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        solver_cuda.build_library()
-    assert not list(tmp_path.rglob(solver_cuda.LIBRARY_NAME))
+        cuda_build.build_library()
+    assert not list(tmp_path.rglob(cuda_build.LIBRARY_NAME))
 
 
 def test_header_edit_changes_the_build_dir(tmp_path, monkeypatch):
     """The build directory hashes csrc/*.cuh as well as csrc/*.cu, so an
     edit to the shared header cannot reuse a stale library."""
     csrc = tmp_path / "csrc"
-    shutil.copytree(solver_cuda.CSRC_DIR, csrc)
-    monkeypatch.setattr(solver_cuda, "CSRC_DIR", csrc)
-    before = solver_cuda.build_dir()
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    before = cuda_build.build_dir()
     header = csrc / "solver_rows.cuh"
     header.write_bytes(header.read_bytes() + b"\n")
-    after = solver_cuda.build_dir()
+    after = cuda_build.build_dir()
     assert after != before and after.parent == before.parent
-    assert solver_cuda.build_dir() == after
-    assert "-I" in solver_cuda.NVCC_FLAGS
+    assert cuda_build.build_dir() == after
+    assert "-I" in cuda_build.NVCC_FLAGS
+
+
+def _entry_points():
+    from d3d12renderer_tpu_torch import convert, entry
+    from d3d12renderer_tpu_torch.physics import builder, joints
+    from d3d12renderer_tpu_torch.render import bvh, camera, lights, mesh
+    from d3d12renderer_tpu_torch.render import pathtracer
+
+    arch = lambda: LocoEnv(device="cpu").arch  # noqa: E731
+    return {
+        "entry": (entry.entry, lambda f: f()),
+        "pathtrace_entry": (entry.pathtrace_entry, lambda f: f()),
+        "LocoEnv": (LocoEnv.__init__, lambda f: LocoEnv()),
+        "finalize": (builder.SceneBuilder.finalize,
+                     lambda f: builder.SceneBuilder().finalize()),
+        "init_impulses": (joints.init_impulses,
+                          lambda f: f(arch(), 2)),
+        "actor_critic_from_flax": (convert.actor_critic_from_flax, None),
+        "body_state_from_numpy": (convert.body_state_from_numpy, None),
+        "env_state_from_numpy": (convert.env_state_from_numpy, None),
+        "bvh_from_numpy": (convert.bvh_from_numpy, None),
+        "build_bvh": (bvh.build_bvh, lambda f: f([(mesh.quad(), 0)])),
+        "look_at": (camera.look_at, lambda f: f((0, 0, 1), (0, 0, 0))),
+        "make_point_lights": (lights.make_point_lights,
+                              lambda f: f([[0, 1, 0]], [[1, 1, 1]], [2.0])),
+        "default_sky": (pathtracer.default_sky, lambda f: f()),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(name):
+    """Every entry point defaults to device="cuda"; without a card it
+    raises a clear error instead of running on the CPU."""
+    fn, call = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if call is not None and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(fn)
 
 
 def _need_cuda():
@@ -258,3 +298,40 @@ def test_fused_kernel_matches_plain_on_cuda(batch):
     torch.testing.assert_close(gobs, pobs, rtol=0, atol=1e-3)
     torch.testing.assert_close(grew, prew, rtol=0, atol=1e-3)
     assert torch.equal(gdone, pdone)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["closest", "any"])
+def test_ray_kernels_match_plain_on_cuda(mode):
+    """Both ray kernels against the plain version on the card, 4096 rays
+    over six uv spheres (4,608 rows): the same bits in closest mode (the
+    kernels round as the plain version does), the same `hit` in any-hit
+    mode."""
+    _need_cuda()
+    import numpy as np
+
+    from d3d12renderer_tpu_torch.ops import ray_trace
+    from d3d12renderer_tpu_torch.render import bvh, mesh
+
+    rng = np.random.default_rng(0)
+    tb = bvh.build_bvh([(mesh.uv_sphere(0.5 + 0.1 * i, 16, 24).transformed(
+        translate=tuple(rng.uniform(-3, 3, 3))), i) for i in range(6)],
+        device="cuda")
+    planes, nodes = ray_trace.kernel_tables(tb)
+    o = rng.uniform(-4, 4, (4096, 3)).astype(np.float32)
+    d = (rng.uniform(-3, 3, (4096, 3)) - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tm = rng.uniform(0.0, 8.0, 4096).astype(np.float32)
+    o, d, tm = (torch.as_tensor(x, device="cuda") for x in (o, d, tm))
+    want_t, want_tri = ray_trace.closest_hit_plain(planes, o, d, tm)
+    for fn in (lambda: ray_trace.ray_closest_hit_bvh(
+                   planes, nodes, o, d, tm, mode == "any"),
+               lambda: ray_trace.ray_closest_hit_brute(
+                   planes, o, d, tm, mode == "any")):
+        t, tri = fn()
+        torch.cuda.synchronize()
+        if mode == "closest":
+            assert torch.equal(tri, want_tri) and torch.equal(t, want_t)
+        else:
+            assert torch.equal(tri >= 0, want_tri >= 0)
+

@@ -1,0 +1,420 @@
+"""The port's ray queries against the JAX package's Pallas ray kernels (run
+in interpret mode on the CPU, as tests/test_pallas_kernels.py runs them),
+and the CUDA ray kernels' source compiled as host C++ against the plain
+version.  Rays and t_max come from numpy seeds."""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from d3d12renderer_tpu.ops import ray_trace_pallas as jrt
+from d3d12renderer_tpu.render import bvh as jbvh
+from d3d12renderer_tpu_torch import cuda_build
+from d3d12renderer_tpu_torch.ops import ray_trace
+from d3d12renderer_tpu_torch.render import bvh as tbvh
+from d3d12renderer_tpu_torch.render import mesh as tmesh
+
+torch.set_num_threads(1)
+R = 1024
+# `tri` is compared only where no other accepted row lies within this
+# relative distance in t: JAX's packed-key winner selection
+# (ray_trace_pallas.py:72-81) takes the lower column among ts within
+# ~1.2e-4 relative, the port the lower row among equal ts.
+TIE_REL = 2e-4
+
+
+def _scene(name):
+    if name == "single":
+        return [(tmesh.quad(5.0), 0),
+                (tmesh.ico_sphere(1.0, 2).transformed(translate=(0, 1.0, 0)),
+                 1)]
+    rng = np.random.default_rng(0)
+    return [(tmesh.uv_sphere(0.5 + 0.1 * i, 16, 24).transformed(
+        translate=tuple(rng.uniform(-3, 3, 3))), i) for i in range(6)]
+
+
+def _rays(seed):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-4, 4, (R, 3)).astype(np.float32)
+    # Toward points inside the scenes' bounds, so that most rays hit.
+    d = (rng.uniform(-3, 3, (R, 3)) - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tm = rng.uniform(0.5, 8.0, R).astype(np.float32)
+    tm[::17] = 0.0                                   # dead rows
+    return o, d, tm
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    out = {}
+    for name in ("single", "multi"):
+        meshes = _scene(name)
+        out[name] = (jbvh.build_bvh(meshes, cache=False),
+                     tbvh.build_bvh(meshes, device="cpu"))
+    assert out["single"][1].dense.n.shape[0] <= ray_trace.TRI_CHUNK
+    assert out["multi"][1].dense.n.shape[0] > ray_trace.TRI_CHUNK
+    return out
+
+
+CASES = {
+    # id: (scene, mode, per-ray t_max, regroup)
+    "single-closest": ("single", "closest", False, False),
+    "single-any-tmax": ("single", "any", True, False),
+    "multi-closest": ("multi", "closest", False, False),
+    "multi-closest-tmax-regroup": ("multi", "closest", True, True),
+    "multi-any-tmax-regroup": ("multi", "any", True, True),
+}
+
+
+def _jax_query(jb, o, d, tm, mode, regroup):
+    """JAX's Pallas backend (bvh.py:536-540, :620-629), interpret mode."""
+    dense = jb.dense
+    o, d, tmj = jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm)
+    if dense.n.shape[0] > jrt.TRI_CHUNK:
+        res = jrt.closest_hit_pallas_culled(dense, o, d, t_max=tmj,
+                                            interpret=True, regroup=regroup,
+                                            any_hit=mode == "any")
+        return {k: np.asarray(v) for k, v in res.items()}
+    res = {k: np.asarray(v) for k, v in jrt.closest_hit_pallas(
+        dense, o, d, t_max=tmj, interpret=True).items()}
+    if mode == "any":
+        res["hit"] = res["hit"] & (res["t"] < np.broadcast_to(tm, (R,)))
+    return res
+
+
+def _accepted_t(planes, o, d, t_max):
+    """(R, T) float64 t of every row the plane test accepts (inf elsewhere),
+    for the tie margins."""
+    p = planes.double()
+    o, d = (torch.as_tensor(np.array(x)).double() for x in (o, d))
+    t_max = torch.as_tensor(np.array(t_max)).double()
+    t = (p[:, 3] - o @ p[:, 0:3].T) / (d @ p[:, 0:3].T)
+    u = o @ p[:, 4:7].T + p[:, 7] + t * (d @ p[:, 4:7].T)
+    v = o @ p[:, 8:11].T + p[:, 11] + t * (d @ p[:, 8:11].T)
+    ok = ((u >= 0) & (v >= 0) & (u + v <= 1) & (t >= 1e-4)
+          & (t < t_max[:, None]))
+    return torch.where(ok, t, torch.inf).numpy()
+
+
+def _untied(acc):
+    """Rays whose nearest accepted t is unique within TIE_REL."""
+    two = np.sort(acc, axis=1)[:, :2]
+    with np.errstate(invalid="ignore"):           # inf - inf on misses
+        return ~(two[:, 1] - two[:, 0] <= TIE_REL * np.abs(two[:, 0]))
+
+
+@pytest.fixture(scope="module")
+def jax_results(scenes):
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            scene, mode, per_ray, regroup = CASES[case]
+            o, d, tm = _rays(1 if scene == "single" else 2)
+            tm = tm if per_ray else np.float32(1e30)
+            cache[case] = _jax_query(scenes[scene][0], o, d, tm, mode, regroup)
+        return cache[case]
+    return get
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_port_matches_jax_pallas(case, scenes, jax_results):
+    """`hit` equal; closest mode: `t` rtol 1e-5 + atol 1e-6 (the port
+    rounds each product of the plane test, the MXU dot accumulates in its
+    own order, and n_off - o.n cancels for origins near the plane, leaving
+    an error of an ulp of |o| ~ 5e-7) and `tri` equal where the nearest t is not tied within TIE_REL;
+    `uv` atol 1e-4 at the untied hits (recomputed from the hit point on
+    both sides)."""
+    scene, mode, per_ray, regroup = CASES[case]
+    o, d, tm = _rays(1 if scene == "single" else 2)
+    tm = tm if per_ray else np.float32(1e30)
+    want = jax_results(case)
+    tb = scenes[scene][1]
+    to, td = torch.as_tensor(o), torch.as_tensor(d)
+    before = (ray_trace.ray_closest_hit_bvh.launches,
+              ray_trace.ray_closest_hit_brute.launches)
+    if mode == "any":
+        hit = tbvh.any_hit(tb, to, td, torch.as_tensor(tm), regroup=regroup)
+        np.testing.assert_array_equal(hit.numpy(), want["hit"])
+        assert 0.1 < want["hit"].mean() < 0.9
+        return
+    got = tbvh.closest_hit(tb, to, td, t_max=torch.as_tensor(tm),
+                           regroup=regroup)
+    assert (ray_trace.ray_closest_hit_bvh.launches,
+            ray_trace.ray_closest_hit_brute.launches) == before
+    hit = want["hit"]
+    np.testing.assert_array_equal(got["hit"].numpy(), hit)
+    assert hit.sum() > 100, "degenerate test: almost no hits"
+    np.testing.assert_allclose(got["t"].numpy()[hit], want["t"][hit],
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got["t"].numpy()[~hit],
+                                  np.broadcast_to(tm, (R,))[~hit])
+    assert np.all(got["tri"].numpy()[~hit] == -1)
+    planes, _ = ray_trace.kernel_tables(tb)
+    untied = hit & _untied(_accepted_t(planes, o, d,
+                                       np.broadcast_to(tm, (R,))))
+    assert untied.sum() > 0.9 * hit.sum()
+    np.testing.assert_array_equal(got["tri"].numpy()[untied],
+                                  want["tri"][untied])
+    np.testing.assert_allclose(got["uv"].numpy()[untied], want["uv"][untied],
+                               atol=1e-4)
+
+
+def test_regroup_perm_matches_jax(scenes):
+    o, d, _ = _rays(3)
+    dense = scenes["multi"][0].dense
+    lo, hi = dense.cluster_lo.min(axis=0), dense.cluster_hi.max(axis=0)
+    want = np.asarray(jrt.regroup_perm(jnp.asarray(o), jnp.asarray(d), lo, hi))
+    got = ray_trace.regroup_perm(torch.as_tensor(o), torch.as_tensor(d),
+                                 torch.as_tensor(np.asarray(lo)),
+                                 torch.as_tensor(np.asarray(hi)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_regroup_perm_keeps_ties_in_order(scenes):
+    """4096 rays from two origins (one outside the bounds) into few
+    direction cells: most keys are tied, and the stable sort must keep
+    JAX's order among them."""
+    rng = np.random.default_rng(9)
+    o = np.repeat(np.array([[0.1, 0.2, 0.3], [9.0, -9.0, 0.0]], np.float32),
+                  2048, axis=0)
+    d = rng.choice([-1.0, -0.3, 0.3, 1.0], (4096, 3)).astype(np.float32)
+    dense = scenes["multi"][0].dense
+    lo, hi = dense.cluster_lo.min(axis=0), dense.cluster_hi.max(axis=0)
+    want = np.asarray(jrt.regroup_perm(jnp.asarray(o), jnp.asarray(d), lo, hi))
+    got = ray_trace.regroup_perm(torch.as_tensor(o), torch.as_tensor(d),
+                                 torch.tensor(np.asarray(lo)),
+                                 torch.tensor(np.asarray(hi)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_regroup_is_an_exact_permutation(scenes):
+    tb = scenes["multi"][1]
+    o, d, tm = (torch.as_tensor(x) for x in _rays(4))
+    base = tbvh.closest_hit(tb, o, d, t_max=tm)
+    rg = tbvh.closest_hit(tb, o, d, t_max=tm, regroup=True)
+    for k in ("t", "tri", "hit", "uv"):
+        assert torch.equal(base[k], rg[k]), k
+
+
+def test_node_table_links_and_padding(scenes):
+    tb = scenes["multi"][1]
+    nodes = ray_trace.node_table(tb)
+    links = nodes[:, 6:8].contiguous().view(torch.int32)
+    count = tb.node_count
+    leaf = count > 0
+    assert torch.equal(links[leaf, 0], tb.node_first[leaf])
+    assert torch.equal(links[leaf, 1], count[leaf])
+    inner = torch.nonzero(~leaf)[:, 0]
+    assert torch.equal(links[inner, 0], tb.node_miss[inner + 1])
+    assert torch.all(links[inner, 1] == 0)
+    assert torch.all(nodes[:, 0:3] < tb.node_min)
+    assert torch.all(nodes[:, 3:6] > tb.node_max)
+
+
+# --------------------------------------------------------------------------
+# The kernels' source, compiled as host C++
+# --------------------------------------------------------------------------
+
+_STUB_RUNTIME = """\
+#pragma once
+#include <math.h>
+#include <stddef.h>
+#include <string.h>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __shared__ static
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+static dim3 blockIdx(0), blockDim(1), threadIdx(0);
+struct float4 { float x, y, z, w; };
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0 };
+inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
+inline int atomicOr(int* p, int v) { int o = *p; *p |= v; return o; }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  unsigned long long o = *p; *p += v; return o;
+}
+inline void __syncthreads() {}
+inline int __syncthreads_or(int p) { return p; }
+inline cudaError_t cudaSetDevice(int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t,
+                                    cudaStream_t) { return 0; }
+"""
+
+_HARNESS = """\
+#include "ray_trace.cu"
+// Each kernel body once per ray index, as one-thread blocks: the brute
+// kernel's only thread then stages whole tiles itself.
+template <class K> int run(K kernel, const RayArgs* a) {
+  if (a->stack_limit < 1 || a->stack_limit > RAY_MAX_STACK) return -1;
+  blockDim = dim3(1);
+  threadIdx = dim3(0);
+  for (int r = 0; r < a->num_rays; ++r) {
+    blockIdx = dim3(r);
+    kernel(*a);
+  }
+  return 0;
+}
+extern "C" int host_ray_bvh(const RayArgs* a) { return run(ray_closest_hit_bvh, a); }
+extern "C" int host_ray_brute(const RayArgs* a) { return run(ray_closest_hit_brute, a); }
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """csrc/ray_trace.cu built as host C++ (g++, -ffp-contract=off), the
+    CUDA qualifiers and runtime stubbed."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel source as host code")
+    d = tmp_path_factory.mktemp("host_ray")
+    (d / "cuda_runtime.h").write_text(_STUB_RUNTIME)
+    (d / "harness.cpp").write_text(_HARNESS)
+    lib = d / "libhost_ray.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                    "-fPIC", f"-I{d}", f"-I{cuda_build.CSRC_DIR}",
+                    str(d / "harness.cpp"), "-o", str(lib)],
+                   check=True, capture_output=True, text=True)
+    host = ctypes.CDLL(str(lib))
+    for name in ("host_ray_bvh", "host_ray_brute", "ray_args_size",
+                 "ray_max_stack"):
+        getattr(host, name).restype = ctypes.c_int
+    host.host_ray_bvh.argtypes = host.host_ray_brute.argtypes = [
+        ctypes.c_void_p]
+    return host
+
+
+def _host_query(host, kernel, tb, o, d, tm, any_hit, stack_limit=64):
+    planes, nodes = ray_trace.kernel_tables(tb)
+    fn = host.host_ray_bvh if kernel == "bvh" else host.host_ray_brute
+    return ray_trace.launch(fn, planes, nodes if kernel == "bvh" else None,
+                            o, d, tm, any_hit, stack_limit)
+
+
+@pytest.mark.parametrize("mode", ["closest", "any"])
+@pytest.mark.parametrize("kernel,scene", [("bvh", "multi"),
+                                          ("brute", "multi"),
+                                          ("brute", "single")])
+def test_host_kernel_matches_plain(host_kernels, scenes, kernel, scene, mode):
+    """Through the real wrapper (`ray_trace.launch`).  The kernels round
+    every operation of the plane test as the plain version does, in the
+    same order, and the BVH walk reaches every row the brute force accepts
+    (padded boxes), so `t` and `tri` are equal bit for bit in closest
+    mode; in any-hit mode `hit` is equal and each reported hit is a real
+    one."""
+    tb = scenes[scene][1]
+    o, d, tm = (torch.as_tensor(x) for x in _rays(5))
+    tm[1::5] = 1e30
+    planes, _ = ray_trace.kernel_tables(tb)
+    want_t, want_tri = ray_trace.closest_hit_plain(planes, o, d, tm)
+    t, tri = _host_query(host_kernels, kernel, tb, o, d, tm, mode == "any")
+    assert (want_tri >= 0).sum() > 100
+    if mode == "closest":
+        assert torch.equal(tri, want_tri)
+        assert torch.equal(t, want_t)
+        return
+    assert torch.equal(tri >= 0, want_tri >= 0)
+    acc = _accepted_t(planes, o.numpy(), d.numpy(), tm.numpy())
+    hit = (tri >= 0).numpy()
+    rows = tri.numpy()[hit]
+    assert np.all(np.isfinite(acc[np.nonzero(hit)[0], rows]))
+
+
+def test_host_kernels_count_their_work(host_kernels, scenes):
+    """The work counters the bounds in chip_smoke.py read: the brute force
+    tests every row for every live ray; the walk tests a few leaves' rows
+    and boxes per ray; the counts add up over launches."""
+    tb = scenes["multi"][1]
+    o, d, tm = (torch.as_tensor(x) for x in _rays(8))
+    rows = tb.dense.n.shape[0]
+    live = int((tm >= 1e-4).sum())
+    planes, nodes = ray_trace.kernel_tables(tb)
+    stats = torch.zeros(2, dtype=torch.int64)
+    ray_trace.launch(host_kernels.host_ray_brute, planes, None, o, d, tm,
+                     False, stats=stats)
+    assert stats.tolist() == [live * rows, 0]
+    stats.zero_()
+    for _ in range(2):
+        ray_trace.launch(host_kernels.host_ray_bvh, planes, nodes, o, d, tm,
+                         False, stats=stats)
+    tests, boxes = stats.tolist()
+    assert tests % 2 == 0 and boxes % 2 == 0
+    assert 0 < tests < 0.1 * live * rows * 2
+    assert boxes >= 2 * live
+
+
+def test_host_bvh_kernel_stack_overflow_raises(host_kernels, scenes):
+    """A one-entry stack cannot hold the walk: the kernel flags it and the
+    wrapper raises instead of returning a partial answer."""
+    tb = scenes["multi"][1]
+    o, d, tm = (torch.as_tensor(x) for x in _rays(6))
+    with pytest.raises(RuntimeError, match="overflowed"):
+        _host_query(host_kernels, "bvh", tb, o, d, tm.fill_(1e30), False,
+                    stack_limit=1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _host_query(host_kernels, "bvh", tb, o, d, tm, False, stack_limit=65)
+
+
+def test_host_bvh_kernel_defers_its_error_word(host_kernels, scenes):
+    """With a caller's error word (as the path tracer passes one per
+    sample) the launch returns without reading it; the overflow bit stays
+    set across later clean launches and `raise_on_error` raises on it."""
+    tb = scenes["multi"][1]
+    o, d, tm = (torch.as_tensor(x) for x in _rays(6))
+    tm.fill_(1e30)
+    planes, nodes = ray_trace.kernel_tables(tb)
+    error = ray_trace.new_error_word("cpu")
+    ray_trace.launch(host_kernels.host_ray_bvh, planes, nodes, o, d, tm,
+                     False, stack_limit=64, error=error)
+    ray_trace.raise_on_error(error)
+    ray_trace.launch(host_kernels.host_ray_bvh, planes, nodes, o, d, tm,
+                     False, stack_limit=1, error=error)
+    ray_trace.launch(host_kernels.host_ray_bvh, planes, nodes, o, d, tm,
+                     False, stack_limit=64, error=error)
+    assert int(error) & ray_trace.ERR_STACK
+    with pytest.raises(RuntimeError, match="overflowed"):
+        ray_trace.raise_on_error(error)
+
+
+def test_kernel_layout_matches_the_wrapper(host_kernels):
+    src = (cuda_build.CSRC_DIR / "ray_plane.cuh").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (RAY_[A-Z_]+) = (\d+);", src)}
+    assert consts["RAY_PLANE_COLS"] == ray_trace.PLANE_COLS
+    assert consts["RAY_NODE_COLS"] == ray_trace.NODE_COLS
+    assert consts["RAY_MAX_STACK"] == ray_trace.MAX_STACK
+    assert consts["RAY_ERR_STACK"] == ray_trace.ERR_STACK
+    assert host_kernels.ray_max_stack() == ray_trace.MAX_STACK
+    assert host_kernels.ray_args_size() == ctypes.sizeof(ray_trace.RayArgs)
+    fields = re.search(r"struct RayArgs \{(.*?)\};", src, re.S).group(1)
+    names = re.findall(r"(\w+);", fields)
+    assert names == [f for f, _ in ray_trace.RayArgs._fields_]
+
+
+def test_wrappers_take_the_plain_version_on_cpu(scenes):
+    tb = scenes["multi"][1]
+    planes, nodes = ray_trace.kernel_tables(tb)
+    o, d, tm = (torch.as_tensor(x) for x in _rays(7))
+    before = (ray_trace.ray_closest_hit_bvh.launches,
+              ray_trace.ray_closest_hit_brute.launches)
+    a = ray_trace.ray_closest_hit_bvh(planes, nodes, o, d, tm)
+    b = ray_trace.ray_closest_hit_brute(planes, o, d, tm)
+    c = ray_trace.closest_hit_plain(planes, o, d, tm)
+    assert (ray_trace.ray_closest_hit_bvh.launches,
+            ray_trace.ray_closest_hit_brute.launches) == before
+    for x, y in zip(a + b, c + c):
+        assert torch.equal(x, y)
