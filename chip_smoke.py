@@ -1,9 +1,10 @@
 """Chip check of the PyTorch / CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels (the colored solver, the fused whole-substep
-kernel and the two ray kernels) and the native BVH builder from the sources
-beside this script, holds each kernel against its plain PyTorch version at
-its path's shapes, then drives the paths:
+kernel, the two ray kernels, the raster kernel, the blur and the tonemap)
+and the native BVH builder from the sources beside this script, holds each
+kernel against its plain PyTorch version at its path's shapes, then drives
+the paths:
 
 * locomotion (`d3d12renderer_tpu_torch.entry`: policy forward + batched
   ragdoll env step, one fused-kernel launch per step) at 4096 envs, and the
@@ -12,6 +13,10 @@ its path's shapes, then drives the paths:
   1920x1080, depth 3, sun NEE + MIS; its ray queries go through the BVH ray
   kernel), and a 322-triangle scene at 1920x1080 whose queries go through
   the brute-force ray kernel;
+* the raster frame (`entry.raster_entry`: the atrium at 1920x1080, raster
+  primary visibility, sun cascades, half-res HBAO and SSR, TAA, bloom,
+  tonemap, sharpen; one raster, one tonemap and seven blur launches per
+  frame);
 
 and checks what comes out.  Each phase prints one line; the line before the
 last is a JSON summary of the kernels, the last line
@@ -79,6 +84,28 @@ SLICE_PIXEL_TOL = 1e-3
 SLICE_SHARE = 0.99
 SLICE_MEAN_TOL = 1e-3
 
+# The raster frame: raster_entry at 1920x1080 (bench_raster_frame's
+# configuration), one warm frame, then the best of RASTER_RUNS runs of
+# RASTER_FRAMES frames.
+RASTER_W, RASTER_H = 1920, 1080
+RASTER_RUNS, RASTER_FRAMES = 3, 5
+RASTER_REPS = 20
+IMAGE_REPS = 50
+# The blur's calls in one frame: HBAO (half res, 1 channel), the five bloom
+# levels (3 channels), sharpen (full res, sigma 1).
+BLUR_SHAPES = (((540, 960, 1), 1.5), ((1080, 1920, 3), 1.5),
+               ((540, 960, 3), 1.5), ((270, 480, 3), 1.5),
+               ((135, 240, 3), 1.5), ((67, 120, 3), 1.5),
+               ((1080, 1920, 3), 1.0))
+# The sRGB encode calls expf / logf; PyTorch's exp / log may differ by an
+# ulp of the result (<= 1): 2 ulps of 1.0.
+SRGB_TOL = 2.4e-7
+# Card against CPU over the raster slice: 99% of pixels within
+# SLICE_PIXEL_TOL and the mean below this (the CPU tests' bounds against
+# JAX, tests/test_torch_pipeline.py).
+SLICE_RW, SLICE_RH = 128, 64
+RASTER_MEAN_TOL = 1e-4
+
 # Roofline of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and fp32
 # operations/s outside the tensor cores, at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -96,6 +123,11 @@ CONTACT_POINT_FLOP = 85
 # subtractions, 6 products and 12 min/max = 24.
 PLANE_TEST_FLOP = 42
 BOX_TEST_FLOP = 24
+# The raster kernel's test of one (pair, pixel) (csrc/raster.cu): 4
+# two-term dots with an offset (4 operations each) and 6 compares = 22.
+# The tonemap: exposure, the curve (8), its quotient and clamps = 14.
+RASTER_PAIR_FLOP = 22
+TONEMAP_FLOP = 14
 
 
 def fail(msg: str):
@@ -647,6 +679,308 @@ def path_tracing(card, cuda_ms):
     return entries
 
 
+def slice_scene(mesh, pt, device):
+    """The raster tests' scene (tests/test_torch_pipeline.py): ground, a
+    metal ico sphere, an emissive box; 1,294 triangles."""
+    import torch
+
+    from d3d12renderer_tpu_torch.render import bvh as bvh_mod
+
+    meshes = [(mesh.quad(half=20.0), 0),
+              (mesh.ico_sphere(1.0, 3).transformed(translate=(0, 1.0, 0)), 1),
+              (mesh.box((0.7, 0.7, 0.7)).transformed(
+                  translate=(2.2, 0.7, -0.5)), 2)]
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    return pt.Scene(
+        bvh=bvh_mod.build_bvh(meshes, device=device),
+        materials=pt.Materials(
+            albedo=f32([[0.5, 0.5, 0.5], [0.8, 0.2, 0.2], [0.2, 0.4, 0.8]]),
+            emissive=f32([[0, 0, 0], [0, 0, 0], [0.4, 0.2, 0.0]]),
+            roughness=f32([0.8, 0.3, 0.6]), metallic=f32([0.0, 1.0, 0.0])),
+        sky=pt.default_sky(device=device)).with_shading_table()
+
+
+def raster_frame(card, cuda_ms):
+    """The raster frame's phases: the raster kernel against its plain
+    version on the atrium at 1080p, the blur and tonemap kernels at the
+    frame's shapes, their times, the main path through `raster_entry`, a
+    profiled frame and its stage times, the card against the CPU.  Returns
+    the three kernels' entries of the kernels line."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch.entry import raster_entry
+    from d3d12renderer_tpu_torch.ops import image, raster
+    from d3d12renderer_tpu_torch.render import bvh as bvh_mod
+    from d3d12renderer_tpu_torch.render import camera as cam_mod
+    from d3d12renderer_tpu_torch.render import mesh
+    from d3d12renderer_tpu_torch.render import pathtracer as pt
+    from d3d12renderer_tpu_torch.render import pipeline, post
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    raster_k, blur_k, tonemap_k = (raster.rasterize_tiles, image.gaussian_blur,
+                                   image.tonemap)
+
+    def once_ms(fn):
+        """One run by CUDA events (the plain versions)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        sync()
+        start.record()
+        out = fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end), out
+
+    # 14. The raster kernel against its plain version: the atrium at
+    # 1920x1080 (padded to 1920x1088), a fixed jitter.
+    b = bvh_mod.build_bvh(mesh.atrium_scene(1.4), device=dev)
+    tris = int(b.tri_valid.sum())
+    cam = cam_mod.look_at((8.0, 6.0, -14.0), (0.0, 3.0, 0.0), device=dev,
+                          v_fov=math.radians(60), aspect=RASTER_W / RASTER_H)
+    wp = RASTER_W + (-RASTER_W) % raster.TILE_X
+    hp = RASTER_H + (-RASTER_H) % raster.TILE_Y
+    jitter = torch.tensor([0.3, 0.7], device=dev)
+    mat, attr = raster.perspective_rows(cam, RASTER_W, RASTER_H)
+    planes, rect, q_tri = raster.project_planes(
+        b.tri_v0, b.tri_e1, b.tri_e2, b.tri_valid, mat, attr, wp, hp)
+    pair_tri, seg = raster.bin_pairs(rect, q_tri, wp, hp)
+    pairs = int(pair_tri.shape[0])
+    per_tile = (seg[1:] - seg[:-1]).to(torch.float32)
+    args = (planes, pair_tri, seg, jitter, wp, hp)
+    got = raster_k(*args)
+    sync()
+    plain_ms = {}
+    plain_ms["raster"], want = once_ms(lambda: raster.rasterize_plain(*args))
+    same = [torch.equal(a, c) for a, c in zip(got, want)]
+    raster_err = max((a.float() - c.float()).abs().max().item()
+                     for a, c in zip(got, want))
+    hit_share = (want[1] >= 0).float().mean().item()
+    full = raster.closest_hit_raster(b, cam, RASTER_W, RASTER_H, jitter=jitter)
+    overflow = int(full["overflow"])
+    print(f"raster kernel vs plain (atrium {tris} tris, {RASTER_W}x{RASTER_H} "
+          f"padded to {wp}x{hp}, jitter (0.3, 0.7)): q/tri/u/v bit-equal "
+          f"{same}, max |diff| {raster_err:.3e}, {pairs} pairs over "
+          f"{seg.shape[0] - 1} tiles ({per_tile.mean().item():.1f} mean, "
+          f"{int(per_tile.max().item())} max per tile), {100 * hit_share:.1f}% "
+          f"of pixels hit, overflow {overflow}", flush=True)
+    if not all(same) or overflow:
+        fail("the raster kernel disagrees with its plain version")
+
+    # 15. The blur at the frame's seven shapes and the tonemap at 1080p,
+    # both against their plain versions; the library blur (replicate pad +
+    # two depthwise 1-D convolutions) timed beside the blur kernel.
+    gen = torch.Generator(device=dev).manual_seed(12)
+    blur_rows, blur = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                           "bytes": 0, "flop": 0, "err": 0.0}
+    for shape, sigma in BLUR_SHAPES:
+        x = torch.rand(shape, generator=gen, device=dev) * 4
+        taps = image.gaussian_kernel(sigma)
+        r = taps.shape[0] // 2
+        ms = cuda_ms(lambda: blur_k(x, taps), IMAGE_REPS)
+        p_ms, want = once_ms(lambda: image.blur_plain(x, taps.to(dev)))
+        got = blur_k(x, taps)
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            fail(f"the blur kernel disagrees with its plain version at "
+                 f"{shape} (max |diff| {err:.3e})")
+        c = shape[2]
+        x4 = x.permute(2, 0, 1)[None].contiguous()
+        wv = taps.to(dev).reshape(1, 1, -1, 1).expand(c, 1, -1, 1).contiguous()
+        wh = taps.to(dev).reshape(1, 1, 1, -1).expand(c, 1, 1, -1).contiguous()
+
+        def library():
+            y = F.pad(x4, (r, r, r, r), mode="replicate")
+            return F.conv2d(F.conv2d(y, wv, groups=c), wh, groups=c)
+
+        lib_ms = cuda_ms(library, IMAGE_REPS)
+        lib_err = (library()[0].permute(1, 2, 0) - got).abs().max().item()
+        if not lib_err < 1e-5:
+            fail(f"the library blur does not compute the blur ({lib_err:.3e})")
+        blur["ms"] += ms
+        blur["plain_ms"] += p_ms
+        blur["library_ms"] += lib_ms
+        blur["bytes"] += 2 * 4 * x.numel()
+        blur["flop"] += x.numel() * 2 * 2 * (2 * r + 1)
+        blur["err"] = max(blur["err"], err)
+        blur_rows.append(f"{shape} sigma {sigma}: {ms:.4f} ms (plain "
+                         f"{p_ms:.3f}, library {lib_ms:.4f})")
+    x = torch.rand((RASTER_H, RASTER_W, 3), generator=gen, device=dev) * 20
+    settings = post.TonemapSettings()
+    consts = image.tonemap_constants(settings)
+    tone = {}
+    for srgb in (False, True):
+        got = tonemap_k(x, settings, srgb)
+        p_ms, want = once_ms(lambda: image.tonemap_plain(x, consts, srgb))
+        err = (got - want).abs().max().item()
+        ok = torch.equal(got, want) if not srgb else err <= SRGB_TOL
+        if not ok:
+            fail(f"the tonemap kernel disagrees with its plain version "
+                 f"(srgb={srgb}, max |diff| {err:.3e})")
+        tone[srgb] = (cuda_ms(lambda: tonemap_k(x, settings, srgb),
+                              IMAGE_REPS), p_ms, err)
+    print(f"blur kernel vs plain at the frame's 7 shapes: bit-equal | "
+          f"{' | '.join(blur_rows)} | the frame's 7: kernel "
+          f"{blur['ms']:.4f} ms, plain {blur['plain_ms']:.3f} ms, library "
+          f"{blur['library_ms']:.4f} ms | tonemap kernel vs plain at "
+          f"{RASTER_W}x{RASTER_H}x3: sRGB off bit-equal, {tone[False][0]:.4f} ms "
+          f"(plain {tone[False][1]:.3f}); sRGB on max |diff| "
+          f"{tone[True][2]:.2e} (bound {SRGB_TOL}: CUDA's expf / logf against "
+          f"PyTorch's), {tone[True][0]:.4f} ms | {card}", flush=True)
+
+    # Kernel times at the path's shapes (CUDA events), the binning beside.
+    raster_ms = cuda_ms(lambda: raster_k(*args), RASTER_REPS)
+    bin_ms = cuda_ms(lambda: raster.bin_pairs(rect, q_tri, wp, hp),
+                     RASTER_REPS)
+    query_ms = cuda_ms(lambda: raster.closest_hit_raster(
+        b, cam, RASTER_W, RASTER_H, jitter=jitter), RASTER_REPS)
+    print(f"raster kernel {raster_ms:.3f} ms per 1080p frame ({RASTER_REPS} "
+          f"launches; plain version {plain_ms['raster']:.1f} ms, one run); "
+          f"binning {bin_ms:.3f} ms; closest_hit_raster (projection, "
+          f"binning with its host read of the pair count, kernel, t) "
+          f"{query_ms:.3f} ms | {card}", flush=True)
+    del got, want, full
+
+    # 16. The main path: raster_entry at 1920x1080 (the atrium, raster
+    # primary, half-res effects, 3 sun cascades at 512^2 rendered once).
+    t0 = time.perf_counter()
+    fn, state = raster_entry(device=dev, width=RASTER_W, height=RASTER_H)
+    sync()
+    setup_s = time.perf_counter() - t0
+    ldr, state, aux = fn(state)                         # warm frame
+    sync()
+    raster_k.launches = blur_k.launches = tonemap_k.launches = 0
+    best = math.inf
+    for _ in range(RASTER_RUNS):
+        t0 = time.perf_counter()
+        for _ in range(RASTER_FRAMES):
+            ldr, state, aux = fn(state)
+        sync()
+        best = min(best, (time.perf_counter() - t0) / RASTER_FRAMES)
+    frames = RASTER_RUNS * RASTER_FRAMES
+    launches = {"raster": raster_k.launches, "blur": blur_k.launches,
+                "tonemap": tonemap_k.launches}
+    frame_ms = 1e3 * best
+    gb = aux["gbuffer"]
+    if ldr.shape != (RASTER_H, RASTER_W, 3) or not bool(
+            torch.isfinite(ldr).all()):
+        fail("the raster frame is not a finite 1080p image")
+    if int(gb.overflow) != 0:
+        fail("the raster frame dropped pairs")
+    want_launches = {"raster": frames, "blur": 7 * frames, "tonemap": frames}
+    if launches != want_launches:
+        fail(f"raster main path: launches {launches} in {frames} frames, want "
+             f"{want_launches}")
+    mean = ldr.mean().item()
+    if not 0.0 < mean < 1.0:
+        fail(f"the raster frame's mean {mean} is not inside (0, 1)")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(state)
+        sync()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    own = {k: sum(e.time_range.elapsed_us() for e in kernels if k in e.name)
+           / 1e3 for k in ("raster_tiles", "gaussian_blur", "tonemap")}
+    _, _, staged = fn(state, profile_stages=True)
+    stages = " ".join(f"{k} {v:.2f}" for k, v in staged["stage_ms"].items())
+    print(f"raster main path (raster_entry: atrium {tris} tris, "
+          f"{RASTER_W}x{RASTER_H}, raster primary, half-res AO + SSR, TAA, "
+          f"bloom, tonemap, sharpen; set-up with 3x512^2 shadow texels "
+          f"{setup_s:.2f} s): best of {RASTER_RUNS} runs of {RASTER_FRAMES} "
+          f"frames {frame_ms:.2f} ms per frame ({1e3 / frame_ms:.1f} fps), "
+          f"ldr mean {mean:.4f}, {gb.pairs} pairs, overflow 0, launches per "
+          f"frame raster {launches['raster'] / frames:.0f} tonemap "
+          f"{launches['tonemap'] / frames:.0f} blur "
+          f"{launches['blur'] / frames:.0f} | profiler, one frame: "
+          f"{len(kernels)} kernels, device busy {dev_ms:.1f} of {prof_ms:.1f} "
+          f"ms ({100 * dev_ms / prof_ms:.1f}%), raster {own['raster_tiles']:.2f} "
+          f"ms, blur {own['gaussian_blur']:.3f} ms, tonemap "
+          f"{own['tonemap']:.3f} ms | stage ms (CUDA events, one frame): "
+          f"{stages} | {card}", flush=True)
+
+    # 17. The card against the CPU over the slice: the raster tests' scene
+    # at 128x64, shadows at 128^2, two frames with TAA history.
+    def slice_frames(device):
+        scene = slice_scene(mesh, pt, device)
+        camera = cam_mod.look_at((5, 3, 6), (0.5, 0.8, 0), device=device,
+                                 v_fov=math.radians(50),
+                                 aspect=SLICE_RW / SLICE_RH)
+        settings = pipeline.RendererSettings(primary="raster",
+                                             half_res_effects=True)
+        st = pipeline.initial_frame_state(SLICE_RW, SLICE_RH, device)
+        out = []
+        with torch.inference_mode():
+            for jit in ((0.25, 0.6), (0.7, 0.3)):
+                img, st, _ = pipeline.render_frame_with_shadows(
+                    scene, camera, SLICE_RW, SLICE_RH, settings,
+                    shadow_resolution=128, frame_state=st,
+                    prev_camera=camera, jitter=jit)
+                out.append(img.cpu())
+        return out
+
+    raster_k.launches = 0
+    card_frames = slice_frames(dev)
+    if raster_k.launches != 2:
+        fail("the card's slice run did not go through the raster kernel")
+    cpu_frames = slice_frames("cpu")
+    rows = []
+    for i, (g, c) in enumerate(zip(card_frames, cpu_frames)):
+        err = (g - c).abs().amax(-1)
+        share = (err <= SLICE_PIXEL_TOL).float().mean().item()
+        rows.append((share, err.mean().item()))
+        if share < SLICE_SHARE or not err.mean().item() < RASTER_MEAN_TOL:
+            fail(f"the card's raster frame {i + 1} disagrees with the CPU "
+                 "path")
+    print(f"card vs CPU over the raster slice ({SLICE_RW}x{SLICE_RH}, 1,294 "
+          f"tris, shadows 3x128^2, two frames with TAA history): "
+          + "; ".join(f"frame {i + 1}: {100 * s:.2f}% of pixels within "
+                      f"{SLICE_PIXEL_TOL}, mean error {m:.2e}"
+                      for i, (s, m) in enumerate(rows))
+          + f" (bounds {100 * SLICE_SHARE:.0f}%, {RASTER_MEAN_TOL})",
+          flush=True)
+
+    px = wp * hp
+    r_bound = bound(planes.numel() * 4 + pairs * 4 + seg.numel() * 4 + 8
+                    + px * 16, pairs * raster.PX * RASTER_PAIR_FLOP)
+    b_bound = bound(blur["bytes"], blur["flop"])
+    n = RASTER_W * RASTER_H * 3
+    t_bound = bound(2 * 4 * n, n * TONEMAP_FLOP)
+    return [{
+        "name": "raster_tiles", "route": "cuda",
+        "source": "d3d12renderer_tpu_torch/csrc/raster.cu",
+        "replaces": "d3d12renderer_tpu/ops/raster_pallas.py:329",
+        "launches": launches["raster"], "max_abs_err": raster_err,
+        "ms": raster_ms, "plain_ms": plain_ms["raster"],
+        "bound_ms": r_bound[0], "bound_by": r_bound[1], "library_ms": None,
+    }, {
+        "name": "tonemap", "route": "cuda",
+        "source": "d3d12renderer_tpu_torch/csrc/image.cu",
+        "replaces": "d3d12renderer_tpu/ops/pallas_kernels.py:57",
+        "launches": launches["tonemap"], "max_abs_err": tone[False][2],
+        "ms": tone[False][0], "plain_ms": tone[False][1],
+        "bound_ms": t_bound[0], "bound_by": t_bound[1], "library_ms": None,
+    }, {
+        "name": "gaussian_blur", "route": "cuda",
+        "source": "d3d12renderer_tpu_torch/csrc/image.cu",
+        "replaces": "d3d12renderer_tpu/ops/pallas_kernels.py:122",
+        "launches": launches["blur"], "max_abs_err": blur["err"],
+        "ms": blur["ms"], "plain_ms": blur["plain_ms"],
+        "bound_ms": b_bound[0], "bound_by": b_bound[1],
+        "library_ms": blur["library_ms"],
+    }]
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -718,6 +1052,9 @@ def main():
     print(f"ray kernels: {ptxas_summary(log, 'ray_closest_hit_bvh')} | "
           f"{ptxas_summary(log, 'ray_closest_hit_brute')} | native BVH "
           f"builder: {host_s:.1f} s -> {host_lib}", flush=True)
+    print(f"raster and image kernels: {ptxas_summary(log, 'raster_tiles')} | "
+          f"{ptxas_summary(log, 'gaussian_blur')} | "
+          f"{ptxas_summary(log, 'tonemap')}", flush=True)
 
     # 3. Colored solver vs plain on the preps of a disturbed batch.
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1028,6 +1365,7 @@ def main():
         fail("the ragdolls did not stand")
 
     rays = path_tracing(card, cuda_ms)
+    images = raster_frame(card, cuda_ms)
 
     print(json.dumps({"kernels": [{
         "name": "colored_solver",
@@ -1053,7 +1391,7 @@ def main():
         "bound_ms": fused_bound[0],
         "bound_by": fused_bound[1],
         "library_ms": None,
-    }] + rays}))
+    }] + rays + images}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,8 @@ from .render import bvh as bvh_mod
 from .render.camera import Camera
 from .render.lights import PointLights
 from .render.pathtracer import Materials, Sky
+from .render.pipeline import FrameState
+from .render.shadows import SunShadowMaps
 
 _DENSE = ("pi_0", "pi_1", "action_head", "vf_0", "vf_1", "value_head")
 _BODY_FIELDS = ("pos", "rot", "vel", "omega", "force", "torque")
@@ -98,6 +100,19 @@ def camera_from_numpy(src, device="cuda") -> Camera:
                   rotation=_tensor(_get(src, "rotation"), device),
                   **{f: float(_get(src, f))
                      for f in ("v_fov", "aspect", "near", "far")})
+
+
+def frame_state_from_numpy(src, device="cuda") -> FrameState:
+    """The raster frame's temporal state (TAA history, frame index, half-res
+    AO / SSR histories) from the JAX package's `FrameState`, so that both
+    packages render the next frame from the same state."""
+    return _fields(FrameState, src, resolve_device(device))
+
+
+def sun_shadow_maps_from_numpy(src, device="cuda") -> SunShadowMaps:
+    """Sun cascades (depth maps and volumes) from the JAX package's
+    `SunShadowMaps`."""
+    return _fields(SunShadowMaps, src, resolve_device(device))
 
 
 def body_state_from_numpy(src, device="cuda") -> BodyState:

@@ -30,6 +30,11 @@ def normalize(a, eps=1e-12):
     return a / torch.clamp(length(a), min=eps)[..., None]
 
 
+def roll2(x, dy, dx):
+    """Roll an image by dy rows and dx columns (wrapping)."""
+    return torch.roll(x, (dy, dx), (0, 1))
+
+
 def noz(a, eps_sq=1e-8):
     """Normalize-or-zero."""
     sl = squared_length(a)

@@ -14,16 +14,18 @@
 // t_best - t >= 0.  NaN (all-zero padding rows give 0/0, degenerate
 // triangles too) and +-inf fail a compare and reject, with no guards.
 //
-// Every product, sum and the quotient is rounded on its own (the _rn
-// intrinsics forbid nvcc's FMA contraction), in the order written above, so
-// the kernels compute the same bits as the plain PyTorch version of
-// ops/ray_trace.py, which runs each operation as its own tensor op.
+// Every product, sum and the quotient is rounded on its own (rn_math.cuh),
+// in the order written above, so the kernels compute the same bits as the
+// plain PyTorch version of ops/ray_trace.py, which runs each operation as its
+// own tensor op.
 //
 // The constants and the RayArgs layout are mirrored by ops/ray_trace.py (a
 // CPU test holds the two together).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "rn_math.cuh"
 
 constexpr int RAY_PLANE_COLS = 16;   // floats per plane-table row
 constexpr int RAY_NODE_COLS = 8;     // floats per node-table row
@@ -53,42 +55,10 @@ struct RayArgs {
   int pad_;
 };
 
-__device__ __forceinline__ float ray_mul(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fmul_rn(a, b);
-#else
-  return a * b;
-#endif
-}
-
-__device__ __forceinline__ float ray_add(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fadd_rn(a, b);
-#else
-  return a + b;
-#endif
-}
-
-__device__ __forceinline__ float ray_sub(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fsub_rn(a, b);
-#else
-  return a - b;
-#endif
-}
-
-__device__ __forceinline__ float ray_div(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fdiv_rn(a, b);
-#else
-  return a / b;
-#endif
-}
-
 // (a.x * b.x + a.y * b.y) + a.z * b.z
 __device__ __forceinline__ float ray_dot(float ax, float ay, float az,
                                          float bx, float by, float bz) {
-  return ray_add(ray_add(ray_mul(ax, bx), ray_mul(ay, by)), ray_mul(az, bz));
+  return rn_add(rn_add(rn_mul(ax, bx), rn_mul(ay, by)), rn_mul(az, bz));
 }
 
 struct Ray {
@@ -103,13 +73,13 @@ __device__ __forceinline__ bool ray_plane_test(const Ray& r, float4 pn,
                                                float t_best, float& t) {
   const float on = ray_dot(r.ox, r.oy, r.oz, pn.x, pn.y, pn.z);
   const float dn = ray_dot(r.dx, r.dy, r.dz, pn.x, pn.y, pn.z);
-  t = ray_div(ray_sub(pn.w, on), dn);
-  const float u = ray_add(ray_add(ray_dot(r.ox, r.oy, r.oz, pu.x, pu.y, pu.z), pu.w),
-                          ray_mul(t, ray_dot(r.dx, r.dy, r.dz, pu.x, pu.y, pu.z)));
-  const float v = ray_add(ray_add(ray_dot(r.ox, r.oy, r.oz, pv.x, pv.y, pv.z), pv.w),
-                          ray_mul(t, ray_dot(r.dx, r.dy, r.dz, pv.x, pv.y, pv.z)));
-  return u >= 0.0f && v >= 0.0f && ray_sub(1.0f, ray_add(u, v)) >= 0.0f &&
-         ray_sub(t, 1e-4f) >= 0.0f && ray_sub(t_best, t) >= 0.0f;
+  t = rn_div(rn_sub(pn.w, on), dn);
+  const float u = rn_add(rn_add(ray_dot(r.ox, r.oy, r.oz, pu.x, pu.y, pu.z), pu.w),
+                         rn_mul(t, ray_dot(r.dx, r.dy, r.dz, pu.x, pu.y, pu.z)));
+  const float v = rn_add(rn_add(ray_dot(r.ox, r.oy, r.oz, pv.x, pv.y, pv.z), pv.w),
+                         rn_mul(t, ray_dot(r.dx, r.dy, r.dz, pv.x, pv.y, pv.z)));
+  return u >= 0.0f && v >= 0.0f && rn_sub(1.0f, rn_add(u, v)) >= 0.0f &&
+         rn_sub(t, 1e-4f) >= 0.0f && rn_sub(t_best, t) >= 0.0f;
 }
 
 // Closest-hit order: nearer t first, the lower row on an exact tie.  The

@@ -1,8 +1,9 @@
 """Build and bind the port's native code, at first use, from `csrc/`.
 
-* The CUDA kernels: every `csrc/*.cu` in ONE nvcc call for `sm_90a` into one
-  shared library with a plain C interface, `build/torch_kernels/<hash>/`,
-  loaded with ctypes (`load_library`).  The hash covers the flags and every
+* The CUDA kernels: every `csrc/*.cu` compiled for `sm_90a` by its own
+  nvcc process, all started together, then linked into one shared library
+  with a plain C interface, `build/torch_kernels/<hash>/`, loaded with
+  ctypes (`load_library`).  The hash covers the flags and every
   `csrc/*.cu` and `csrc/*.cuh`, so an edit to a shared header rebuilds.
   nvcc's output, ptxas register / stack / spill counts of every kernel
   included, is kept in `build.log` beside the library.
@@ -29,8 +30,8 @@ CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR.parent / "build" / "torch_kernels"
 HOST_BUILD_DIR = _PACKAGE_DIR.parent / "build" / "torch_native"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
-              "csrc")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", "csrc")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LIBRARY_NAME = "libd3d12_torch_kernels.so"
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 HOST_SOURCE = "bvh_build.cpp"
@@ -67,14 +68,15 @@ def _hashed_dir(root: Path, flags: Sequence[str], sources) -> Path:
 
 def build_dir() -> Path:
     """`BUILD_DIR/<hash>` of the flags and every csrc/*.cu and csrc/*.cuh."""
-    return _hashed_dir(BUILD_DIR, NVCC_FLAGS,
+    return _hashed_dir(BUILD_DIR, NVCC_FLAGS + LINK_FLAGS,
                        sorted(CSRC_DIR.glob("*.cu"))
                        + sorted(CSRC_DIR.glob("*.cuh")))
 
 
-def _compile(cmd, out_dir: Path, name: str, what: str) -> Path:
-    """Run `cmd + ["-o", tmp]` unless `out_dir/name` exists; the compiler's
-    output goes to `out_dir/build.log`; the library appears atomically."""
+def _compile(cmd, out_dir: Path, name: str, what: str, log: str = "") -> Path:
+    """Run `cmd + ["-o", tmp]` unless `out_dir/name` exists; `log` and the
+    compiler's output go to `out_dir/build.log`; the library appears
+    atomically."""
     lib = out_dir / name
     if lib.exists():
         return lib
@@ -82,7 +84,7 @@ def _compile(cmd, out_dir: Path, name: str, what: str) -> Path:
     tmp = out_dir / f"{name}.{os.getpid()}.tmp"
     proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True,
                           text=True, cwd=CSRC_DIR.parent)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    (out_dir / "build.log").write_text(log + proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"{what} failed (rc={proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
@@ -91,11 +93,35 @@ def _compile(cmd, out_dir: Path, name: str, what: str) -> Path:
 
 
 def build_library() -> Path:
-    """Compile csrc/*.cu (one nvcc call, one library) unless a build of the
-    same sources and flags exists."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    return _compile([_nvcc(), *NVCC_FLAGS, *map(str, sources)], build_dir(),
-                    LIBRARY_NAME, "nvcc")
+    """Compile each csrc/*.cu in its own nvcc process, all at once, and
+    link the objects into one library, unless a build of the same sources
+    and flags exists."""
+    out_dir = build_dir()
+    if (out_dir / LIBRARY_NAME).exists():
+        return out_dir / LIBRARY_NAME
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{os.getpid()}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=CSRC_DIR.parent)))
+    log, failed = "", []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        log += f"== {src.name}\n{out}"
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (rc={proc.returncode}):\n{out[-2000:]}")
+    if failed:
+        (out_dir / "build.log").write_text(log)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    lib = _compile([nvcc, *LINK_FLAGS, *(str(obj) for _, obj, _ in jobs)],
+                   out_dir, LIBRARY_NAME, "nvcc link", log)
+    for _, obj, _ in jobs:
+        obj.unlink()
+    return lib
 
 
 def build_host_library() -> Path:
@@ -139,8 +165,26 @@ def load_library() -> ctypes.CDLL:
             getattr(lib, name).restype = i32
         lib.ray_args_size.restype = i32
         lib.ray_max_stack.restype = i32
+        # The raster kernel (ops/raster.py) and the image kernels
+        # (ops/image.py): an argument struct by address, device, stream.
+        for name in ("raster_launch", "gaussian_blur_launch",
+                     "tonemap_launch"):
+            getattr(lib, name).argtypes = [ptr, i32, ptr]
+            getattr(lib, name).restype = i32
+        for name in ("raster_args_size", "blur_args_size",
+                     "tonemap_args_size", "blur_max_radius"):
+            getattr(lib, name).restype = i32
         _library = lib
     return _library
+
+
+def launcher(name: str, device: torch.device):
+    """The kernel library's `name(args*, device, stream)` bound to `device`
+    and its current stream: a function of the argument struct's address."""
+    fn = getattr(load_library(), name)
+    index = device.index if device.index is not None else 0
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return lambda args: fn(args, index, stream)
 
 
 def load_host_library() -> ctypes.CDLL:

@@ -45,6 +45,8 @@ ATRIUM_ALBEDO = [[0.55, 0.5, 0.45], [0.7, 0.66, 0.6], [0.75, 0.72, 0.65],
                  [0.6, 0.58, 0.52], [0.9, 0.88, 0.85], [0.6, 0.15, 0.12]]
 ATRIUM_ROUGHNESS = [0.6, 0.7, 0.55, 0.65, 0.15, 0.8]
 ATRIUM_METALLIC = [0.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+# bench.py:290: the raster frame's cascades are 512^2 each.
+RASTER_SHADOW_RESOLUTION = 512
 
 
 def pathtrace_entry(device="cuda", width: int = 1920, height: int = 1080,
@@ -89,3 +91,59 @@ def pathtrace_entry(device="cuda", width: int = 1920, height: int = 1080,
                          sampler=sampler)
 
     return fn, (scene, camera, sampler)
+
+
+def raster_entry(device="cuda", width: int = 1920, height: int = 1080,
+                 seed: int = 0):
+    """The raster frame's main path (counterpart of `bench_raster_frame`'s
+    set-up, `bench.py:265-303`): the atrium and materials of
+    `pathtrace_entry`, the same camera, `RendererSettings(primary="raster",
+    half_res_effects=True)`, and 3-cascade sun shadow maps of
+    `RASTER_SHADOW_RESOLUTION`^2 rendered once here (static scene and sun).
+
+    Returns `(fn, state)`: `state` is the initial `FrameState` and
+    `fn(state, profile_stages=False) -> (ldr (H, W, 3), state, aux)`
+    renders one frame with TAA history carried (the previous camera is the
+    camera: no motion).  Each frame's two sub-pixel jitter floats are drawn
+    from a `torch.Generator` seeded with `seed`.  `aux` is
+    `render_frame`'s."""
+    import math
+
+    from .render import bvh as bvh_mod
+    from .render import pathtracer as pt
+    from .render.camera import look_at
+    from .render.mesh import atrium_scene
+    from .render.pipeline import (RendererSettings, initial_frame_state,
+                                  render_frame)
+    from .render.shadows import fit_cascades, render_sun_shadow_maps
+
+    device = resolve_device(device)
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    bvh = bvh_mod.build_bvh(atrium_scene(1.4), device=device)
+    materials = pt.Materials(albedo=f32(ATRIUM_ALBEDO),
+                             emissive=torch.zeros((6, 3), device=device),
+                             roughness=f32(ATRIUM_ROUGHNESS),
+                             metallic=f32(ATRIUM_METALLIC))
+    scene = pt.Scene(bvh=bvh, materials=materials,
+                     sky=pt.default_sky(device=device)).with_shading_table()
+    camera = look_at((8.0, 6.0, -14.0), (0.0, 3.0, 0.0), device=device,
+                     v_fov=math.radians(60), aspect=width / height)
+    settings = RendererSettings(primary="raster", half_res_effects=True)
+    with torch.inference_mode():
+        maps = render_sun_shadow_maps(
+            bvh, fit_cascades(camera.position, -scene.sky.sun_direction),
+            resolution=RASTER_SHADOW_RESOLUTION)
+    generator = torch.Generator(device=device).manual_seed(seed)
+
+    @torch.inference_mode()
+    def fn(state, profile_stages: bool = False):
+        jitter = torch.rand(2, generator=generator, device=device)
+        return render_frame(scene, camera, width, height, settings,
+                            shadow_maps=maps, frame_state=state,
+                            prev_camera=camera, jitter=jitter,
+                            profile_stages=profile_stages)
+
+    return fn, initial_frame_state(width, height, device)

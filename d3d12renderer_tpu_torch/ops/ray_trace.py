@@ -28,7 +28,7 @@ from typing import Callable, Dict
 
 import torch
 
-from ..cuda_build import load_library
+from ..cuda_build import launcher
 
 TRI_CHUNK = 1024         # ray_trace_pallas.TRI_CHUNK: the dispatch threshold
 # Mirrors of csrc/ray_plane.cuh.
@@ -212,14 +212,6 @@ def launch(launch_fn: Callable, planes, nodes, origin, direction, t_max,
     return t_out, tri_out
 
 
-def _cuda_launcher(name, device):
-    lib = load_library()
-    fn = getattr(lib, name)
-    index = device.index if device.index is not None else 0
-    stream = torch.cuda.current_stream(device).cuda_stream
-    return lambda args: fn(args, index, stream)
-
-
 def ray_closest_hit_bvh(planes, nodes, origin, direction, t_max,
                         any_hit=False, stack_limit=MAX_STACK, stats=None,
                         error=None):
@@ -228,7 +220,7 @@ def ray_closest_hit_bvh(planes, nodes, origin, direction, t_max,
     `launch`."""
     if not origin.is_cuda:
         return closest_hit_plain(planes, origin, direction, t_max, any_hit)
-    out = launch(_cuda_launcher("ray_closest_hit_bvh_launch", origin.device),
+    out = launch(launcher("ray_closest_hit_bvh_launch", origin.device),
                  planes, nodes, origin, direction, t_max, any_hit, stack_limit,
                  stats, error)
     ray_closest_hit_bvh.launches += 1
@@ -241,7 +233,7 @@ def ray_closest_hit_brute(planes, origin, direction, t_max, any_hit=False,
     Counts its launches in `ray_closest_hit_brute.launches`."""
     if not origin.is_cuda:
         return closest_hit_plain(planes, origin, direction, t_max, any_hit)
-    out = launch(_cuda_launcher("ray_closest_hit_brute_launch", origin.device),
+    out = launch(launcher("ray_closest_hit_brute_launch", origin.device),
                  planes, None, origin, direction, t_max, any_hit,
                  stats=stats, error=error)
     ray_closest_hit_brute.launches += 1

@@ -1,6 +1,7 @@
 """Render camera and primary-ray generation (counterpart of
-``d3d12renderer_tpu/render/camera.py``: `Camera`, `look_at`,
-`generate_rays` with per-pixel jitter and thin-lens rays)."""
+``d3d12renderer_tpu/render/camera.py``: `Camera`, `look_at`, the Halton
+jitter sequence, `generate_rays` with per-pixel jitter, one per-frame
+offset, or thin-lens rays)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,16 @@ import torch
 
 from ..core import maths as m
 from ..cuda_build import resolve_device
+
+
+def halton(index: int, base: int) -> float:
+    """Element `index` of the Halton sequence in `base` (TAA jitter)."""
+    f, r = 1.0, 0.0
+    while index > 0:
+        f /= base
+        r += f * (index % base)
+        index //= base
+    return r
 
 
 @dataclass
@@ -59,18 +70,23 @@ def look_at(eye, target, up=(0.0, 1.0, 0.0), device="cuda", **kw) -> Camera:
 
 def generate_rays(camera: Camera, width: int, height: int, sampler=None,
                   f_number: float = 0.0, focal_length: float = 1.0,
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  offset=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Primary rays, origin and direction (H*W, 3), on the camera's device.
 
     With a `sampler` (render/pathtracer.py `Sampler`), sub-pixel positions
     are jittered per pixel by an (H, W, 2) uniform draw and, if
     f_number > 0, origins sample a thin-lens aperture (two (H*W,) uniform
-    draws: radius, angle); without one, rays go through pixel centres."""
+    draws: radius, angle).  `offset` (2,) instead puts ONE sub-pixel offset
+    on every pixel: the per-frame jitter of the rasterized primary path.
+    With neither, rays go through pixel centres."""
     dev = camera.position.device
     px = torch.arange(width, dtype=torch.float32, device=dev)
     py = torch.arange(height, dtype=torch.float32, device=dev)
     gy, gx = torch.meshgrid(py, px, indexing="ij")
-    if sampler is not None:
+    if offset is not None:
+        off = torch.as_tensor(offset, dtype=torch.float32, device=dev)
+        off = off.reshape(1, 1, 2).expand(height, width, 2)
+    elif sampler is not None:
         off = sampler.uniform((height, width, 2))
     else:
         off = torch.full((height, width, 2), 0.5, device=dev)

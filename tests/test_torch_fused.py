@@ -14,8 +14,6 @@ one float32 ulp into ~3e-4 rad in either package.
 import ctypes
 import dataclasses
 import re
-import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +37,8 @@ from d3d12renderer_tpu_torch.physics import joints, solver_cuda, step
 from d3d12renderer_tpu_torch.physics import substep_cuda
 from d3d12renderer_tpu_torch.physics.builder import SceneBuilder
 from d3d12renderer_tpu_torch.physics.types import PhysicsSettings
+
+from tests.torch_host_build import build_host
 
 torch.set_num_threads(1)
 
@@ -542,29 +542,6 @@ def test_chain_touches_the_ground(chain_runs):
 # The kernel source, compiled as host C++
 # --------------------------------------------------------------------------
 
-_STUB_RUNTIME = """\
-#pragma once
-#include <math.h>
-#include <stddef.h>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-static dim3 blockIdx(0), blockDim(1), threadIdx(0);
-template <class T> inline T __ldg(const T* p) { return *p; }
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0 };
-inline cudaError_t cudaSetDevice(int) { return 0; }
-inline cudaError_t cudaGetLastError() { return 0; }
-inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t,
-                                    cudaStream_t) { return 0; }
-"""
-
 _HARNESS = """\
 #include "fused_substep.cu"
 // The kernel body once per scene index: one thread per scene, as launched.
@@ -583,23 +560,10 @@ extern "C" int host_args_size() { return (int)sizeof(FusedArgs); }
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    """csrc/fused_substep.cu built as host C++ (g++, -ffp-contract=off),
-    the CUDA qualifiers and runtime stubbed."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernel source as host code")
-    d = tmp_path_factory.mktemp("host_kernel")
-    (d / "cuda_runtime.h").write_text(_STUB_RUNTIME)
-    (d / "harness.cpp").write_text(_HARNESS)
-    lib = d / "libhost_fused.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", f"-I{d}", f"-I{cuda_build.CSRC_DIR}",
-                    str(d / "harness.cpp"), "-o", str(lib)],
-                   check=True, capture_output=True, text=True)
-    host = ctypes.CDLL(str(lib))
+    """csrc/fused_substep.cu built as host C++ (tests/torch_host_build.py)."""
+    host = build_host(tmp_path_factory, "host_fused", _HARNESS,
+                      ("host_fused_substep", "host_args_size"))
     host.host_fused_substep.argtypes = [ctypes.c_void_p]
-    host.host_fused_substep.restype = ctypes.c_int
-    host.host_args_size.restype = ctypes.c_int
     assert host.host_args_size() == ctypes.sizeof(substep_cuda.FusedArgs)
     return host
 

@@ -30,6 +30,7 @@ def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import d3d12renderer_tpu_torch.entry, d3d12renderer_tpu_torch.convert\n"
+        "import d3d12renderer_tpu_torch.render.pipeline\n"
         "from d3d12renderer_tpu_torch.physics import solver_cuda\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'd3d12renderer_tpu')]\n"
@@ -183,12 +184,18 @@ def _entry_points():
     from d3d12renderer_tpu_torch import convert, entry
     from d3d12renderer_tpu_torch.physics import builder, joints
     from d3d12renderer_tpu_torch.render import bvh, camera, lights, mesh
-    from d3d12renderer_tpu_torch.render import pathtracer
+    from d3d12renderer_tpu_torch.render import pathtracer, pipeline
 
     arch = lambda: LocoEnv(device="cpu").arch  # noqa: E731
     return {
         "entry": (entry.entry, lambda f: f()),
         "pathtrace_entry": (entry.pathtrace_entry, lambda f: f()),
+        "raster_entry": (entry.raster_entry, lambda f: f()),
+        "initial_frame_state": (pipeline.initial_frame_state,
+                                lambda f: f(8, 8)),
+        "frame_state_from_numpy": (convert.frame_state_from_numpy, None),
+        "sun_shadow_maps_from_numpy": (convert.sun_shadow_maps_from_numpy,
+                                       None),
         "LocoEnv": (LocoEnv.__init__, lambda f: LocoEnv()),
         "finalize": (builder.SceneBuilder.finalize,
                      lambda f: builder.SceneBuilder().finalize()),
@@ -335,3 +342,79 @@ def test_ray_kernels_match_plain_on_cuda(mode):
         else:
             assert torch.equal(tri >= 0, want_tri >= 0)
 
+
+
+def _atrium_frame_inputs():
+    """The atrium at 1080p on the card: its BVH, camera and the raster
+    kernel's inputs (planes, pairs, segments) at a fixed jitter."""
+    import math
+
+    from d3d12renderer_tpu_torch.ops import raster
+    from d3d12renderer_tpu_torch.render import bvh, camera, mesh
+
+    tb = bvh.build_bvh(mesh.atrium_scene(1.4), device="cuda")
+    cam = camera.look_at((8.0, 6.0, -14.0), (0.0, 3.0, 0.0), device="cuda",
+                         v_fov=math.radians(60), aspect=1920 / 1080)
+    mat, attr = raster.perspective_rows(cam, 1920, 1080)
+    planes, rect, q_tri = raster.project_planes(
+        tb.tri_v0, tb.tri_e1, tb.tri_e2, tb.tri_valid, mat, attr, 1920, 1088)
+    pair_tri, seg = raster.bin_pairs(rect, q_tri, 1920, 1088)
+    return planes, pair_tri, seg, torch.tensor([0.3, 0.7], device="cuda")
+
+
+@pytest.mark.cuda
+def test_raster_kernel_matches_plain_on_cuda():
+    """The raster kernel against its plain version over the atrium at
+    1080p (~300k pairs): q, tri, u, v equal bit for bit, one launch."""
+    _need_cuda()
+    from d3d12renderer_tpu_torch.ops import raster
+
+    args = _atrium_frame_inputs() + (1920, 1088)
+    before = raster.rasterize_tiles.launches
+    got = raster.rasterize_tiles(*args)
+    assert raster.rasterize_tiles.launches == before + 1
+    want = raster.rasterize_plain(*args)
+    torch.cuda.synchronize()
+    assert (want[1] >= 0).float().mean() > 0.5
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sigma", [((540, 960, 1), 1.5),
+                                         ((1080, 1920, 3), 1.5),
+                                         ((67, 120, 3), 1.5),
+                                         ((1080, 1920, 3), 1.0)])
+def test_blur_kernel_matches_plain_on_cuda(shape, sigma):
+    """Frame shapes of the blur (HBAO, two bloom levels, sharpen): equal
+    bit for bit."""
+    _need_cuda()
+    from d3d12renderer_tpu_torch.ops import image
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.rand(shape, generator=g, device="cuda") * 4
+    taps = image.gaussian_kernel(sigma)
+    before = image.gaussian_blur.launches
+    got = image.gaussian_blur(x, taps)
+    assert image.gaussian_blur.launches == before + 1
+    assert torch.equal(got, image.blur_plain(x, taps.to("cuda")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("srgb", [False, True])
+def test_tonemap_kernel_matches_plain_on_cuda(srgb):
+    """1080p: equal bit for bit without the sRGB encode; with it within
+    2 ulps (CUDA's expf / logf against PyTorch's exp / log)."""
+    _need_cuda()
+    from d3d12renderer_tpu_torch.ops import image
+    from d3d12renderer_tpu_torch.render import post
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.rand((1080, 1920, 3), generator=g, device="cuda") * 20
+    s = post.TonemapSettings()
+    got = image.tonemap(x, s, srgb)
+    want = image.tonemap_plain(x, image.tonemap_constants(s), srgb)
+    if srgb:
+        torch.testing.assert_close(got, want, rtol=2.5e-7, atol=1e-7)
+    else:
+        assert torch.equal(got, want)

@@ -1,0 +1,291 @@
+"""The port's post-processing (`render/post.py`, `ops/image.py`) against
+the JAX package's `render/post.py` and its Pallas image kernels (interpret
+mode), on inputs made with numpy from seeds or from a JAX G-buffer; and
+`csrc/image.cu` compiled as host C++ against the plain versions."""
+
+import ctypes
+import math
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from d3d12renderer_tpu.ops import pallas_kernels as jpk
+from d3d12renderer_tpu.render import bvh as jbvh
+from d3d12renderer_tpu.render import camera as jcam
+from d3d12renderer_tpu.render import mesh as jmesh
+from d3d12renderer_tpu.render import pathtracer as jpt
+from d3d12renderer_tpu.render import post as jpost
+from d3d12renderer_tpu.render.gbuffer import render_gbuffer
+from d3d12renderer_tpu_torch import cuda_build
+from d3d12renderer_tpu_torch.ops import image
+from d3d12renderer_tpu_torch.render import post
+
+from tests.torch_host_build import build_host
+
+torch.set_num_threads(1)
+# Float32 functions of the same operations in the same order: XLA's CPU
+# code may contract a * b + c into FMA and sums in another order, so a few
+# ulps of the values' scale.
+TOL = 1e-5
+
+
+def _img(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).random(shape) * scale).astype(np.float32)
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def _close(got, want, atol=TOL, rtol=TOL):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.fixture(scope="module")
+def gbuffer():
+    """A JAX G-buffer of the pipeline tests' scene at 64x48 (rays through
+    pixel centres): view positions and normals with sky, edges and
+    contact creases, for HBAO and SSR."""
+    meshes = [(jmesh.quad(half=20.0), 0),
+              (jmesh.ico_sphere(1.0, 2).transformed(translate=(0, 1.0, 0)), 1),
+              (jmesh.box((0.7, 0.7, 0.7)).transformed(
+                  translate=(2.2, 0.7, -0.5)), 2)]
+    mats = jpt.Materials(albedo=jnp.full((3, 3), 0.5), emissive=jnp.zeros((3, 3)),
+                         roughness=jnp.array([0.8, 0.3, 0.6]),
+                         metallic=jnp.zeros(3))
+    scene = jpt.Scene(bvh=jbvh.build_bvh(meshes, cache=False), materials=mats,
+                      sky=jpt.default_sky()).with_shading_table()
+    cam = jcam.look_at((5, 3, 6), (0.5, 0.8, 0), aspect=64 / 48,
+                       v_fov=math.radians(50))
+    gb = render_gbuffer(scene, cam, 64, 48)
+    return {k: np.asarray(getattr(gb, k)) for k in (
+        "view_pos", "view_normal", "roughness", "depth", "hit")}, cam
+
+
+@pytest.mark.parametrize("sigma,shape", [(1.5, (48, 40, 1)), (1.5, (33, 60, 3)),
+                                         (1.0, (40, 64, 3)), (2.0, (20, 24))])
+def test_gaussian_blur_matches_jax(sigma, shape):
+    """`post.gaussian_blur` (the plain version on the CPU) against JAX's
+    `post.gaussian_blur` (`_sep_conv`) and against the Pallas blur kernel in
+    interpret mode; the taps against `gaussian_kernel`'s."""
+    x = _img(1, shape, 4.0)
+    got = post.gaussian_blur(_t(x), sigma)
+    _close(got, jpost.gaussian_blur(jnp.asarray(x), sigma))
+    _close(got, jpk.gaussian_blur_pallas(jnp.asarray(x), sigma, interpret=True))
+    _close(image.gaussian_kernel(sigma), jpost.gaussian_kernel(sigma), atol=1e-7,
+           rtol=1e-6)
+
+
+@pytest.mark.parametrize("srgb", [False, True])
+def test_tonemap_matches_jax(srgb):
+    """srgb=False against `post.tonemap_uncharted2` (the frame's pass);
+    srgb=True against the Pallas kernel `tonemap_srgb` in interpret mode
+    (the port's sRGB encode follows that kernel's exp/log form, not
+    `post.to_srgb`'s power)."""
+    x = _img(2, (37, 50, 3), 30.0)
+    x[0, :4, 0] = [0.0, 1e-4, 11.2, 500.0]
+    got = post.tonemap_uncharted2(_t(x)) if not srgb else image.tonemap(
+        _t(x), post.TonemapSettings(), srgb=True)
+    want = (jpk.tonemap_srgb(jnp.asarray(x), interpret=True) if srgb
+            else jpost.tonemap_uncharted2(jnp.asarray(x)))
+    _close(got, want, atol=2e-6, rtol=2e-6)
+    assert float(got.min()) >= 0.0 and float(got.max()) <= 1.0
+
+
+def test_to_srgb_matches_jax():
+    x = _img(3, (20, 30, 3), 1.2) - 0.1
+    _close(post.to_srgb(_t(x)), jpost.to_srgb(jnp.asarray(x)), atol=2e-6)
+
+
+def test_downsample_and_bloom_upsample_ratios_match_jax():
+    """`downsample2` (odd edges dropped), and `upsample2` at the ratios of
+    the 1080p bloom pyramid (540, 270, 135, 67 and 33 rows back to 1080):
+    `F.interpolate(bilinear, align_corners=False)` against
+    `jax.image.resize(bilinear)`, the edge rows and columns included (both
+    clamp the taps that fall outside)."""
+    x = _img(4, (67, 121, 3), 3.0)
+    _close(post.downsample2(_t(x)), jpost.downsample2(jnp.asarray(x)))
+    for h, w in ((540, 960), (270, 480), (135, 240), (67, 120), (33, 60)):
+        low = _img(h, (h, w, 3))
+        got = post.upsample2(_t(low), (1080, 1920)).numpy()
+        want = np.asarray(jpost.upsample2(jnp.asarray(low), (1080, 1920)))
+        for edge in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1]):
+            np.testing.assert_allclose(got[edge], want[edge], atol=2e-6)
+        np.testing.assert_allclose(got, want, atol=2e-6)
+
+
+def test_bilateral_upsample_matches_jax():
+    low = _img(5, (12, 16, 3))
+    dlow = _img(6, (12, 16), 5.0) + 1.0
+    dfull = _img(7, (24, 32), 5.0) + 1.0
+    _close(post.bilateral_upsample(_t(low), _t(dlow), _t(dfull)),
+           jpost.bilateral_upsample(jnp.asarray(low), jnp.asarray(dlow),
+                                    jnp.asarray(dfull)))
+    _close(post.bilateral_upsample(_t(low[..., 0]), _t(dlow), _t(dfull)),
+           jpost.bilateral_upsample(jnp.asarray(low[..., 0]),
+                                    jnp.asarray(dlow), jnp.asarray(dfull)))
+
+
+@pytest.mark.parametrize("first", [None, True, False])
+def test_temporal_accumulate_and_taa_match_jax(first):
+    """Reprojection by rounded motion (half-way motions included: both
+    round half to even), 3x3 clamp, blend."""
+    cur = _img(8, (20, 24, 3))
+    hist = _img(9, (20, 24, 3))
+    motion = (_img(10, (20, 24, 2)) - 0.5) * 6.0
+    motion[0, :4] = [[0.5, 1.5], [2.5, -0.5], [-1.5, -2.5], [3.5, 0.5]]
+    f_t = None if first is None else torch.tensor(first)
+    f_j = None if first is None else jnp.asarray(first)
+    _close(post.temporal_accumulate(_t(cur), _t(hist), _t(motion), first=f_t),
+           jpost.temporal_accumulate(jnp.asarray(cur), jnp.asarray(hist),
+                                     jnp.asarray(motion), first=f_j))
+    _close(post.taa(_t(cur), _t(hist), _t(motion)),
+           jpost.taa(jnp.asarray(cur), jnp.asarray(hist), jnp.asarray(motion)))
+
+
+def test_hbao_matches_jax(gbuffer):
+    g, _ = gbuffer
+    got = post.hbao(_t(g["view_pos"]), _t(g["view_normal"]))
+    want = jpost.hbao(jnp.asarray(g["view_pos"]), jnp.asarray(g["view_normal"]))
+    assert float(got.min()) < 0.9
+    _close(got, want)
+
+
+def test_min_depth_pyramid_matches_jax(gbuffer):
+    g, _ = gbuffer
+    depth = np.maximum(-g["view_pos"][..., 2], 1e-4)[:45, :61]
+    got = post.build_min_depth_pyramid(_t(depth), 6)
+    want = jpost.build_min_depth_pyramid(jnp.asarray(depth), 6)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_ssr_matches_jax(gbuffer):
+    """The 64-step hierarchical march: the same cells and hits, so colour
+    and confidence agree to float rounding (a march step that flips on a
+    rounding would show as a pixel of difference; none do here)."""
+    g, cam = gbuffer
+    color = _img(11, g["view_pos"].shape, 2.0)
+    args = (color, g["view_pos"], g["view_normal"], g["roughness"])
+    kw = dict(tan_half=math.tan(cam.v_fov * 0.5), aspect=cam.aspect)
+    got = post.ssr(*map(_t, args), **kw)
+    want = jpost.ssr(*map(jnp.asarray, args), **kw)
+    assert float((want[1] > 0).mean()) > 0.05
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def test_bloom_and_sharpen_match_jax():
+    x = _img(12, (72, 100, 3), 8.0)
+    settings = post.BloomSettings(threshold=3.0, strength=0.3)
+    _close(post.bloom(_t(x), settings),
+           jpost.bloom(jnp.asarray(x), jpost.BloomSettings(threshold=3.0,
+                                                          strength=0.3)))
+    y = _img(13, (40, 56, 3))
+    _close(post.sharpen(_t(y)), jpost.sharpen(jnp.asarray(y)))
+
+
+def test_settings_defaults_match_jax():
+    for name in ("HBAOSettings", "SSRSettings", "TAASettings", "BloomSettings",
+                 "SharpenSettings", "TonemapSettings", "SSSSettings"):
+        ours, theirs = getattr(post, name)(), getattr(jpost, name)()
+        for f in ours.__dataclass_fields__:
+            assert getattr(ours, f) == pytest.approx(float(getattr(theirs, f)))
+
+
+# --------------------------------------------------------------------------
+# The kernels' source, compiled as host C++
+# --------------------------------------------------------------------------
+
+HARNESS = """\
+#include "image.cu"
+// Each block run by one thread, which walks all of the block's work.
+extern "C" int host_blur(const BlurArgs* a) {
+  if (a->radius < 0 || a->radius > BLUR_MAX_RADIUS) return -1;
+  blockDim = dim3(1);
+  threadIdx = dim3(0);
+  for (int c = 0; c < a->channels; ++c)
+    for (int by = 0; by * BLUR_TILE < a->height; ++by)
+      for (int bx = 0; bx * BLUR_TILE < a->width; ++bx) {
+        blockIdx = dim3(bx, by, c);
+        gaussian_blur(*a);
+      }
+  return 0;
+}
+extern "C" int host_tonemap(const TonemapArgs* a) {
+  blockDim = dim3(1);
+  gridDim = dim3(1);
+  blockIdx = dim3(0);
+  threadIdx = dim3(0);
+  tonemap(*a);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_image(tmp_path_factory):
+    host = build_host(tmp_path_factory, "host_image", HARNESS,
+                      ("host_blur", "host_tonemap", "blur_args_size",
+                       "tonemap_args_size", "blur_max_radius"))
+    host.host_blur.argtypes = host.host_tonemap.argtypes = [ctypes.c_void_p]
+    return host
+
+
+@pytest.mark.parametrize("sigma,shape", [(1.5, (70, 45, 1)), (1.5, (33, 60, 3)),
+                                         (1.0, (64, 96, 3)), (2.0, (5, 7)),
+                                         (5.0, (40, 50, 2))])
+def test_host_blur_matches_plain(host_image, sigma, shape):
+    """Bit for bit, through the real wrapper, ragged tiles and radii 3 to
+    15 included."""
+    x = torch.as_tensor(_img(14, shape, 3.0))
+    taps = image.gaussian_kernel(sigma)
+    got = image.blur_launch(host_image.host_blur, x, taps)
+    assert torch.equal(got, image.blur_plain(x, taps))
+
+
+@pytest.mark.parametrize("srgb", [False, True])
+def test_host_tonemap_matches_plain(host_image, srgb):
+    """Bit for bit without the sRGB encode; with it, within 2 ulps (the
+    host's libm expf/logf against PyTorch's vectorised exp/log)."""
+    x = torch.as_tensor(_img(15, (30, 41, 3), 25.0))
+    x[0, 0] = torch.tensor([0.0, -1.0, 1e-6])
+    k = image.tonemap_constants(post.TonemapSettings())
+    got = image.tonemap_launch(host_image.host_tonemap, x, k, srgb)
+    want = image.tonemap_plain(x, k, srgb)
+    if srgb:
+        torch.testing.assert_close(got, want, rtol=2.5e-7, atol=1e-7)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_image_layout_matches_the_wrapper(host_image):
+    src = (cuda_build.CSRC_DIR / "image.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (BLUR_[A-Z_]+) = (\d+);", src)}
+    assert consts["BLUR_MAX_RADIUS"] == image.BLUR_MAX_RADIUS
+    assert host_image.blur_max_radius() == image.BLUR_MAX_RADIUS
+    assert host_image.blur_args_size() == ctypes.sizeof(image.BlurArgs)
+    assert host_image.tonemap_args_size() == ctypes.sizeof(image.TonemapArgs)
+    for struct, cls in (("BlurArgs", image.BlurArgs),
+                        ("TonemapArgs", image.TonemapArgs)):
+        body = re.search(rf"struct {struct} \{{(.*?)\}};", src, re.S).group(1)
+        body = re.sub(r"//[^\n]*", "", body)
+        names = [n for decl in body.split(";")
+                 for n in re.findall(r"(\w+)(?:\[\w+\])?\s*(?:,|$)", decl.strip())]
+        assert names == [f for f, _ in cls._fields_], struct
+
+
+def test_wrappers_take_the_plain_versions_on_cpu():
+    x = torch.as_tensor(_img(16, (20, 30, 3), 5.0))
+    before = (image.gaussian_blur.launches, image.tonemap.launches)
+    taps = image.gaussian_kernel(1.5)
+    assert torch.equal(image.gaussian_blur(x, taps), image.blur_plain(x, taps))
+    k = image.tonemap_constants(post.TonemapSettings())
+    assert torch.equal(image.tonemap(x, post.TonemapSettings()),
+                       image.tonemap_plain(x, k, False))
+    assert (image.gaussian_blur.launches, image.tonemap.launches) == before

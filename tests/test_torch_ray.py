@@ -5,8 +5,6 @@ version.  Rays and t_max come from numpy seeds."""
 
 import ctypes
 import re
-import shutil
-import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +17,8 @@ from d3d12renderer_tpu_torch import cuda_build
 from d3d12renderer_tpu_torch.ops import ray_trace
 from d3d12renderer_tpu_torch.render import bvh as tbvh
 from d3d12renderer_tpu_torch.render import mesh as tmesh
+
+from tests.torch_host_build import build_host
 
 torch.set_num_threads(1)
 R = 1024
@@ -222,39 +222,6 @@ def test_node_table_links_and_padding(scenes):
 # The kernels' source, compiled as host C++
 # --------------------------------------------------------------------------
 
-_STUB_RUNTIME = """\
-#pragma once
-#include <math.h>
-#include <stddef.h>
-#include <string.h>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __shared__ static
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-static dim3 blockIdx(0), blockDim(1), threadIdx(0);
-struct float4 { float x, y, z, w; };
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0 };
-inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
-inline int atomicOr(int* p, int v) { int o = *p; *p |= v; return o; }
-inline unsigned long long atomicAdd(unsigned long long* p,
-                                    unsigned long long v) {
-  unsigned long long o = *p; *p += v; return o;
-}
-inline void __syncthreads() {}
-inline int __syncthreads_or(int p) { return p; }
-inline cudaError_t cudaSetDevice(int) { return 0; }
-inline cudaError_t cudaGetLastError() { return 0; }
-inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t,
-                                    cudaStream_t) { return 0; }
-"""
-
 _HARNESS = """\
 #include "ray_trace.cu"
 // Each kernel body once per ray index, as one-thread blocks: the brute
@@ -276,23 +243,10 @@ extern "C" int host_ray_brute(const RayArgs* a) { return run(ray_closest_hit_bru
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """csrc/ray_trace.cu built as host C++ (g++, -ffp-contract=off), the
-    CUDA qualifiers and runtime stubbed."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernel source as host code")
-    d = tmp_path_factory.mktemp("host_ray")
-    (d / "cuda_runtime.h").write_text(_STUB_RUNTIME)
-    (d / "harness.cpp").write_text(_HARNESS)
-    lib = d / "libhost_ray.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", f"-I{d}", f"-I{cuda_build.CSRC_DIR}",
-                    str(d / "harness.cpp"), "-o", str(lib)],
-                   check=True, capture_output=True, text=True)
-    host = ctypes.CDLL(str(lib))
-    for name in ("host_ray_bvh", "host_ray_brute", "ray_args_size",
-                 "ray_max_stack"):
-        getattr(host, name).restype = ctypes.c_int
+    """csrc/ray_trace.cu built as host C++ (tests/torch_host_build.py)."""
+    host = build_host(tmp_path_factory, "host_ray", _HARNESS,
+                      ("host_ray_bvh", "host_ray_brute", "ray_args_size",
+                       "ray_max_stack"))
     host.host_ray_bvh.argtypes = host.host_ray_brute.argtypes = [
         ctypes.c_void_p]
     return host

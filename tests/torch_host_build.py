@@ -1,0 +1,67 @@
+"""Builds a CUDA kernel source of `d3d12renderer_tpu_torch/csrc` as host
+C++ for the CPU tests: g++ with -ffp-contract=off (no FMA contraction, so
+each operation rounds as the plain PyTorch version's does), the CUDA
+qualifiers and runtime stubbed, and a harness that runs the kernel body
+once per block with one thread."""
+
+import ctypes
+import shutil
+import subprocess
+
+import pytest
+
+from d3d12renderer_tpu_torch import cuda_build
+
+STUB_RUNTIME = """\
+#pragma once
+#include <math.h>
+#include <stddef.h>
+#include <string.h>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __shared__ static
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+static dim3 blockIdx(0), blockDim(1), threadIdx(0), gridDim(1);
+struct float4 { float x, y, z, w; };
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0 };
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
+inline int atomicOr(int* p, int v) { int o = *p; *p |= v; return o; }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  unsigned long long o = *p; *p += v; return o;
+}
+inline void __syncthreads() {}
+inline int __syncthreads_or(int p) { return p; }
+inline cudaError_t cudaSetDevice(int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t,
+                                    cudaStream_t) { return 0; }
+"""
+
+
+def build_host(tmp_path_factory, name, harness, symbols):
+    """A csrc kernel source built as host C++ (g++ -ffp-contract=off), the
+    CUDA qualifiers and runtime stubbed; `symbols` get int restypes."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel source as host code")
+    d = tmp_path_factory.mktemp(name)
+    (d / "cuda_runtime.h").write_text(STUB_RUNTIME)
+    (d / "harness.cpp").write_text(harness)
+    lib = d / f"lib{name}.so"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                    "-fPIC", f"-I{d}", f"-I{cuda_build.CSRC_DIR}",
+                    str(d / "harness.cpp"), "-o", str(lib)],
+                   check=True, capture_output=True, text=True)
+    host = ctypes.CDLL(str(lib))
+    for sym in symbols:
+        getattr(host, sym).restype = ctypes.c_int
+    return host
