@@ -18,9 +18,11 @@ the paths:
   tonemap, sharpen; one raster, one tonemap and seven blur launches per
   frame);
 
-and checks what comes out.  Each phase prints one line; the line before the
-last is a JSON summary of the kernels, the last line
-`{"ok": true, "device": {...}}`.  Any failure exits non-zero.
+and checks what comes out.  Both solver kernels run at every team width
+(8, 16 and 32 lanes per scene) and at ragged batches against their plain
+versions; the default width is `solver_cuda.TEAM_WIDTH`.  Each phase prints
+one line; the line before the last is a JSON summary of the kernels, the
+last line `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
 
     python3 chip_smoke.py
 """
@@ -56,6 +58,11 @@ POSE_TOL = 1e-4
 # `done` (head height < 1 m) may flip only where the height is this close
 # to 1 m.
 DONE_BAND = 1e-4
+# Ragged batches of both solver kernels against their plain versions: with
+# warp-sized blocks of 32 / W teams, 999 leaves the last block's last teams
+# masked at W = 8 and 16 (1000 fills every block).
+RAGGED = (1000, 999)
+BODY_FIELDS = ("pos", "rot", "vel", "omega", "force", "torque")
 # Card against the CPU path, obs and reward over a few whole env steps: the
 # same rounding differences, plus the torch CUDA and CPU op implementations,
 # grown through each step's 30 sweeps.
@@ -149,6 +156,22 @@ def solve_flop(tables, batch, points, iterations):
     rows = sum(m.perm.shape[0] * ROW_FLOP[m.kind] for m in tables
                if m.kind != "contact")
     return iterations * (batch * rows + points * CONTACT_POINT_FLOP)
+
+
+def ptxas_entries(log: str, name: str) -> list:
+    """Registers, stack and spills of every kernel whose mangled name holds
+    `name` (one per template instance), from nvcc's `-Xptxas -v` output."""
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and name in line:
+            mangled = line.split("'")[1] if "'" in line else line
+            props = " ".join(l.strip() for l in lines[i + 1:i + 4]
+                             if "stack frame" in l or "registers" in l)
+            out.append(f"{mangled}: {props}")
+    if not out:
+        fail(f"ptxas output has no entry function {name}")
+    return out
 
 
 def ptxas_summary(log: str, name: str) -> str:
@@ -1023,6 +1046,19 @@ def main():
     def max_err(a, b):
         return (a - b).abs().max().item()
 
+    WIDTHS = solver_cuda.TEAM_WIDTHS
+
+    def occupancy(blocks_per_sm, team_floats):
+        """Per team width: dynamic shared bytes per block, and blocks and
+        scenes resident on one SM (the CUDA occupancy calculator)."""
+        out = {}
+        for width in WIDTHS:
+            nbytes = solver_cuda.block_shared_bytes(team_floats(width), width)
+            blocks = blocks_per_sm(width, nbytes)
+            out[width] = (f"{nbytes} B/block, {blocks} blocks, "
+                          f"{blocks * (solver_cuda.WARP // width)} scenes")
+        return "per SM by width: " + json.dumps(out)
+
     # 1. Device.
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1039,12 +1075,15 @@ def main():
     # builder with g++.
     t0 = time.perf_counter()
     lib_path = cuda_build.build_library()
-    cuda_build.load_library()
+    lib = cuda_build.load_library()
     build_s = time.perf_counter() - t0
     log = (lib_path.parent / "build.log").read_text()
     ptxas = " ".join(l.strip() for l in log.splitlines()
                      if "registers" in l or "spill" in l or "entry" in l)
     print(f"build: {build_s:.1f} s -> {lib_path} | {ptxas}", flush=True)
+    print("solver kernels (one per team width): " + " | ".join(
+        ptxas_entries(log, "colored_solver_kernel")
+        + ptxas_entries(log, "fused_substep_kernel")), flush=True)
     t0 = time.perf_counter()
     host_lib = cuda_build.build_host_library()
     cuda_build.load_host_library()
@@ -1091,29 +1130,65 @@ def main():
                      for k in ("eff_limit", "eff_twist_limit", "eff_swing")
                      if k in p)
 
-        # The kernel alone on a packed buffer, and the kernel route (pack +
-        # kernel); in turns with the plain version.
+        # The kernel alone on a packed buffer at each team width, and the
+        # kernel route (pack + kernel); in turns with the plain version.
         prep = solver.pack_prep(sp.joint_preps, sp.contact_prep, BATCH, dev)
         arrays = solver.kernel_arrays(dev)
 
-        def kernel_only():
+        def kernel_only(width, vel=sp.vel1, omega=sp.omega1, p=prep):
             return solver_cuda.colored_solve_cuda(
-                sp.vel1, sp.omega1, prep, arrays, len(solver.tables),
-                solver.num_impulses, ITERATIONS)
+                vel, omega, p, arrays, len(solver.tables),
+                solver.num_impulses, ITERATIONS, width)
 
+        width_err = {}
+        for width in WIDTHS:
+            wv, ww = kernel_only(width)
+            width_err[width] = (max_err(wv, pv), max_err(ww, pw))
         plain_ms = [cuda_ms(lambda: solver.plain(*args), 2)]
-        kernel_ms = [cuda_ms(kernel_only, 20)]
+        width_ms = {width: [] for width in WIDTHS}
+        for order in (WIDTHS, WIDTHS[::-1]):
+            for width in order:
+                width_ms[width].append(
+                    cuda_ms(lambda: kernel_only(width), 20))
         route_ms = [cuda_ms(lambda: solver(*args), 20) for _ in range(2)]
-        kernel_ms.append(cuda_ms(kernel_only, 20))
         plain_ms.append(cuda_ms(lambda: solver.plain(*args), 2))
+        kernel_ms = width_ms[solver_cuda.TEAM_WIDTH]
+
+        # Ragged batches: every width against the plain version.
+        ragged_err = {}
+        for n in RAGGED:
+            rb = BodyState(*(getattr(st.bodies, f)[:n] for f in BODY_FIELDS))
+            rsp = step.substep_prep(env.arch, rb, 1.0 / FRAME_RATE,
+                                    env.settings, env._motor_overrides(act[:n]))
+            rargs = (rsp.joint_preps, rsp.contact_prep, rsp.vel1, rsp.omega1)
+            rpv, rpw = solver.plain(*rargs)
+            rprep = solver.pack_prep(rsp.joint_preps, rsp.contact_prep, n, dev)
+            for width in WIDTHS:
+                rv, rw = kernel_only(width, rsp.vel1.contiguous(),
+                                     rsp.omega1.contiguous(), rprep)
+                ragged_err[(n, width)] = (max_err(rv, rpv), max_err(rw, rpw))
+        sync()
     print(f"colored kernel vs plain (B={BATCH}, {ITERATIONS} iterations, "
-          f"{points} active contact points, {limits} active limit rows): "
-          f"max |dvel| {err_v:.3e} (bound {VEL_TOL}), max |domega| "
-          f"{err_w:.3e} (bound {OMEGA_TOL}); ms per solve: kernel "
-          f"{kernel_ms}, pack + kernel {route_ms}, plain {plain_ms} | {card}",
-          flush=True)
+          f"{points} active contact points, {limits} active limit rows, team "
+          f"width {solver_cuda.TEAM_WIDTH}): max |dvel| {err_v:.3e} (bound "
+          f"{VEL_TOL}), max |domega| {err_w:.3e} (bound {OMEGA_TOL}); every "
+          f"width, max err {json.dumps(width_err)}; ragged (B, W): "
+          f"{json.dumps({f'{n}/{w}': e for (n, w), e in ragged_err.items()})}"
+          f" | ms per solve: kernel by width "
+          f"{json.dumps(width_ms)}, pack + kernel {route_ms}, plain "
+          f"{plain_ms} | " + occupancy(
+              lib.colored_solver_blocks_per_sm,
+              lambda width: solver_cuda.colored_team_floats(
+                  sp.vel1.shape[1], prep.shape[1], solver.num_impulses,
+                  width)) + f" | {card}", flush=True)
     if not (err_v <= VEL_TOL and err_w <= OMEGA_TOL):
         fail("the colored kernel disagrees with its plain version")
+    for what, errs in (("a team width", width_err),
+                       ("a ragged batch", ragged_err)):
+        if not all(ev <= VEL_TOL and ew <= OMEGA_TOL
+                   for ev, ew in errs.values()):
+            fail(f"the colored kernel disagrees with its plain version at "
+                 f"{what}: {errs}")
     # Bound: the packed prep read once, vel/omega in and out; the solve's
     # operations at this batch's active contact points.
     colored_bound = bound(
@@ -1168,15 +1243,36 @@ def main():
             ACTION_SIZE, dev)
         post = fenv.post_consts()
 
-        def fused_only():
-            return fused_k(bodies, ovr, fconsts, post)
+        def fused_width(b, smooth, width):
+            """The kernel at team width `width`, as the env step's tuple."""
+            nb, extra = fused_k(b, smooth.contiguous(), fconsts, post, width)
+            return (nb, extra[:, :STATE_SIZE], extra[:, STATE_SIZE],
+                    extra[:, STATE_SIZE + 1] > 0.5)
 
-        f_ms = [cuda_ms(fused_only, 20)]
+        # Every width against the plain version, at B and at ragged B.
+        checks = {f"{BATCH}/{width}": compare(fused_width(bodies, smoothed,
+                                                          width), want)
+                  for width in WIDTHS}
+        for n in RAGGED:
+            rb = BodyState(*(getattr(bodies, f)[:n] for f in BODY_FIELDS))
+            rwant = penv._step_core(rb, smoothed[:n])
+            for width in WIDTHS:
+                checks[f"{n}/{width}"] = compare(
+                    fused_width(rb, smoothed[:n], width), rwant)
+        sync()
+
+        fw_ms = {width: [] for width in WIDTHS}
+        for width in WIDTHS:
+            fw_ms[width].append(cuda_ms(
+                lambda: fused_k(bodies, ovr, fconsts, post, width), 20))
         u_ms = [cuda_ms(lambda: env._step_core(bodies, smoothed), 10)]
         p_ms = [cuda_ms(lambda: penv._step_core(bodies, smoothed), 1)]
         p_ms.append(cuda_ms(lambda: penv._step_core(bodies, smoothed), 1))
         u_ms.append(cuda_ms(lambda: env._step_core(bodies, smoothed), 10))
-        f_ms.append(cuda_ms(fused_only, 20))
+        for width in WIDTHS[::-1]:
+            fw_ms[width].append(cuda_ms(
+                lambda: fused_k(bodies, ovr, fconsts, post, width), 20))
+        f_ms = fw_ms[solver_cuda.TEAM_WIDTH]
         # Bound: body state in and out, the action in, obs/reward/done out;
         # the solve's operations at this step's active contact points (the
         # narrowphase, prep and post stage are left out: a lower bound).
@@ -1188,15 +1284,24 @@ def main():
                          + STATE_SIZE + 2),
             solve_flop(solver.tables, BATCH, f_points, ITERATIONS))
     print(f"fused kernel vs plain (B={BATCH}, one env step, {ITERATIONS} "
-          f"iterations): max err {json.dumps(f_errs)}, done flips {f_flips}; "
+          f"iterations, team width {solver_cuda.TEAM_WIDTH}): max err "
+          f"{json.dumps(f_errs)}, done flips {f_flips}; "
           f"vs the unfused kernel route: {json.dumps(r_errs)}, done flips "
-          f"{r_flips} | bounds pos/rot {POSE_TOL} vel {VEL_TOL} omega "
+          f"{r_flips}; every B/width vs plain (max err, flips): "
+          f"{json.dumps({k: [max(e.values()), n] for k, (e, n, _) in checks.items()})}"
+          f" | bounds pos/rot {POSE_TOL} vel {VEL_TOL} omega "
           f"{OMEGA_TOL} obs/reward "
           f"{OBS_TOL}, done within {DONE_BAND} of 1 m | ms per env step: "
-          f"fused kernel {f_ms}, unfused kernel route {u_ms}, plain {p_ms} | "
-          f"{card}", flush=True)
+          f"fused kernel by width {json.dumps(fw_ms)}, unfused kernel route "
+          f"{u_ms}, plain {p_ms} | " + occupancy(
+              lib.fused_substep_blocks_per_sm,
+              lambda width: substep_cuda.fused_team_floats(
+                  bodies.pos.shape[1], fconsts.planes, fconsts.num_impulses,
+                  width)) + f" | {card}", flush=True)
     for errs, bad, what in ((f_errs, f_bad, "its plain version"),
-                            (r_errs, r_bad, "the unfused kernel route")):
+                            (r_errs, r_bad, "the unfused kernel route"),
+                            *((e, b, f"its plain version at B/width {k}")
+                              for k, (e, _, b) in checks.items())):
         if not (finite and errs["pos"] <= POSE_TOL and errs["rot"] <= POSE_TOL
                 and errs["vel"] <= VEL_TOL and errs["omega"] <= OMEGA_TOL
                 and errs["obs"] <= OBS_TOL and errs["reward"] <= OBS_TOL

@@ -19,24 +19,37 @@
 //      factor, done = head height < 1, the obs, and the reset of done scenes
 //      to the standing pose and its obs.
 //
-// Design (right before fast):
-//   * One thread per scene, 128 threads per block, the ragged last block
-//     masked.  Table-driven: the archetype comes in as small constant arrays
-//     (bodies, rows in the colored solver's packed order, tables and colors),
-//     packed by physics/substep_cuda.py; no source is generated per archetype.
-//   * Steps 2-3 write every row's prep into a [plane][row][scene] scratch in
-//     the colored solver's layout (scenes innermost, coalesced across a warp),
-//     and step 4 reads it back through the same `Row` accessor.  Accumulated
-//     impulses live in a [impulse][scene] scratch.  Body state (at most
-//     MAX_BODIES bodies plus the world slot) lives in local memory.
-//   * Transcendentals are the true atan2f / acosf / expf.
+// Design:
+//   * A team of W lanes per scene (W = 8, 16 or 32, a template parameter),
+//     one warp per block holding 32 / W teams; teams past the end of the
+//     batch skip the work but keep to every barrier.  Table-driven: the
+//     archetype comes in as small constant arrays (bodies, rows in the
+//     colored solver's packed order, tables and colors), packed by
+//     physics/substep_cuda.py; no source is generated per archetype.
+//   * Everything of a scene lives in the team's slice of the block's dynamic
+//     shared memory: body pos, rot, v, w and world inverse inertia (N bodies
+//     and the world slot), every row's prep in the colored solver's
+//     per-scene layout ([row][field] per table) and the accumulated impulses.
+//     Nothing goes through device memory but the inputs and outputs.
+//   * The lanes work in parallel, the warp meeting at a __syncwarp between
+//     stages: step 1 and step 5 one body per lane, steps 2-3 one row
+//     per lane (table by table, so lanes of one kind run together), step 4
+//     the team solve of solver_rows.cuh (`solve_scene`, shared with the
+//     colored solver), step 6 one part per lane, then the sums, obs and
+//     reward on the team's first lane.
+//   * Transcendentals are the true atan2f / acosf / expf.  The 32-byte stack
+//     frame ptxas reports is sinf / cosf's reduction of large arguments (the
+//     swing motor axis of the cone-twist prep); no body or impulse state
+//     lives in local memory.
 //
-// What bounds it on this card: one thread per scene gives only B / 128
-// blocks (32 at B = 4096, a quarter of the 132 SMs); each of the 30 solver
-// iterations re-reads the scene's ~2k prep floats from L2; body state and
-// world inertias spill to local memory.  There is no tile math, so wgmma and
-// TMA do not apply.  Later speed work: more scenes in flight (smaller blocks,
-// a warp per scene), prep kept in shared memory or registers.
+// What bounds it on this card: latency.  The solve is a chain of dependent
+// color steps, 30 iterations of one step per color (10 for the ragdoll: 1
+// hinge, 5 cone-twist, 4 contact colors), each a row solve of a few dozen
+// dependent shared-memory loads and flops; and shared memory per scene
+// (about 10.5 KB for the ragdoll) holds 20 scenes on an SM, so B = 4096
+// runs in two rounds.  The solve is ~80% of a launch, the post stage ~5%
+// (PERF.md).  There is no tile math, so wgmma and TMA do not apply.  The
+// team width 8 (solver_cuda.TEAM_WIDTH) was the fastest of 8, 16 and 32.
 //
 // nvcc contracts a*b+c into FMA and the plain PyTorch version rounds every
 // product; the prep also takes other op orders than the plain version, so
@@ -64,8 +77,6 @@ struct FusedArgs {
   float* torque_out;
   const float* ovr;        // (B, ovr_cols) runtime motor targets
   float* extras;           // (B, n_extra) post-stage output, or null
-  float* prep;             // (planes, B) scratch
-  float* imp;              // (num_impulses, B) scratch
   const float* body_f;     // (N + 1, BODY_F)
   const float* row_f;      // (rows, ROW_F) in packed order
   const int* row_i;        // (rows, ROW_I)
@@ -79,6 +90,7 @@ struct FusedArgs {
   int num_tables;
   int num_bodies;
   int num_impulses;
+  int planes;              // prep floats per scene
   int ovr_cols;
   int n_extra;
   int batch;
@@ -97,8 +109,6 @@ struct FusedArgs {
 
 namespace {
 
-constexpr int MAX_BODIES = 64;
-constexpr int THREADS = 128;
 constexpr float PI = 3.14159265358979323846f;
 constexpr float GRAVITY = -9.81f;
 constexpr float CONTACT_SLOP = 0.001f;
@@ -257,11 +267,10 @@ __device__ __forceinline__ void orthonormal_basis(V3 n, V3& t1, V3& t2) {
   t2 = {b, sign + n.y * n.y * a, -n.y};
 }
 
-// Writes one row's prep planes: plane f of this row and scene is p[f * stride].
+// Writes one row's prep: field f of this row is p[f].
 struct PrepOut {
   float* p;
-  size_t stride;
-  __device__ __forceinline__ void set(int f, float x) const { p[f * stride] = x; }
+  __device__ __forceinline__ void set(int f, float x) const { p[f] = x; }
   __device__ __forceinline__ void set3(int f, V3 x) const {
     set(f, x.x);
     set(f + 1, x.y);
@@ -272,14 +281,24 @@ struct PrepOut {
   }
 };
 
-// The scene's body state: N bodies and the world slot N.
+// The scene's body state in the team's shared memory: N bodies and the world
+// slot N.
 struct Scene {
-  V3 pos[MAX_BODIES + 1];
-  Q4 rot[MAX_BODIES + 1];
-  V3 v[MAX_BODIES + 1];
-  V3 w[MAX_BODIES + 1];
-  M3 iiw[MAX_BODIES + 1];
+  V3* pos;
+  Q4* rot;
+  V3* v;
+  V3* w;
+  M3* iiw;
 };
+
+// Floats of body state per slot: pos 3, rot 4, v 3, w 3, iiw 9.
+constexpr int SLOT_FLOATS = 22;
+
+// One team's shared floats: the prep, the impulses, the body state.  The
+// wrapper mirrors this (a CPU test holds the two together).
+__host__ __device__ inline int fused_team_floats(int num_bodies, int planes, int num_impulses, int W) {
+  return team_floats(planes + num_impulses + SLOT_FLOATS * (num_bodies + 1), W);
+}
 
 // ---- joint preps (physics/joints.py) ---------------------------------------
 
@@ -546,6 +565,7 @@ __device__ __forceinline__ void sphere_point(V3 center, float radius, V3 n, floa
 
 __device__ Manifold plane_manifold(const Scene& S, const float* body_f, const float* P, int b, int shape) {
   Manifold m;
+#pragma unroll
   for (int k = 0; k < 4; ++k) {
     m.point[k] = {0.0f, 0.0f, 0.0f};
     m.depth[k] = 0.0f;
@@ -565,9 +585,11 @@ __device__ Manifold plane_manifold(const Scene& S, const float* body_f, const fl
     sphere_point(add(wpos, scale(axis, size.y)), size.x, n, off, m, 1);
   } else {
     // Box: 8 corners, x fastest, then the 4 deepest hits by iterated
-    // first-index argmax (ties keep the lowest corner first).
+    // first-index argmax (ties keep the lowest corner first).  Every index
+    // is a constant after unrolling, so the arrays stay in registers.
     V3 pts[8];
     float depth[8], score[8];
+#pragma unroll
     for (int j = 0; j < 8; ++j) {
       const V3 local = {(j & 1 ? 1.0f : -1.0f) * size.x, (j & 2 ? 1.0f : -1.0f) * size.y,
                         (j & 4 ? 1.0f : -1.0f) * size.z};
@@ -576,14 +598,26 @@ __device__ Manifold plane_manifold(const Scene& S, const float* body_f, const fl
       pts[j] = add(p, scale(n, 0.5f * depth[j]));
       score[j] = depth[j] >= 0.0f ? depth[j] : -INFINITY;
     }
+#pragma unroll
     for (int k = 0; k < 4; ++k) {
       int best = 0;
+      float best_score = score[0];
+      V3 best_pt = pts[0];
+      float best_depth = depth[0];
+#pragma unroll
       for (int j = 1; j < 8; ++j)
-        if (score[j] > score[best]) best = j;
-      m.point[k] = pts[best];
-      m.depth[k] = depth[best];
-      m.hit[k] = depth[best] >= 0.0f;
-      score[best] = -INFINITY;
+        if (score[j] > best_score) {
+          best = j;
+          best_score = score[j];
+          best_pt = pts[j];
+          best_depth = depth[j];
+        }
+      m.point[k] = best_pt;
+      m.depth[k] = best_depth;
+      m.hit[k] = best_depth >= 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j == best) score[j] = -INFINITY;
     }
   }
   return m;
@@ -599,6 +633,7 @@ __device__ void prep_contact(const FusedArgs& A, const Scene& S, const float* P,
   out.set(C_FRICTION, __ldg(P + P_FRICTION));
   out.set(C_INV_MASS_B, im_b);
   const float restitution = __ldg(P + P_RESTITUTION);
+#pragma unroll
   for (int k = 0; k < 4; ++k) {
     const V3 r_b = sub(m.point[k], S.pos[b]);
     const V3 relv = add(S.v[b], cross(S.w[b], r_b));
@@ -624,8 +659,15 @@ __device__ void prep_contact(const FusedArgs& A, const Scene& S, const float* P,
 }
 
 // ---- the locomotion env's post stage (learning/loco_env.py) ---------------
+//
+// The lanes of the team take the parts: a lane sums the errors of each of
+// its parts over the part's sample points into `partial` (3 floats per part,
+// then a done flag: the team's prep, free after the solve).  The first lane
+// adds the parts up in part order and writes the obs, reward and done; then
+// the lanes reset their bodies of a done scene to the standing pose.
 
-__device__ void post_stage(const FusedArgs& A, Scene& S, int s) {
+template <int W>
+__device__ void post_stage(const FusedArgs& A, const Team& team, Scene& S, int s, float* partial) {
   const int* Q = A.post_i;
   const int P = Q[Q_PARTS], K = Q[Q_POINTS], O = Q[Q_OBS_PARTS], NA = Q[Q_ACTIONS];
   const int* part_body = Q + Q_LISTS;
@@ -642,172 +684,240 @@ __device__ void post_stage(const FusedArgs& A, Scene& S, int s) {
   const float* s0 = obs0 + n_obs;
   const int N = A.num_bodies;
 
-  float pos_err = 0.0f, vel_err = 0.0f, rot_err = 0.0f;
-  for (int p = 0; p < P; ++p) {
-    const int b = part_body[p];
-    for (int k = 0; k < K; ++k) {
-      const V3 pt = add(S.pos[b], qrot(S.rot[b], ld3(rel + (p * K + k) * 3)));
-      pos_err += length(sub(pt, ld3(target + (p * K + k) * 3)));
-      vel_err += length(add(S.v[b], cross(S.w[b], sub(pt, S.pos[b]))));
+  if (team.active) {
+    for (int p = team.lane; p < P; p += W) {
+      const int b = part_body[p];
+      float pos_err = 0.0f, vel_err = 0.0f;
+      for (int k = 0; k < K; ++k) {
+        const V3 pt = add(S.pos[b], qrot(S.rot[b], ld3(rel + (p * K + k) * 3)));
+        pos_err += length(sub(pt, ld3(target + (p * K + k) * 3)));
+        vel_err += length(add(S.v[b], cross(S.w[b], sub(pt, S.pos[b]))));
+      }
+      const int parent = parent_body[p];
+      const Q4 qp = parent >= 0 ? S.rot[parent] : Q4{0.0f, 0.0f, 0.0f, 1.0f};
+      const Q4 local = qmul(S.rot[b], qconj(qp));
+      const Q4 diff = qmul(ld4(target_lrot + 4 * p), qconj(local));
+      partial[3 * p] = pos_err;
+      partial[3 * p + 1] = vel_err;
+      partial[3 * p + 2] = 2.0f * acosf(clip(diff.w, -1.0f, 1.0f));
     }
-    const int parent = parent_body[p];
-    const Q4 qp = parent >= 0 ? S.rot[parent] : Q4{0.0f, 0.0f, 0.0f, 1.0f};
-    const Q4 local = qmul(S.rot[b], qconj(qp));
-    const Q4 diff = qmul(ld4(target_lrot + 4 * p), qconj(local));
-    rot_err += 2.0f * acosf(clip(diff.w, -1.0f, 1.0f));
   }
-  const int torso = Q[Q_TORSO_BODY];
-  const float n = (float)P;
-  const float rsum = expf(-10.0f / n * pos_err) + expf(-1.0f / n * vel_err) + expf(-10.0f / n * rot_err) +
-                     expf(-length(S.v[torso]));
-  const float head_y = S.pos[Q[Q_HEAD_BODY]].y;
-  const float fall = clip(1.3f - 1.4f * (head_h - head_y), 0.0f, 1.0f);
-  const bool done = head_y < 1.0f;
+  team.sync();
+  if (team.active && team.lane == 0) {
+    float pos_err = 0.0f, vel_err = 0.0f, rot_err = 0.0f;
+    for (int p = 0; p < P; ++p) {
+      pos_err += partial[3 * p];
+      vel_err += partial[3 * p + 1];
+      rot_err += partial[3 * p + 2];
+    }
+    const int torso = Q[Q_TORSO_BODY];
+    const float n = (float)P;
+    const float rsum = expf(-10.0f / n * pos_err) + expf(-1.0f / n * vel_err) + expf(-10.0f / n * rot_err) +
+                       expf(-length(S.v[torso]));
+    const float head_y = S.pos[Q[Q_HEAD_BODY]].y;
+    const float fall = clip(1.3f - 1.4f * (head_h - head_y), 0.0f, 1.0f);
+    const bool done = head_y < 1.0f;
 
-  float* out = A.extras + (size_t)s * A.n_extra;
-  if (done) {
-    for (int c = 0; c < n_obs; ++c) out[c] = __ldg(obs0 + c);
-    for (int i = 0; i < N; ++i) {
+    float* out = A.extras + (size_t)s * A.n_extra;
+    if (done) {
+      for (int c = 0; c < n_obs; ++c) out[c] = __ldg(obs0 + c);
+    } else {
+      const V3 origin = {S.pos[torso].x, 0.0f, S.pos[torso].z};
+      out[0] = S.v[torso].x;
+      out[1] = S.v[torso].y;
+      out[2] = S.v[torso].z;
+      for (int o = 0; o < O; ++o) {
+        const int b = obs_body[o];
+        const V3 rp = sub(S.pos[b], origin);
+        float* q = out + 3 + 6 * o;
+        q[0] = rp.x;
+        q[1] = rp.y;
+        q[2] = rp.z;
+        q[3] = S.v[b].x;
+        q[4] = S.v[b].y;
+        q[5] = S.v[b].z;
+      }
+      for (int a = 0; a < NA; ++a) out[3 + 6 * O + a] = __ldg(A.ovr + (size_t)s * A.ovr_cols + action_col[a]);
+    }
+    out[n_obs] = done ? 0.0f : fall * rsum;
+    out[n_obs + 1] = done ? 1.0f : 0.0f;
+    partial[3 * P] = done ? 1.0f : 0.0f;
+  }
+  team.sync();
+  if (team.active && partial[3 * P] != 0.0f) {
+    for (int i = team.lane; i < N; i += W) {
       S.pos[i] = ld3(s0 + 3 * i);
       S.rot[i] = ld4(s0 + 3 * N + 4 * i);
       S.v[i] = ld3(s0 + 7 * N + 3 * i);
       S.w[i] = ld3(s0 + 10 * N + 3 * i);
     }
-  } else {
-    const V3 origin = {S.pos[torso].x, 0.0f, S.pos[torso].z};
-    out[0] = S.v[torso].x;
-    out[1] = S.v[torso].y;
-    out[2] = S.v[torso].z;
-    for (int o = 0; o < O; ++o) {
-      const int b = obs_body[o];
-      const V3 rp = sub(S.pos[b], origin);
-      float* q = out + 3 + 6 * o;
-      q[0] = rp.x;
-      q[1] = rp.y;
-      q[2] = rp.z;
-      q[3] = S.v[b].x;
-      q[4] = S.v[b].y;
-      q[5] = S.v[b].z;
-    }
-    for (int a = 0; a < NA; ++a) out[3 + 6 * O + a] = __ldg(A.ovr + (size_t)s * A.ovr_cols + action_col[a]);
   }
-  out[n_obs] = done ? 0.0f : fall * rsum;
-  out[n_obs + 1] = done ? 1.0f : 0.0f;
 }
 
 // ---- the kernel --------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS) fused_substep_kernel(const FusedArgs A) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= A.batch) return;
+template <int W>
+__global__ void __launch_bounds__(WARP) fused_substep_kernel(const FusedArgs A) {
+  DYNAMIC_SHARED(smem);
+  const Team team = make_team<W>(A.batch);
+  const int s = team.scene;
   const int N = A.num_bodies;
   const float dt = A.dt;
+  float* prep = smem + (size_t)team.index * fused_team_floats(N, A.planes, A.num_impulses, W);
+  float* imp = prep + A.planes;
   Scene S;
+  S.pos = reinterpret_cast<V3*>(imp + A.num_impulses);
+  S.rot = reinterpret_cast<Q4*>(S.pos + N + 1);
+  S.v = reinterpret_cast<V3*>(S.rot + N + 1);
+  S.w = S.v + N + 1;
+  S.iiw = reinterpret_cast<M3*>(S.w + N + 1);
 
-  // 1. Load the state; forces, from the pre-step rotation.
-  for (int i = 0; i < N; ++i) {
-    const size_t o = (size_t)s * N + i;
-    const float* bf = A.body_f + i * BODY_F;
-    S.pos[i] = {A.pos_in[3 * o], A.pos_in[3 * o + 1], A.pos_in[3 * o + 2]};
-    S.rot[i] = {A.rot_in[4 * o], A.rot_in[4 * o + 1], A.rot_in[4 * o + 2], A.rot_in[4 * o + 3]};
-    const M3 R = mat_from_quat(S.rot[i]);
-    M3 I;
-    for (int k = 0; k < 9; ++k) I.m[k] = __ldg(bf + B_INV_INERTIA + k);
-    S.iiw[i] = mat_mul(mat_mul(R, I, false), R, true);
-    const float im = __ldg(bf + B_INV_MASS);
-    const V3 f = {A.force_in[3 * o] + A.gff_x, A.force_in[3 * o + 1] + A.gff_y, A.force_in[3 * o + 2] + A.gff_z};
-    const V3 torque = {A.torque_in[3 * o], A.torque_in[3 * o + 1], A.torque_in[3 * o + 2]};
-    const V3 gravity = {0.0f, GRAVITY * __ldg(bf + B_GRAVITY_FACTOR), 0.0f};
-    const V3 lin_acc = im > 0.0f ? add(gravity, scale(f, im)) : V3{0.0f, 0.0f, 0.0f};
-    const V3 ang_acc = mv(S.iiw[i], torque);
-    const V3 v = add(V3{A.vel_in[3 * o], A.vel_in[3 * o + 1], A.vel_in[3 * o + 2]}, scale(lin_acc, dt));
-    const V3 w = add(V3{A.omega_in[3 * o], A.omega_in[3 * o + 1], A.omega_in[3 * o + 2]}, scale(ang_acc, dt));
-    const float ld = 1.0f + dt * __ldg(bf + B_LINEAR_DAMPING);
-    const float ad = 1.0f + dt * __ldg(bf + B_ANGULAR_DAMPING);
-    S.v[i] = {v.x / ld, v.y / ld, v.z / ld};
-    S.w[i] = {w.x / ad, w.y / ad, w.z / ad};
+  // 1. Load the state; forces, from the pre-step rotation.  One body per lane.
+  if (team.active) {
+    for (int i = team.lane; i < N; i += W) {
+      const size_t o = (size_t)s * N + i;
+      const float* bf = A.body_f + i * BODY_F;
+      const Q4 q = {A.rot_in[4 * o], A.rot_in[4 * o + 1], A.rot_in[4 * o + 2], A.rot_in[4 * o + 3]};
+      S.pos[i] = {A.pos_in[3 * o], A.pos_in[3 * o + 1], A.pos_in[3 * o + 2]};
+      S.rot[i] = q;
+      const M3 R = mat_from_quat(q);
+      M3 I;
+      for (int k = 0; k < 9; ++k) I.m[k] = __ldg(bf + B_INV_INERTIA + k);
+      const M3 iiw = mat_mul(mat_mul(R, I, false), R, true);
+      S.iiw[i] = iiw;
+      const float im = __ldg(bf + B_INV_MASS);
+      const V3 f = {A.force_in[3 * o] + A.gff_x, A.force_in[3 * o + 1] + A.gff_y, A.force_in[3 * o + 2] + A.gff_z};
+      const V3 torque = {A.torque_in[3 * o], A.torque_in[3 * o + 1], A.torque_in[3 * o + 2]};
+      const V3 gravity = {0.0f, GRAVITY * __ldg(bf + B_GRAVITY_FACTOR), 0.0f};
+      const V3 lin_acc = im > 0.0f ? add(gravity, scale(f, im)) : V3{0.0f, 0.0f, 0.0f};
+      const V3 ang_acc = mv(iiw, torque);
+      const V3 v = add(V3{A.vel_in[3 * o], A.vel_in[3 * o + 1], A.vel_in[3 * o + 2]}, scale(lin_acc, dt));
+      const V3 w = add(V3{A.omega_in[3 * o], A.omega_in[3 * o + 1], A.omega_in[3 * o + 2]}, scale(ang_acc, dt));
+      const float ld = 1.0f + dt * __ldg(bf + B_LINEAR_DAMPING);
+      const float ad = 1.0f + dt * __ldg(bf + B_ANGULAR_DAMPING);
+      S.v[i] = {v.x / ld, v.y / ld, v.z / ld};
+      S.w[i] = {w.x / ad, w.y / ad, w.z / ad};
+    }
+    if (team.lane == 0) {
+      S.pos[N] = {0.0f, 0.0f, 0.0f};
+      S.rot[N] = {0.0f, 0.0f, 0.0f, 1.0f};
+      S.v[N] = S.w[N] = S.pos[N];
+      S.iiw[N] = M3{{0, 0, 0, 0, 0, 0, 0, 0, 0}};
+    }
+    for (int i = team.lane; i < A.num_impulses; i += W) imp[i] = 0.0f;
   }
-  S.pos[N] = {0.0f, 0.0f, 0.0f};
-  S.rot[N] = {0.0f, 0.0f, 0.0f, 1.0f};
-  S.v[N] = S.w[N] = S.pos[N];
-  S.iiw[N] = M3{{0, 0, 0, 0, 0, 0, 0, 0, 0}};
+  team.sync();
 
-  // 2-3. Contact and joint preps into the [plane][row][scene] scratch.
-  for (int t = 0; t < A.num_tables; ++t) {
-    const int* T = A.tables + t * TABLE_INTS;
-    const int kind = T[T_KIND];
-    const int rows = T[T_ROWS];
-    for (int r = 0; r < rows; ++r) {
-      const int row = T[T_ROW_BASE] + r;
-      const float* K = A.row_f + row * ROW_F;
-      const int* I = A.row_i + row * ROW_I;
-      const PrepOut out = {A.prep + ((size_t)T[T_PLANE_BASE] + r) * A.batch + s, (size_t)rows * A.batch};
-      if (kind == KIND_CONTACT) {
-        prep_contact(A, S, K, A.body_b[row], I[R_SHAPE], I[R_ACTIVE] != 0, out);
-        continue;
-      }
-      const JointCommon c = joint_common(S, A.body_f, K, A.body_a[row], A.body_b[row], I[R_ACTIVE] != 0);
-      switch (kind) {
-        case KIND_HINGE: prep_hinge(A, S, c, K, I, s, out); break;
-        case KIND_CONE_TWIST: prep_cone_twist(A, S, c, K, I, s, out); break;
-        case KIND_DISTANCE: prep_distance(A, S, c, K, out); break;
-        case KIND_BALL: prep_ball_part(S, c, A.ball_bias, out); break;
-        default: prep_fixed(A, S, c, K, out); break;
+  // 2-3. Contact and joint preps into the team's prep, one row per lane.
+  if (team.active) {
+    for (int t = 0; t < A.num_tables; ++t) {
+      const int* T = A.tables + t * TABLE_INTS;
+      const int kind = T[T_KIND];
+      const int rows = T[T_ROWS];
+      for (int r = team.lane; r < rows; r += W) {
+        const int row = T[T_ROW_BASE] + r;
+        const float* K = A.row_f + row * ROW_F;
+        const int* I = A.row_i + row * ROW_I;
+        const PrepOut out = {prep + T[T_PLANE_BASE] + r * T[T_ROW_STRIDE]};
+        if (kind == KIND_CONTACT) {
+          prep_contact(A, S, K, A.body_b[row], I[R_SHAPE], I[R_ACTIVE] != 0, out);
+          continue;
+        }
+        const JointCommon c = joint_common(S, A.body_f, K, A.body_a[row], A.body_b[row], I[R_ACTIVE] != 0);
+        switch (kind) {
+          case KIND_HINGE: prep_hinge(A, S, c, K, I, s, out); break;
+          case KIND_CONE_TWIST: prep_cone_twist(A, S, c, K, I, s, out); break;
+          case KIND_DISTANCE: prep_distance(A, S, c, K, out); break;
+          case KIND_BALL: prep_ball_part(S, c, A.ball_bias, out); break;
+          default: prep_fixed(A, S, c, K, out); break;
+        }
       }
     }
   }
+  team.sync();
 
   // 4. The solve.
-  for (int i = 0; i < A.num_impulses; ++i) A.imp[(size_t)i * A.batch + s] = 0.0f;
-  solve_scene(S.v, S.w, StridedImp{A.imp + s, (size_t)A.batch}, A.prep, A.tables, A.num_tables, A.colors,
-              A.body_a, A.body_b, A.dynamic, A.batch, s, A.iterations);
+  solve_scene<W>(team, S.v, S.w, imp, prep, A.tables, A.num_tables, A.colors, A.body_a, A.body_b,
+                 A.dynamic, A.iterations);
 
   // 5. Semi-implicit Euler: pos += v dt, rot = normalize(rot + dt (w/2, 0) rot).
-  for (int i = 0; i < N; ++i) {
-    S.pos[i] = add(S.pos[i], scale(S.v[i], dt));
-    const Q4 q = S.rot[i];
-    const Q4 dq = qmul(Q4{0.5f * S.w[i].x, 0.5f * S.w[i].y, 0.5f * S.w[i].z, 0.0f}, q);
-    S.rot[i] = qnormalize(Q4{q.x + dq.x * dt, q.y + dq.y * dt, q.z + dq.z * dt, q.w + dq.w * dt});
+  if (team.active) {
+    for (int i = team.lane; i < N; i += W) {
+      S.pos[i] = add(S.pos[i], scale(S.v[i], dt));
+      const Q4 q = S.rot[i];
+      const Q4 dq = qmul(Q4{0.5f * S.w[i].x, 0.5f * S.w[i].y, 0.5f * S.w[i].z, 0.0f}, q);
+      S.rot[i] = qnormalize(Q4{q.x + dq.x * dt, q.y + dq.y * dt, q.z + dq.z * dt, q.w + dq.w * dt});
+    }
   }
+  team.sync();
 
   // 6. The env's post stage.
-  if (A.extras != nullptr) post_stage(A, S, s);
+  if (A.extras != nullptr) post_stage<W>(A, team, S, s, prep);
+  team.sync();
 
-  for (int i = 0; i < N; ++i) {
-    const size_t o = (size_t)s * N + i;
-    A.pos_out[3 * o] = S.pos[i].x;
-    A.pos_out[3 * o + 1] = S.pos[i].y;
-    A.pos_out[3 * o + 2] = S.pos[i].z;
-    A.rot_out[4 * o] = S.rot[i].x;
-    A.rot_out[4 * o + 1] = S.rot[i].y;
-    A.rot_out[4 * o + 2] = S.rot[i].z;
-    A.rot_out[4 * o + 3] = S.rot[i].w;
-    A.vel_out[3 * o] = S.v[i].x;
-    A.vel_out[3 * o + 1] = S.v[i].y;
-    A.vel_out[3 * o + 2] = S.v[i].z;
-    A.omega_out[3 * o] = S.w[i].x;
-    A.omega_out[3 * o + 1] = S.w[i].y;
-    A.omega_out[3 * o + 2] = S.w[i].z;
-    for (int c = 0; c < 3; ++c) A.force_out[3 * o + c] = A.torque_out[3 * o + c] = 0.0f;
+  if (team.active) {
+    for (int i = team.lane; i < N; i += W) {
+      const size_t o = (size_t)s * N + i;
+      A.pos_out[3 * o] = S.pos[i].x;
+      A.pos_out[3 * o + 1] = S.pos[i].y;
+      A.pos_out[3 * o + 2] = S.pos[i].z;
+      A.rot_out[4 * o] = S.rot[i].x;
+      A.rot_out[4 * o + 1] = S.rot[i].y;
+      A.rot_out[4 * o + 2] = S.rot[i].z;
+      A.rot_out[4 * o + 3] = S.rot[i].w;
+      A.vel_out[3 * o] = S.v[i].x;
+      A.vel_out[3 * o + 1] = S.v[i].y;
+      A.vel_out[3 * o + 2] = S.v[i].z;
+      A.omega_out[3 * o] = S.w[i].x;
+      A.omega_out[3 * o + 1] = S.w[i].y;
+      A.omega_out[3 * o + 2] = S.w[i].z;
+      for (int c = 0; c < 3; ++c) A.force_out[3 * o + c] = A.torque_out[3 * o + c] = 0.0f;
+    }
   }
+}
+
+template <int W>
+int launch(const FusedArgs& a, cudaStream_t stream) {
+  const int bytes = (WARP / W) * fused_team_floats(a.num_bodies, a.planes, a.num_impulses, W) * 4;
+  const void* kernel = (const void*)fused_substep_kernel<W>;
+  cudaError_t err = cudaSuccess;
+  if (bytes > DEFAULT_SHARED_BYTES) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  void* params[] = {(void*)&a};
+  const dim3 blocks((a.batch + WARP / W - 1) / (WARP / W)), threads(WARP);
+  err = cudaLaunchKernel(kernel, blocks, threads, params, bytes, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int fused_substep_max_bodies() { return MAX_BODIES; }
-
 extern "C" int fused_substep_args_size() { return (int)sizeof(FusedArgs); }
 
+// Blocks of the team width `team` resident on one SM at `bytes` of dynamic
+// shared memory per block, or a negative CUDA error.
+extern "C" int fused_substep_blocks_per_sm(int team, int bytes) {
+  const void* kernel = team == 8    ? (const void*)fused_substep_kernel<8>
+                       : team == 16 ? (const void*)fused_substep_kernel<16>
+                                    : (const void*)fused_substep_kernel<32>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, WARP, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 = ok),
-// or -1 when the scene has more bodies than the kernel's local arrays.
-extern "C" int fused_substep_launch(const FusedArgs* args, int device, void* stream) {
-  if (args->num_bodies > MAX_BODIES) return -1;
+// or -1 for a team width other than 8, 16 or 32.
+extern "C" int fused_substep_launch(const FusedArgs* args, int team, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const FusedArgs a = *args;
-  void* params[] = {(void*)&a};
-  const dim3 blocks((a.batch + THREADS - 1) / THREADS), threads(THREADS);
-  err = cudaLaunchKernel((const void*)fused_substep_kernel, blocks, threads, params, 0, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (team) {
+    case 8: return launch<8>(*args, st);
+    case 16: return launch<16>(*args, st);
+    case 32: return launch<32>(*args, st);
+    default: return -1;
+  }
 }

@@ -1,14 +1,28 @@
-// Row solves of the sequential-impulse solver, shared by the colored solver
-// (colored_solver.cu) and the fused whole-substep kernel (fused_substep.cu).
+// Row solves of the sequential-impulse solver and the team solve of one
+// scene, shared by the colored solver (colored_solver.cu) and the fused
+// whole-substep kernel (fused_substep.cu).
 //
-// A row's prep is read from a float buffer laid out [plane][row][scene],
-// scene innermost: plane f of one row and scene is p[f * stride].  The field
+// A team of W lanes of one warp solves one scene (W = 8, 16 or 32; host
+// builds of the kernel sources use W = 1).  The scene's body velocities, the
+// prep of its rows and its accumulated impulses live in the team's slice of
+// the block's dynamic shared memory.  Within the scene, a table's prep is
+// laid out [row][field] with an odd row stride (the table's field count,
+// made odd): a row's fields sit at constant offsets from its start, so they
+// load with no address arithmetic, and the lanes of a team, which take
+// neighbouring rows of one color, fall on different banks.  A table's
+// impulses are [impulse][row]: lanes read neighbouring words.  The field
 // offsets below are the packed layout of physics/solver_cuda.py (a CPU test
-// holds the two together).  Accumulated impulses are reached through an
-// accessor, so that a kernel may keep them in local memory (a pointer) or in
-// a [impulse][scene] global buffer (`StridedImp`).
+// holds the two together).
 
 #pragma once
+
+// `float* name`: the block's dynamic shared memory, 16-byte aligned.  Host
+// builds of the kernel sources define it as a buffer of their own.
+#ifndef DYNAMIC_SHARED
+#define DYNAMIC_SHARED(name)                  \
+  extern __shared__ float4 name##_storage[]; \
+  float* name = reinterpret_cast<float*>(name##_storage)
+#endif
 
 namespace {
 
@@ -28,7 +42,8 @@ constexpr int T_PLANE_BASE = 5;
 constexpr int T_IMP_BASE = 6;
 constexpr int T_A_STATIC = 7;
 constexpr int T_B_STATIC = 8;
-constexpr int TABLE_INTS = 9;
+constexpr int T_ROW_STRIDE = 9;
+constexpr int TABLE_INTS = 10;
 
 // ---- packed prep layout (scalar plane offsets within one row) -------------
 // Ball part: the whole ball row, and the first fields of fixed, hinge and
@@ -113,11 +128,6 @@ constexpr int C_R_A = 70;
 constexpr int C_N_TO_WA = 82;
 constexpr int C_T_TO_WA = 94;
 
-// Accumulated impulses of one row, by kind.
-__device__ __forceinline__ int kind_impulses(int kind) {
-  return kind == KIND_HINGE ? 2 : (kind == KIND_CONE_TWIST ? 4 : (kind == KIND_CONTACT ? 8 : 0));
-}
-
 struct V3 {
   float x, y, z;
 };
@@ -132,12 +142,10 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
 }
 __device__ __forceinline__ float clip(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
 
-// One row's prep: plane f of this row and scene is p[f * stride].  A plain
-// load, not __ldg: the fused kernel writes this buffer in the same launch.
+// One row's prep in shared memory: field f of this row is p[f].
 struct Row {
   const float* __restrict__ p;
-  size_t stride;
-  __device__ __forceinline__ float operator()(int f) const { return p[f * stride]; }
+  __device__ __forceinline__ float operator()(int f) const { return p[f]; }
   __device__ __forceinline__ V3 vec(int f) const { return {(*this)(f), (*this)(f + 1), (*this)(f + 2)}; }
   // Row-major 3x3 matrix at plane f, times x.
   __device__ __forceinline__ V3 mv(int f, V3 x) const {
@@ -145,14 +153,6 @@ struct Row {
             (*this)(f + 3) * x.x + (*this)(f + 4) * x.y + (*this)(f + 5) * x.z,
             (*this)(f + 6) * x.x + (*this)(f + 7) * x.y + (*this)(f + 8) * x.z};
   }
-};
-
-// Impulses in a [impulse][scene] buffer: impulse i of this scene is p[i * stride].
-struct StridedImp {
-  float* p;
-  size_t stride;
-  __device__ __forceinline__ float& operator[](int i) const { return p[i * stride]; }
-  __device__ __forceinline__ StridedImp operator+(int i) const { return {p + i * stride, stride}; }
 };
 
 // Point-to-point part shared by ball, fixed, hinge and cone-twist rows.
@@ -191,8 +191,7 @@ __device__ __forceinline__ void solve_fixed(const Row& R, V3& va, V3& wa, V3& vb
 }
 
 // Hinge: motor -> limit -> rotation -> position.  imp: [motor, limit].
-template <class Imp>
-__device__ void solve_hinge(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, Imp imp) {
+__device__ __forceinline__ void solve_hinge(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, float* imp) {
   const V3 axis = R.vec(H_AXIS);
   const V3 to_wa = R.vec(H_TO_WA_AX), to_wb = R.vec(H_TO_WB_AX);
 
@@ -229,8 +228,7 @@ __device__ void solve_hinge(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, Imp im
 
 // Cone-twist: twist motor -> swing motor -> twist limit -> swing limit ->
 // position.  imp: [twist motor, swing motor, twist limit, swing limit].
-template <class Imp>
-__device__ void solve_cone_twist(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, Imp imp) {
+__device__ __forceinline__ void solve_cone_twist(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, float* imp) {
   const V3 ax = R.vec(CT_TWIST_AXIS);
   const V3 tw_to_wa = R.vec(CT_TW_TO_WA), tw_to_wb = R.vec(CT_TW_TO_WB);
 
@@ -278,14 +276,14 @@ __device__ void solve_cone_twist(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, I
 // Contact row: 4 manifold points in order, friction then normal each.
 // imp: [normal x4, tangent x4].  A static side keeps zero velocity and takes
 // no update, as in the reference kernel.
-template <class Imp>
-__device__ void solve_contact(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, Imp imp,
+__device__ __forceinline__ void solve_contact(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, float* imp,
                               bool a_static, bool b_static) {
   const V3 zero = {0.0f, 0.0f, 0.0f};
   const V3 n = R.vec(C_NORMAL);
   const float friction = R(C_FRICTION);
   const float im_b = R(C_INV_MASS_B);
   const float im_a = a_static ? 0.0f : R(C_INV_MASS_A);
+#pragma unroll
   for (int k = 0; k < 4; ++k) {
     // A masked point leaves velocities and impulses unchanged.
     if (!(R(C_PMASK + k) > 0.5f)) continue;
@@ -328,51 +326,136 @@ __device__ void solve_contact(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, Imp 
   }
 }
 
-// The `iterations`-long solve of scene s: every table in order (joint tables
-// in JOINT_SOLVE_ORDER, then contacts), color by color, row by row within a
-// color.  Rows of one color touch disjoint dynamic bodies, so solving them
-// one after another equals the reference's per-color parallel update.  Only
-// dynamic bodies are written back.  `imp` must hold zeros on entry.
-template <class Imp>
-__device__ void solve_scene(V3* v, V3* w, Imp imp, const float* __restrict__ prep,
+// ---- the team solve ---------------------------------------------------------
+
+constexpr int WARP = 32;
+// Dynamic shared memory a block gets without opting in to more.
+constexpr int DEFAULT_SHARED_BYTES = 48 * 1024;
+
+// One team: W lanes of a warp that solve one scene.  A team past the end of
+// the batch is not active: it skips the work but keeps to every barrier.
+// The barrier is the whole warp's: every team of a warp walks the same
+// archetype, so all of them reach each barrier, and meeting there keeps the
+// teams of a warp converged (a barrier of one team's lanes lets the teams of
+// a warp drift apart and run one after another).
+struct Team {
+  int lane;   // 0 .. W-1
+  int index;  // the team's slot in the block's shared memory
+  int scene;
+  bool active;
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+
+template <int W>
+__device__ __forceinline__ Team make_team(int batch) {
+  Team t;
+  t.lane = threadIdx.x % W;
+  t.index = threadIdx.x / W;
+  t.scene = blockIdx.x * (blockDim.x / W) + t.index;
+  t.active = t.scene < batch;
+  return t;
+}
+
+// Floats of one team's slice of shared memory for a scene that needs `need`:
+// rounded up to 32 words, then W more (W < 32), so that the teams of a warp
+// start on different banks.
+__host__ __device__ inline int team_floats(int need, int W) { return (need + 31) / 32 * 32 + W % WARP; }
+
+// The lanes of a team take the rows [begin, end) of one color in turn: lane
+// l takes rows begin + l, begin + l + W, ...  Whole rows go to lanes.
+template <int W, class F>
+__device__ __forceinline__ void team_rows(int lane, int begin, int end, F&& f) {
+  for (int r = begin + lane; r < end; r += W) f(r);
+}
+
+// The colors of one table of kind K, one after another; the rows of a color
+// at the same time, whole rows to lanes.  A row's impulses sit in registers
+// during its solve: with no store to shared memory before the row's end, its
+// prep loads can all be issued up front.
+template <int W, int K>
+__device__ __forceinline__ void solve_table(const Team& team, V3* v, V3* w, float* imp, const float* prep,
+                                            const int* T, const int* __restrict__ colors,
+                                            const int* __restrict__ body_a, const int* __restrict__ body_b,
+                                            const int* __restrict__ dynamic) {
+  constexpr int IMPS = K == KIND_HINGE ? 2 : (K == KIND_CONE_TWIST ? 4 : (K == KIND_CONTACT ? 8 : 0));
+  const int rows = __ldg(T + T_ROWS);
+  const int row_base = __ldg(T + T_ROW_BASE);
+  const int row_stride = __ldg(T + T_ROW_STRIDE);
+  const bool a_static = __ldg(T + T_A_STATIC) != 0;
+  const bool b_static = __ldg(T + T_B_STATIC) != 0;
+  const int num_colors = __ldg(T + T_NUM_COLORS);
+  const int* bounds = colors + 2 * __ldg(T + T_COLOR_BASE);
+  prep += __ldg(T + T_PLANE_BASE);
+  imp += __ldg(T + T_IMP_BASE);  // impulse k of row r: imp[k * rows + r]
+  for (int c = 0; c < num_colors; ++c) {
+    if (team.active)
+      team_rows<W>(team.lane, __ldg(bounds + 2 * c), __ldg(bounds + 2 * c + 1), [&](int r) {
+        const int ia = __ldg(body_a + row_base + r);
+        const int ib = __ldg(body_b + row_base + r);
+        const Row R = {prep + r * row_stride};
+        float acc[IMPS > 0 ? IMPS : 1];
+#pragma unroll
+        for (int k = 0; k < IMPS; ++k) acc[k] = imp[k * rows + r];
+        V3 va = v[ia], wa = w[ia], vb = v[ib], wb = w[ib];
+        switch (K) {
+          case KIND_HINGE: solve_hinge(R, va, wa, vb, wb, acc); break;
+          case KIND_CONE_TWIST: solve_cone_twist(R, va, wa, vb, wb, acc); break;
+          case KIND_CONTACT: solve_contact(R, va, wa, vb, wb, acc, a_static, b_static); break;
+          case KIND_DISTANCE: solve_distance(R, va, wa, vb, wb); break;
+          case KIND_BALL: solve_ball_part(R, va, wa, vb, wb); break;
+          default: solve_fixed(R, va, wa, vb, wb); break;
+        }
+#pragma unroll
+        for (int k = 0; k < IMPS; ++k) imp[k * rows + r] = acc[k];
+        if (!a_static && __ldg(dynamic + ia)) {
+          v[ia] = va;
+          w[ia] = wa;
+        }
+        if (!b_static && __ldg(dynamic + ib)) {
+          v[ib] = vb;
+          w[ib] = wb;
+        }
+      });
+    team.sync();
+  }
+}
+
+// The `iterations`-long solve of one scene by its team: every table in order
+// (joint tables in JOINT_SOLVE_ORDER, then contacts), color by color.  The
+// rows of one color touch disjoint dynamic bodies (a CPU test checks every
+// archetype's colors), so the team's lanes solve them at the same time and
+// the result is the reference's per-color parallel update.  Only dynamic
+// bodies are written back; the world slot is never written.  v, w, imp and
+// prep are the team's shared memory; `imp` must hold zeros on entry.  A
+// lane's writes reach the other lanes at the barrier after each color.
+template <int W>
+__device__ void solve_scene(const Team& team, V3* v, V3* w, float* imp, const float* prep,
                             const int* __restrict__ tables, int num_tables,
                             const int* __restrict__ colors, const int* __restrict__ body_a,
                             const int* __restrict__ body_b, const int* __restrict__ dynamic,
-                            int batch, int s, int iterations) {
+                            int iterations) {
   for (int it = 0; it < iterations; ++it) {
     for (int t = 0; t < num_tables; ++t) {
       const int* T = tables + t * TABLE_INTS;
-      const int kind = T[T_KIND];
-      const int rows = T[T_ROWS];
-      const bool a_static = T[T_A_STATIC] != 0;
-      const bool b_static = T[T_B_STATIC] != 0;
-      const int imp_dim = kind_impulses(kind);
-      const size_t stride = (size_t)rows * batch;
-      for (int c = 0; c < T[T_NUM_COLORS]; ++c) {
-        const int* bounds = colors + 2 * (T[T_COLOR_BASE] + c);
-        for (int r = bounds[0]; r < bounds[1]; ++r) {
-          const int ia = body_a[T[T_ROW_BASE] + r];
-          const int ib = body_b[T[T_ROW_BASE] + r];
-          const Row R = {prep + ((size_t)T[T_PLANE_BASE] + r) * batch + s, stride};
-          const Imp ip = imp + (T[T_IMP_BASE] + r * imp_dim);
-          V3 va = v[ia], wa = w[ia], vb = v[ib], wb = w[ib];
-          switch (kind) {
-            case KIND_HINGE: solve_hinge(R, va, wa, vb, wb, ip); break;
-            case KIND_CONE_TWIST: solve_cone_twist(R, va, wa, vb, wb, ip); break;
-            case KIND_CONTACT: solve_contact(R, va, wa, vb, wb, ip, a_static, b_static); break;
-            case KIND_DISTANCE: solve_distance(R, va, wa, vb, wb); break;
-            case KIND_BALL: solve_ball_part(R, va, wa, vb, wb); break;
-            default: solve_fixed(R, va, wa, vb, wb); break;
-          }
-          if (!a_static && dynamic[ia]) {
-            v[ia] = va;
-            w[ia] = wa;
-          }
-          if (!b_static && dynamic[ib]) {
-            v[ib] = vb;
-            w[ib] = wb;
-          }
-        }
+      switch (__ldg(T + T_KIND)) {
+        case KIND_HINGE:
+          solve_table<W, KIND_HINGE>(team, v, w, imp, prep, T, colors, body_a, body_b, dynamic);
+          break;
+        case KIND_CONE_TWIST:
+          solve_table<W, KIND_CONE_TWIST>(team, v, w, imp, prep, T, colors, body_a, body_b, dynamic);
+          break;
+        case KIND_CONTACT:
+          solve_table<W, KIND_CONTACT>(team, v, w, imp, prep, T, colors, body_a, body_b, dynamic);
+          break;
+        case KIND_DISTANCE:
+          solve_table<W, KIND_DISTANCE>(team, v, w, imp, prep, T, colors, body_a, body_b, dynamic);
+          break;
+        case KIND_BALL:
+          solve_table<W, KIND_BALL>(team, v, w, imp, prep, T, colors, body_a, body_b, dynamic);
+          break;
+        default:
+          solve_table<W, KIND_FIXED>(team, v, w, imp, prep, T, colors, body_a, body_b, dynamic);
+          break;
       }
     }
   }

@@ -145,18 +145,21 @@ def load_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # The colored solver (physics/solver_cuda.py).
         lib.colored_solver_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr,          # vel/omega in, out; prep
+            ptr, ptr, ptr, ptr, ptr, i32,     # vel/omega in, out; prep, stride
             ptr, i32, ptr, ptr, ptr, ptr,     # tables, count, colors, a, b, dyn
-            i32, i32, i32, i32, i32, ptr]     # slots, imps, B, iters, dev, stream
-        lib.colored_solver_launch.restype = i32
-        lib.colored_solver_max_slots.restype = i32
-        lib.colored_solver_max_impulses.restype = i32
+            i32, i32, i32, i32,               # slots, impulses, B, iterations
+            i32, i32, ptr]                    # team width, device, stream
+        lib.solver_shared_limit.argtypes = [i32]
+        lib.colored_solver_blocks_per_sm.argtypes = [i32, i32]
         # The fused whole-substep kernel (physics/substep_cuda.py): a
-        # FusedArgs struct by address, the device and the stream.
-        lib.fused_substep_launch.argtypes = [ptr, i32, ptr]
-        lib.fused_substep_launch.restype = i32
-        lib.fused_substep_max_bodies.restype = i32
-        lib.fused_substep_args_size.restype = i32
+        # FusedArgs struct by address, the team width, the device and the
+        # stream.
+        lib.fused_substep_launch.argtypes = [ptr, i32, i32, ptr]
+        lib.fused_substep_blocks_per_sm.argtypes = [i32, i32]
+        for name in ("colored_solver_launch", "solver_shared_limit",
+                     "colored_solver_blocks_per_sm", "fused_substep_launch",
+                     "fused_substep_blocks_per_sm", "fused_substep_args_size"):
+            getattr(lib, name).restype = i32
         # The two ray kernels (ops/ray_trace.py): a RayArgs struct by
         # address, the device and the stream.
         for name in ("ray_closest_hit_bvh_launch",

@@ -228,7 +228,7 @@ class LocoEnv:
         return substep_cuda.PostConsts(
             post_f=post_f,
             post_i=torch.tensor(post_i, dtype=torch.int32, device=self.device),
-            n_extra=STATE_SIZE + 2)
+            n_extra=STATE_SIZE + 2, parts=NUM_PARTS)
 
     def _fused_env_step(self):
         """`fused(bodies, smoothed) -> (bodies, obs, reward, done)`, the

@@ -1,7 +1,8 @@
 """Whole-loop colored solver: the `iterations`-long sequential-impulse solve
 (joint tables in `JOINT_SOLVE_ORDER`, then contact rows color by color) as
-one CUDA kernel, `csrc/colored_solver.cu` (row solves in
-`csrc/solver_rows.cuh`).
+one CUDA kernel, `csrc/colored_solver.cu` (the team solve and row solves in
+`csrc/solver_rows.cuh`, shared with the fused kernel of `substep_cuda.py`).
+A team of `TEAM_WIDTH` lanes solves one scene from shared memory.
 
 Counterpart of ``d3d12renderer_tpu/physics/solver_pallas.py``
 (`make_colored_solver` and its kernel `_build_kernel`).  Beside the kernel
@@ -22,6 +23,7 @@ bound by `cuda_build.py`.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -34,10 +36,14 @@ from . import solver as solver_mod
 from .types import SceneArchetype
 
 # --------------------------------------------------------------------------
-# Packed prep layout.  Each table's prep is one block of scalar planes
-# [field component][row][scene], scenes innermost so that neighbouring
-# threads read neighbouring addresses.  The offsets below are mirrored by the
-# constants of csrc/solver_rows.cuh (a CPU test holds the two together).
+# Packed prep layout.  The buffer is [scene][plane]: each scene's planes are
+# contiguous, table after table, each table's planes [row][field component]
+# with an odd row stride (`row_stride`), so that a row's fields sit at
+# constant offsets and the lanes of a team, which take neighbouring rows,
+# fall on different banks of shared memory.  A scene's planes are padded to
+# 16 bytes for the kernel's bulk copy.  The field offsets below are mirrored
+# by the constants of csrc/solver_rows.cuh (a CPU test holds the two
+# together).
 # --------------------------------------------------------------------------
 
 # The ball part: a whole ball row, and the first fields of fixed, hinge and
@@ -74,7 +80,41 @@ JOINT_FIELDS = {"distance": DISTANCE_FIELDS, "ball": BALL_FIELDS,
                 "cone_twist": CONE_TWIST_FIELDS}
 # Per-table record of the kernel's `tables` array.
 (T_KIND, T_ROWS, T_ROW_BASE, T_COLOR_BASE, T_NUM_COLORS, T_PLANE_BASE,
- T_IMP_BASE, T_A_STATIC, T_B_STATIC, TABLE_INTS) = range(10)
+ T_IMP_BASE, T_A_STATIC, T_B_STATIC, T_ROW_STRIDE, TABLE_INTS) = range(11)
+
+# --------------------------------------------------------------------------
+# Teams and shared memory (csrc/solver_rows.cuh).  Both solver kernels run a
+# team of TEAM_WIDTH lanes per scene, one warp per block of WARP // width
+# teams, each team's scene in its own slice of the block's dynamic shared
+# memory.  TEAM_WIDTH is the fastest of TEAM_WIDTHS on the card (PERF.md).
+# --------------------------------------------------------------------------
+
+WARP = 32
+TEAM_WIDTHS = (8, 16, 32)
+TEAM_WIDTH = 8
+# Shared memory one block may opt in to on sm_90 (227 KB); the launch
+# checks the device's own limit.
+SHARED_LIMIT = 232448
+# Floats ahead of a colored-solver team's prep: its mbarrier.
+BARRIER_FLOATS = 4
+
+
+def team_floats(need: int, width: int) -> int:
+    """`team_floats` of solver_rows.cuh: `need` rounded up to 32 words plus
+    `width % 32`, so that the teams of a warp start on different banks."""
+    return -(-need // WARP) * WARP + width % WARP
+
+
+def block_shared_bytes(floats_per_team: int, width: int) -> int:
+    """Dynamic shared memory of one block of WARP // width teams."""
+    return (WARP // width) * floats_per_team * 4
+
+
+def colored_team_floats(slots: int, prep_stride: int, num_impulses: int,
+                        width: int) -> int:
+    """One colored-solver team: barrier, prep, v and w, impulses."""
+    return team_floats(BARRIER_FLOATS + prep_stride + 6 * slots + num_impulses,
+                       width)
 
 
 def layout_offsets() -> Dict[str, int]:
@@ -119,6 +159,15 @@ class _TableMeta:
     fields: Tuple[Tuple[str, int], ...]
     a_static: bool = False
     b_static: bool = False
+
+    @property
+    def num_fields(self) -> int:
+        return sum(n for _, n in self.fields)
+
+    @property
+    def row_stride(self) -> int:
+        """Floats per packed row: the field count, made odd."""
+        return self.num_fields | 1
 
 
 def _table_meta(kind, arch_index, color_indices, body_a, body_b, imp_dim,
@@ -255,10 +304,11 @@ class ColoredSolver:
                     len(colors), len(m.color_bounds))
                 rec[T_PLANE_BASE], rec[T_IMP_BASE] = plane_base, imp_base
                 rec[T_A_STATIC], rec[T_B_STATIC] = int(m.a_static), int(m.b_static)
+                rec[T_ROW_STRIDE] = m.row_stride
                 recs.append(rec)
                 colors += m.color_bounds
                 row_base += rows
-                plane_base += rows * sum(n for _, n in m.fields)
+                plane_base += rows * m.row_stride
                 imp_base += rows * m.imp_dim
 
             def i32(x):
@@ -278,23 +328,41 @@ class ColoredSolver:
     def num_impulses(self) -> int:
         return sum(m.perm.shape[0] * m.imp_dim for m in self.tables)
 
+    @property
+    def planes(self) -> int:
+        """Prep floats of one scene, row padding included."""
+        return sum(m.perm.shape[0] * m.row_stride for m in self.tables)
+
+    @property
+    def prep_stride(self) -> int:
+        """Floats per scene in the packed buffer: the planes, padded to 16
+        bytes."""
+        return -(-self.planes // 4) * 4
+
     def pack_prep(self, joint_preps, contact_prep, batch,
                   device) -> torch.Tensor:
-        """Flatten the batched preps into the kernel's [plane][scene] buffer,
-        rows in color order.  Returns a contiguous (planes, B) tensor."""
+        """Flatten the batched preps into the kernel's [scene][plane] buffer,
+        rows in color order.  Returns a contiguous (B, prep_stride) tensor
+        whose padding is zero."""
         perms = self.kernel_arrays(device).perms
-        planes = []
+        out = torch.zeros((batch, self.prep_stride), dtype=torch.float32,
+                          device=device)
+        base = 0
         for m, perm in zip(self.tables, perms):
             rows = m.perm.shape[0]
             prep = (_contact_fields(contact_prep) if m.kind == "contact"
                     else joint_preps[m.arch_index])
+            block = out[:, base:base + rows * m.row_stride].view(
+                batch, rows, m.row_stride)
+            col = 0
             for name, n in m.fields:
                 x = prep[name]
                 if isinstance(x, tuple):
                     x = torch.stack(x, dim=-1)
-                x = x[:, perm].to(torch.float32).reshape(batch, rows, n)
-                planes.append(x.permute(2, 1, 0).reshape(n * rows, batch))
-        return torch.cat(planes, dim=0)
+                block[:, :, col:col + n] = x[:, perm].reshape(batch, rows, n)
+                col += n
+            base += rows * m.row_stride
+        return out
 
     def kernel(self, joint_preps, contact_prep, vel1, omega1):
         batch = vel1.shape[0]
@@ -319,11 +387,27 @@ def make_colored_solver(arch: SceneArchetype, num_pairs: int, iterations: int,
     return arch.cache[key]
 
 
+def shared_limit(device: torch.device) -> int:
+    """The shared memory one block of `device` may opt in to, in bytes."""
+    return _shared_limit(device.index if device.index is not None else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_limit(index: int) -> int:
+    limit = load_library().solver_shared_limit(index)
+    if limit < 0:
+        raise RuntimeError(f"cannot read the shared-memory limit of "
+                           f"cuda:{index}")
+    return limit
+
+
 def colored_solve_cuda(vel1, omega1, prep, arrays: KernelArrays,
-                       num_tables: int, num_impulses: int, iterations: int):
+                       num_tables: int, num_impulses: int, iterations: int,
+                       team_width: int = TEAM_WIDTH):
     """Launch the kernel on the current stream.  vel1/omega1 (B, S, 3) and
-    prep (planes, B) float32, contiguous, on one CUDA device.  Counts its
-    launches in `colored_solve_cuda.launches`."""
+    prep (B, prep_stride) float32, contiguous, on one CUDA device;
+    prep_stride a multiple of 4.  Counts its launches in
+    `colored_solve_cuda.launches`."""
     lib = load_library()
     batch, slots = vel1.shape[0], vel1.shape[1]
     for name, x in (("vel1", vel1), ("omega1", omega1), ("prep", prep)):
@@ -335,25 +419,32 @@ def colored_solve_cuda(vel1, omega1, prep, arrays: KernelArrays,
     if vel1.shape != (batch, slots, 3) or omega1.shape != vel1.shape:
         raise ValueError(f"vel1/omega1 must be (B, S, 3): {tuple(vel1.shape)}, "
                          f"{tuple(omega1.shape)}")
-    if prep.dim() != 2 or prep.shape[1] != batch:
-        raise ValueError(f"prep must be (planes, {batch}): {tuple(prep.shape)}")
-    if slots > lib.colored_solver_max_slots():
-        raise ValueError(f"{slots} body slots > kernel limit "
-                         f"{lib.colored_solver_max_slots()}")
-    if num_impulses > lib.colored_solver_max_impulses():
-        raise ValueError(f"{num_impulses} impulses > kernel limit "
-                         f"{lib.colored_solver_max_impulses()}")
+    if (prep.dim() != 2 or prep.shape[0] != batch or prep.shape[1] % 4
+            or prep.data_ptr() % 16):
+        raise ValueError(f"prep must be ({batch}, planes padded to a multiple "
+                         f"of 4), 16-byte aligned: {tuple(prep.shape)}")
+    if team_width not in TEAM_WIDTHS:
+        raise ValueError(f"team_width must be one of {TEAM_WIDTHS}, not "
+                         f"{team_width}")
+    need = block_shared_bytes(
+        colored_team_floats(slots, prep.shape[1], num_impulses, team_width),
+        team_width)
+    limit = shared_limit(vel1.device)
+    if need > limit:
+        raise ValueError(f"the scene needs {need} bytes of shared memory per "
+                         f"block at team width {team_width}; the device "
+                         f"allows {limit}")
     vel_out = torch.empty_like(vel1)
     omega_out = torch.empty_like(omega1)
     if batch == 0:
         return vel_out, omega_out
     err = lib.colored_solver_launch(
         vel1.data_ptr(), omega1.data_ptr(), vel_out.data_ptr(),
-        omega_out.data_ptr(), prep.data_ptr(),
+        omega_out.data_ptr(), prep.data_ptr(), prep.shape[1],
         arrays.tables.data_ptr(), num_tables, arrays.colors.data_ptr(),
         arrays.body_a.data_ptr(), arrays.body_b.data_ptr(),
         arrays.dynamic.data_ptr(), slots, num_impulses, batch, iterations,
-        vel1.device.index if vel1.device.index is not None else 0,
+        team_width, vel1.device.index if vel1.device.index is not None else 0,
         torch.cuda.current_stream(vel1.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"colored solver launch failed: CUDA error {err}")

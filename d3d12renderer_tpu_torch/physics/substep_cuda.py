@@ -14,9 +14,11 @@ tensors it launches the kernel or raises.
 The archetype comes to the kernel as small constant tensors, built once per
 archetype, device and override layout and kept in `arch.cache`: body
 constants, one record per row in the colored solver's packed (color-permuted)
-order, and the colored solver's tables and colors.  The kernel writes every
-row's prep into a (planes, B) scratch in that solver's layout and solves it
-exactly as `csrc/colored_solver.cu` does.
+order, and the colored solver's tables and colors.  The kernel runs a team
+of lanes per scene with everything of the scene in shared memory: it writes
+every row's prep there in that solver's per-scene layout and solves it with
+the same team solve as `csrc/colored_solver.cu`.  It needs no scratch in
+device memory.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from ..cuda_build import load_library
 from . import joints as joints_mod
+from . import solver_cuda
 from .solver_cuda import ColoredSolver, KernelArrays
 from .types import (SHAPE_BOX, SHAPE_CAPSULE, SHAPE_SPHERE, BodyState,
                     PhysicsSettings, SceneArchetype)
@@ -38,7 +41,6 @@ _SUPPORTED_JOINTS = ("distance", "ball", "fixed", "hinge", "cone_twist")
 # Runtime motor targets, in the order of the kernel's R_OVR_* row ints.
 OVERRIDE_KEYS = ("motor_target", "twist_target", "swing_target",
                  "swing_axis_angle")
-MAX_BODIES = 64
 MAX_PLANE_ROWS = 256
 
 # --------------------------------------------------------------------------
@@ -61,6 +63,8 @@ PLANE_CONST_FIELDS = (("size", 3), ("local_pos", 3), ("local_rot", 4),
                       ("normal", 3), ("offset", 1), ("friction", 1),
                       ("restitution", 1))
 BODY_F, ROW_F, ROW_I = 16, 40, 8
+# Shared floats per body slot: pos, rot, v, w, world inverse inertia.
+SLOT_FLOATS = 3 + 4 + 3 + 3 + 9
 R_ACTIVE, R_SHAPE = 0, 1
 # Post-stage ints: P, K, O, A, head body, torso body, then the index lists.
 Q_LISTS = 6
@@ -69,6 +73,7 @@ Q_LISTS = 6
 def const_offsets() -> Dict[str, int]:
     """Offset of every constant field, under the kernel's names."""
     out = {"BODY_F": BODY_F, "ROW_F": ROW_F, "ROW_I": ROW_I,
+           "SLOT_FLOATS": SLOT_FLOATS,
            "R_ACTIVE": R_ACTIVE, "R_SHAPE": R_SHAPE, "Q_LISTS": Q_LISTS}
     for prefix, fields in (("B", BODY_FIELDS), ("K", JOINT_CONST_FIELDS),
                            ("P", PLANE_CONST_FIELDS)):
@@ -85,12 +90,31 @@ def const_offsets() -> Dict[str, int]:
 # Support and dispatch
 # --------------------------------------------------------------------------
 
+def fused_team_floats(num_bodies: int, planes: int, num_impulses: int,
+                      width: int) -> int:
+    """One fused-kernel team's shared floats: prep, impulses, body state
+    (`fused_team_floats` of csrc/fused_substep.cu)."""
+    return solver_cuda.team_floats(
+        planes + num_impulses + SLOT_FLOATS * (num_bodies + 1), width)
+
+
+def shared_need(arch: SceneArchetype,
+                width: int = solver_cuda.TEAM_WIDTH) -> int:
+    """Bytes of shared memory one block of the fused kernel needs for this
+    archetype at team width `width`."""
+    solver = ColoredSolver(arch, arch.vs_plane_collider.shape[0], 1, "kernel")
+    return solver_cuda.block_shared_bytes(
+        fused_team_floats(arch.num_bodies, solver.planes, solver.num_impulses,
+                          width), width)
+
+
 def support_reason(arch: SceneArchetype, settings: PhysicsSettings
                    ) -> Optional[str]:
     """None if the fused kernel can run this archetype, else why not.  The
     JAX package also refuses terrain rows, pair buckets, the runtime
     broadphase and force fields; the port's builder refuses those scenes, so
-    no archetype here has them."""
+    no archetype here has them.  Where JAX refuses more than 64 bodies, the
+    port refuses a scene whose block does not fit in shared memory."""
     if settings.contact_mode != "colored":
         return f"contact_mode {settings.contact_mode!r}"
     if settings.solver_backend == "plain":
@@ -101,10 +125,12 @@ def support_reason(arch: SceneArchetype, settings: PhysicsSettings
     for t in arch.joints:
         if t.kind not in _SUPPORTED_JOINTS:
             return f"joint kind {t.kind!r}"
-    if arch.num_bodies > MAX_BODIES:
-        return "too many bodies"
     if arch.vs_plane_collider.shape[0] > MAX_PLANE_ROWS:
         return "too many plane rows"
+    need = shared_need(arch)
+    if need > solver_cuda.SHARED_LIMIT:
+        return (f"scene needs {need} bytes of shared memory per block, more "
+                f"than {solver_cuda.SHARED_LIMIT}")
     return None
 
 
@@ -272,8 +298,7 @@ def pack_consts(arch: SceneArchetype, settings: PhysicsSettings, dt: float,
                               device=device),
         arrays=solver.kernel_arrays(torch.device(device)),
         num_tables=len(solver.tables), num_impulses=solver.num_impulses,
-        planes=sum(m.perm.shape[0] * sum(k for _, k in m.fields)
-                   for m in solver.tables),
+        planes=solver.planes,
         ovr_cols=ovr_cols, iterations=settings.solver_iterations,
         scalars=dict(
             dt=float(np.float32(dt)),
@@ -293,6 +318,7 @@ class PostConsts:
     post_f: torch.Tensor
     post_i: torch.Tensor
     n_extra: int
+    parts: int                      # imitation parts (P of the post stage)
 
 
 # --------------------------------------------------------------------------
@@ -302,10 +328,10 @@ class PostConsts:
 _PTR_FIELDS = (
     "pos_in", "rot_in", "vel_in", "omega_in", "force_in", "torque_in",
     "pos_out", "rot_out", "vel_out", "omega_out", "force_out", "torque_out",
-    "ovr", "extras", "prep", "imp", "body_f", "row_f", "row_i", "tables",
-    "colors", "body_a", "body_b", "dynamic", "post_f", "post_i")
-_INT_FIELDS = ("num_tables", "num_bodies", "num_impulses", "ovr_cols",
-               "n_extra", "batch", "iterations")
+    "ovr", "extras", "body_f", "row_f", "row_i", "tables", "colors",
+    "body_a", "body_b", "dynamic", "post_f", "post_i")
+_INT_FIELDS = ("num_tables", "num_bodies", "num_impulses", "planes",
+               "ovr_cols", "n_extra", "batch", "iterations")
 _FLOAT_FIELDS = ("dt", "ball_bias", "hinge_rot_bias", "hinge_limit_bias",
                  "twist_limit_bias", "distance_bias", "fixed_rot_bias",
                  "gff_x", "gff_y", "gff_z")
@@ -321,9 +347,9 @@ class FusedArgs(ctypes.Structure):
 
 def launch_args(state: BodyState, ovr: Optional[torch.Tensor],
                 consts: FusedConsts, post: Optional[PostConsts]):
-    """Check the inputs, allocate outputs and scratch on the state's device
-    and fill a `FusedArgs`.  Returns (args, outputs, extras): the tensors
-    must stay alive until the launch has run."""
+    """Check the inputs, allocate the outputs on the state's device and fill
+    a `FusedArgs`.  Returns (args, outputs, extras): the tensors must stay
+    alive until the launch has run."""
     batch, n = state.pos.shape[0], state.pos.shape[1]
     device = state.pos.device
     shapes = dict(pos=3, rot=4, vel=3, omega=3, force=3, torque=3)
@@ -348,16 +374,16 @@ def launch_args(state: BodyState, ovr: Optional[torch.Tensor],
             for name in shapes}
     extras = None
     if post is not None:
+        # The post stage keeps 3 floats per part and a flag in the prep.
+        if 3 * post.parts + 1 > consts.planes:
+            raise ValueError(f"{post.parts} post-stage parts need "
+                             f"{3 * post.parts + 1} floats of prep; the "
+                             f"archetype has {consts.planes}")
         extras = torch.empty((batch, post.n_extra), dtype=torch.float32,
                              device=device)
-    prep = torch.empty((consts.planes, batch), dtype=torch.float32,
-                       device=device)
-    imp = torch.empty((consts.num_impulses, batch), dtype=torch.float32,
-                      device=device)
-    keep = dict(outs, prep=prep, imp=imp)
     ptrs = {f"{name}_in": getattr(state, name) for name in shapes}
     ptrs.update(outs, ovr=ovr if consts.ovr_cols else None, extras=extras,
-                prep=prep, imp=imp, body_f=consts.body_f, row_f=consts.row_f,
+                body_f=consts.body_f, row_f=consts.row_f,
                 row_i=consts.row_i, tables=consts.arrays.tables,
                 colors=consts.arrays.colors, body_a=consts.arrays.body_a,
                 body_b=consts.arrays.body_b, dynamic=consts.arrays.dynamic,
@@ -367,26 +393,35 @@ def launch_args(state: BodyState, ovr: Optional[torch.Tensor],
         **{f: (ptrs[f].data_ptr() if ptrs[f] is not None and ptrs[f].numel()
                else None) for f in _PTR_FIELDS},
         num_tables=consts.num_tables, num_bodies=n,
-        num_impulses=consts.num_impulses, ovr_cols=consts.ovr_cols,
-        n_extra=post.n_extra if post else 0, batch=batch,
-        iterations=consts.iterations, **consts.scalars)
-    return args, keep, extras
+        num_impulses=consts.num_impulses, planes=consts.planes,
+        ovr_cols=consts.ovr_cols, n_extra=post.n_extra if post else 0,
+        batch=batch, iterations=consts.iterations, **consts.scalars)
+    return args, outs, extras
 
 
 def fused_substep_cuda(state: BodyState, ovr: Optional[torch.Tensor],
-                       consts: FusedConsts, post: Optional[PostConsts] = None):
-    """Launch the kernel on the current stream for CUDA tensors.  Returns
-    (new state, extras (B, n_extra) or None).  Counts its launches in
-    `fused_substep_cuda.launches`."""
+                       consts: FusedConsts, post: Optional[PostConsts] = None,
+                       team_width: int = solver_cuda.TEAM_WIDTH):
+    """Launch the kernel on the current stream for CUDA tensors, a team of
+    `team_width` lanes per scene.  Returns (new state, extras (B, n_extra)
+    or None).  Counts its launches in `fused_substep_cuda.launches`."""
     if not state.pos.is_cuda:
         raise ValueError(f"the fused kernel needs CUDA tensors; got a tensor "
                          f"on {state.pos.device}")
+    if team_width not in solver_cuda.TEAM_WIDTHS:
+        raise ValueError(f"team_width must be one of "
+                         f"{solver_cuda.TEAM_WIDTHS}, not {team_width}")
     lib = load_library()
-    if state.pos.shape[1] > lib.fused_substep_max_bodies():
-        raise ValueError(f"{state.pos.shape[1]} bodies > kernel limit "
-                         f"{lib.fused_substep_max_bodies()}")
     if ctypes.sizeof(FusedArgs) != lib.fused_substep_args_size():
         raise RuntimeError("FusedArgs does not match the kernel's struct")
+    need = solver_cuda.block_shared_bytes(fused_team_floats(
+        state.pos.shape[1], consts.planes, consts.num_impulses, team_width),
+        team_width)
+    limit = solver_cuda.shared_limit(state.pos.device)
+    if need > limit:
+        raise ValueError(f"the scene needs {need} bytes of shared memory per "
+                         f"block at team width {team_width}; the device "
+                         f"allows {limit}")
     args, keep, extras = launch_args(state, ovr, consts, post)
     new_state = BodyState(*(keep[f"{f}_out"] for f in (
         "pos", "rot", "vel", "omega", "force", "torque")))
@@ -394,7 +429,8 @@ def fused_substep_cuda(state: BodyState, ovr: Optional[torch.Tensor],
         return new_state, extras
     device = state.pos.device
     err = lib.fused_substep_launch(
-        ctypes.addressof(args), device.index if device.index is not None else 0,
+        ctypes.addressof(args), team_width,
+        device.index if device.index is not None else 0,
         torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused substep launch failed: CUDA error {err}")

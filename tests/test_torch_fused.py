@@ -230,9 +230,14 @@ def test_launch_args_check_shapes(loco):
     args, keep, extras = substep_cuda.launch_args(
         state, torch.zeros((2, ACTION_SIZE)), consts, tenv.post_consts())
     assert extras.shape == (2, STATE_SIZE + 2)
-    assert keep["prep"].shape == (consts.planes, 2)
+    # Outputs only: the kernel keeps prep and impulses in shared memory.
+    assert sorted(keep) == sorted(f"{f}_out" for f in FIELDS)
+    assert not {"prep", "imp"} & {f for f, _ in args._fields_}
     assert args.batch == 2 and args.num_bodies == NUM_PARTS
     assert args.num_impulses == 7 * 4 + 6 * 2 + 17 * 8
+    # 6 hinge rows of 65 fields, 7 cone-twist rows of 76 (77 with the odd
+    # row stride), 17 contact rows of 69.
+    assert args.planes == consts.planes == 6 * 65 + 7 * 77 + 17 * 69
 
 
 # --------------------------------------------------------------------------
@@ -317,13 +322,15 @@ def test_packed_rows_follow_the_solver_order(loco, chains, which):
 
 def test_kernel_constants_match_the_wrapper():
     """The constants and the FusedArgs struct of fused_substep.cu are the
-    wrapper's layout."""
+    wrapper's layout (no prep or impulse scratch, the per-scene plane
+    count), and the warp of solver_rows.cuh is the wrapper's."""
     src = (cuda_build.CSRC_DIR / "fused_substep.cu").read_text()
     consts = {k: int(v) for k, v in
               re.findall(r"constexpr int ([A-Z0-9_]+) = (\d+);", src)}
     for name, offset in substep_cuda.const_offsets().items():
         assert consts.get(name) == offset, name
-    assert consts["MAX_BODIES"] == substep_cuda.MAX_BODIES
+    rows_src = (cuda_build.CSRC_DIR / "solver_rows.cuh").read_text()
+    assert f"constexpr int WARP = {solver_cuda.WARP};" in rows_src
     body = re.search(r"struct FusedArgs \{(.*?)\n\};", src, re.S).group(1)
     members = re.findall(r"^\s+(?:const )?(\w+)\*? (\w+);", body, re.M)
     want = [name for name, _ in substep_cuda.FusedArgs._fields_]
@@ -544,17 +551,25 @@ def test_chain_touches_the_ground(chain_runs):
 
 _HARNESS = """\
 #include "fused_substep.cu"
-// The kernel body once per scene index: one thread per scene, as launched.
+// The kernel body once per scene index: a team of one lane per scene, one
+// team per block, its scene in the harness's shared buffer.
 extern "C" int host_fused_substep(const FusedArgs* args) {
+  host_dynamic_shared.assign(
+      fused_team_floats(args->num_bodies, args->planes, args->num_impulses, 1),
+      0.0f);
   blockDim = dim3(1);
   for (int s = 0; s < args->batch; ++s) {
     blockIdx = dim3(s);
     threadIdx = dim3(0);
-    fused_substep_kernel(*args);
+    fused_substep_kernel<1>(*args);
   }
   return 0;
 }
 extern "C" int host_args_size() { return (int)sizeof(FusedArgs); }
+extern "C" int host_team_floats(int num_bodies, int planes, int num_impulses,
+                                int width) {
+  return fused_team_floats(num_bodies, planes, num_impulses, width);
+}
 """
 
 
@@ -562,10 +577,27 @@ extern "C" int host_args_size() { return (int)sizeof(FusedArgs); }
 def host_kernel(tmp_path_factory):
     """csrc/fused_substep.cu built as host C++ (tests/torch_host_build.py)."""
     host = build_host(tmp_path_factory, "host_fused", _HARNESS,
-                      ("host_fused_substep", "host_args_size"))
+                      ("host_fused_substep", "host_args_size",
+                       "host_team_floats"))
     host.host_fused_substep.argtypes = [ctypes.c_void_p]
     assert host.host_args_size() == ctypes.sizeof(substep_cuda.FusedArgs)
     return host
+
+
+@pytest.mark.parametrize("width", [1, 8, 16, 32])
+def test_host_kernel_shared_layout_matches_the_wrapper(host_kernel, loco,
+                                                       width):
+    """The wrapper's count of a team's shared floats is the kernel's, for
+    the ragdoll and a larger scene; a block of the ragdoll at the chosen
+    width fits the sm_90 limit."""
+    consts = substep_cuda.pack_consts(loco[1].arch, loco[1].settings, DT, {},
+                                      0, "cpu")
+    for n, planes, imps in ((NUM_PARTS, consts.planes, consts.num_impulses),
+                            (63, 9001, 777)):
+        assert host_kernel.host_team_floats(n, planes, imps, width) \
+            == substep_cuda.fused_team_floats(n, planes, imps, width)
+    need = substep_cuda.shared_need(loco[1].arch)
+    assert need <= solver_cuda.SHARED_LIMIT
 
 
 def _run_host(host, state, ovr, consts, post=None):

@@ -110,7 +110,8 @@ def test_kernel_layout_constants_match_the_wrapper():
     assert kinds == solver_cuda.KIND_IDS
     for i, name in enumerate(("T_KIND", "T_ROWS", "T_ROW_BASE", "T_COLOR_BASE",
                               "T_NUM_COLORS", "T_PLANE_BASE", "T_IMP_BASE",
-                              "T_A_STATIC", "T_B_STATIC", "TABLE_INTS")):
+                              "T_A_STATIC", "T_B_STATIC", "T_ROW_STRIDE",
+                              "TABLE_INTS")):
         assert consts[name] == getattr(solver_cuda, name) == i, name
 
 
@@ -125,13 +126,15 @@ def test_pack_prep_places_fields_where_the_kernel_reads_them(small_prep):
     offsets = solver_cuda.layout_offsets()
     assert [m.kind for m in solver.tables] == ["hinge", "cone_twist", "contact"]
     assert solver.tables[-1].a_static and not solver.tables[-1].b_static
-    total = sum(m.perm.shape[0] * sum(n for _, n in m.fields)
-                for m in solver.tables)
-    assert packed.shape == (total, batch) and packed.is_contiguous()
+    assert [m.row_stride for m in solver.tables] == [65, 77, 69]
+    assert solver.planes == 6 * 65 + 7 * 77 + 17 * 69 == 2102
+    assert solver.prep_stride == 2104
+    assert packed.shape == (batch, 2104) and packed.is_contiguous()
 
     def plane(t, field, comp, row):
-        rows = int(tables[t, solver_cuda.T_ROWS])
-        return int(tables[t, solver_cuda.T_PLANE_BASE]) + (field + comp) * rows + row
+        stride = int(tables[t, solver_cuda.T_ROW_STRIDE])
+        return (int(tables[t, solver_cuda.T_PLANE_BASE]) + row * stride
+                + field + comp)
 
     for t, m in enumerate(solver.tables):
         r = m.perm.shape[0] - 1                 # last row in color order
@@ -150,11 +153,53 @@ def test_pack_prep_places_fields_where_the_kernel_reads_them(small_prep):
             else:
                 checks.append(("CT_SW_TO_WB", 1, p["sw_to_wb"][:, src, 1]))
         for name, comp, want in checks:
-            assert torch.equal(packed[plane(t, offsets[name], comp, r)], want), name
+            assert torch.equal(packed[:, plane(t, offsets[name], comp, r)],
+                               want), name
     body_a = arrays.body_a.tolist()
     assert body_a[-1] == env.arch.world_body                 # contact rows
     colors = arrays.colors.view(-1, 2).tolist()
     assert colors[:6] == [[0, 6]] + [[0, 3], [3, 4], [4, 5], [5, 6], [6, 7]]
+
+
+def _pack_prep_plane_major(solver, joint_preps, contact_prep, batch):
+    """The [plane][scene] buffer the kernel read before it took a scene per
+    team: for each table, field and component, one plane of rows x scenes."""
+    planes = []
+    for m in solver.tables:
+        rows = m.perm.shape[0]
+        prep = (solver_cuda._contact_fields(contact_prep)
+                if m.kind == "contact" else joint_preps[m.arch_index])
+        for name, n in m.fields:
+            x = prep[name]
+            if isinstance(x, tuple):
+                x = torch.stack(x, dim=-1)
+            x = x[:, torch.as_tensor(m.perm)].reshape(batch, rows, n)
+            planes.append(x.permute(2, 1, 0).reshape(n * rows, batch))
+    return torch.cat(planes, dim=0)
+
+
+def test_pack_prep_is_the_plane_major_buffer_transposed(small_prep):
+    """The scene-major buffer is the plane-major one transposed: each
+    table's [field][row][scene] block becomes [scene][row][field], each row
+    zero-padded to its odd stride and each scene to a multiple of 4 floats."""
+    env, sp = small_prep
+    solver = _solver(env, sp, "plain")
+    batch = sp.vel1.shape[0]
+    packed = solver.pack_prep(sp.joint_preps, sp.contact_prep, batch,
+                              torch.device("cpu"))
+    old = _pack_prep_plane_major(solver, sp.joint_preps, sp.contact_prep,
+                                 batch)
+    want = torch.zeros_like(packed)
+    old_base = new_base = 0
+    for m in solver.tables:
+        rows, n = m.perm.shape[0], m.num_fields
+        block = old[old_base:old_base + n * rows].view(n, rows, batch)
+        want[:, new_base:new_base + rows * m.row_stride].view(
+            batch, rows, m.row_stride)[:, :, :n] = block.permute(2, 1, 0)
+        old_base += n * rows
+        new_base += rows * m.row_stride
+    assert old_base == old.shape[0] and new_base == solver.planes
+    assert torch.equal(packed, want)
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -292,11 +337,12 @@ def _fused_vs_plain(batch, iterations):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [256, 1000])
+@pytest.mark.parametrize("batch", [256, 999])
 def test_fused_kernel_matches_plain_on_cuda(batch):
-    """B=256, and a ragged B=1000 (the last block of 128 part-filled).
-    Bounds of chip_smoke.py: vel 1e-3, omega 5e-3, obs/reward 1e-3; done
-    equal except where the head height lies within 1e-4 of 1 m."""
+    """B=256, and a ragged B=999 (the last warp's last team masked at the
+    default team width).  Bounds of chip_smoke.py: vel 1e-3, omega 5e-3,
+    obs/reward 1e-3; done equal except where the head height lies within
+    1e-4 of 1 m."""
     _need_cuda()
     (gb, gobs, grew, gdone), (pb, pobs, prew, pdone) = _fused_vs_plain(batch, 30)
     assert gobs.shape == (batch, STATE_SIZE)

@@ -2,7 +2,10 @@
 C++ for the CPU tests: g++ with -ffp-contract=off (no FMA contraction, so
 each operation rounds as the plain PyTorch version's does), the CUDA
 qualifiers and runtime stubbed, and a harness that runs the kernel body
-once per block with one thread."""
+once per block with one thread.  A kernel's dynamic shared memory
+(`DYNAMIC_SHARED` of csrc/solver_rows.cuh) is `host_dynamic_shared`, which
+the harness sizes; `__syncwarp` does nothing (a team is one lane); the
+solver kernels' bulk copies copy at once when not compiled for the card."""
 
 import ctypes
 import shutil
@@ -16,9 +19,12 @@ STUB_RUNTIME = """\
 #pragma once
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 #include <string.h>
+#include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __shared__ static
@@ -40,10 +46,27 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 }
 inline void __syncthreads() {}
 inline int __syncthreads_or(int p) { return p; }
+inline void __syncwarp(unsigned = 0xffffffffu) {}
+static std::vector<float> host_dynamic_shared;
+#define DYNAMIC_SHARED(name) float* name = host_dynamic_shared.data()
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 inline cudaError_t cudaSetDevice(int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t,
                                     cudaStream_t) { return 0; }
+inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) {
+  return 0;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 232448;
+  return 0;
+}
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, const void*, int, size_t) {
+  *n = 0;
+  return 0;
+}
 """
 
 
