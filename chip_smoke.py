@@ -569,6 +569,8 @@ def path_tracing(card, cuda_ms):
     dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     ray_ms = sum(e.time_range.elapsed_us() for e in kernels
                  if "ray_closest_hit" in e.name) / 1e3
+    bvh_events = [e for e in kernels if "ray_closest_hit_bvh" in e.name]
+    bvh_frame_ms = sum(e.time_range.elapsed_us() for e in bvh_events) / 1e3
     # The bounce regroup, which every query of bounces 1-3 runs (6 of the
     # frame's 8): one closest-hit query over the atrium's 1080p bounce
     # wavefront with and without it, in turns; and its sort key alone.
@@ -594,7 +596,9 @@ def path_tracing(card, cuda_ms):
           f"{peak:.2f} GiB, image mean {img.mean().item():.4f} | profiler, "
           f"one frame: {len(kernels)} kernels, device busy {dev_ms:.1f} of "
           f"{prof_ms:.1f} ms ({100 * dev_ms / prof_ms:.1f}%), ray kernels "
-          f"{ray_ms:.1f} ms ({100 * ray_ms / dev_ms:.1f}% of device time) | "
+          f"{ray_ms:.1f} ms ({100 * ray_ms / dev_ms:.1f}% of device time), "
+          f"BVH kernel {bvh_frame_ms:.3f} ms per frame in "
+          f"{len(bvh_events)} launches | "
           f"bounce regroup, one closest-hit query over the atrium's "
           f"{bo.shape[0]} bounce rays, ms on {rg_ms[True]} / off "
           f"{rg_ms[False]} (in turns on, off, off, on), regroup_perm alone "
@@ -788,14 +792,59 @@ def raster_frame(card, cuda_ms):
     hit_share = (want[1] >= 0).float().mean().item()
     full = raster.closest_hit_raster(b, cam, RASTER_W, RASTER_H, jitter=jitter)
     overflow = int(full["overflow"])
+    # The cull's work and its bound, both from the plain version's output.
+    # A plane's largest q over a band is its q at one corner sample (as
+    # raster.cu computes it); no winning q may exceed that of its own plane
+    # in its band.  The (pair, band) tests that any exact cull must run are
+    # those whose largest q exceeds the band's least final q: the kernel's
+    # bound counts these, not the kernel's own work, which it must cover.
+    work = torch.zeros(2, dtype=torch.int64, device=dev)
+    raster_k(*args, stats=work)
+    tested, culled = work.tolist()
+    rows = raster.TILE_Y // raster.BANDS
+    ntx = wp // raster.TILE_X
+
+    def band_q(qp, col0, row0):
+        x = torch.where(qp[:, 0] >= 0, col0 + raster.TILE_X - 1, col0).to(
+            torch.float32) + jitter[0]
+        y = torch.where(qp[:, 1] >= 0, row0 + rows - 1, row0).to(
+            torch.float32) + jitter[1]
+        return (qp[:, 0] * x + qp[:, 1] * y) + qp[:, 2]
+
+    pix = torch.nonzero(want[1] >= 0)[:, 0]
+    above_own = int((want[0][pix] > band_q(
+        planes[want[1][pix].long(), 9:12],
+        (pix % wp) // raster.TILE_X * raster.TILE_X,
+        (pix // wp) // rows * rows)).sum())
+    least = want[0].reshape(hp // rows, rows, ntx, raster.TILE_X).amin(
+        dim=(1, 3))                                   # (band rows, ntx)
+    tile = torch.repeat_interleave(torch.arange(seg.shape[0] - 1, device=dev),
+                                   (seg[1:] - seg[:-1]).long(),
+                                   output_size=pairs)
+    qp = planes[pair_tri.long(), 9:12]
+    needed = 0
+    for band in range(raster.BANDS):
+        band_row = tile // ntx * raster.BANDS + band
+        needed += int((band_q(qp, tile % ntx * raster.TILE_X, band_row * rows)
+                       > least[band_row, tile % ntx]).sum())
     print(f"raster kernel vs plain (atrium {tris} tris, {RASTER_W}x{RASTER_H} "
-          f"padded to {wp}x{hp}, jitter (0.3, 0.7)): q/tri/u/v bit-equal "
-          f"{same}, max |diff| {raster_err:.3e}, {pairs} pairs over "
-          f"{seg.shape[0] - 1} tiles ({per_tile.mean().item():.1f} mean, "
-          f"{int(per_tile.max().item())} max per tile), {100 * hit_share:.1f}% "
-          f"of pixels hit, overflow {overflow}", flush=True)
+          f"padded to {wp}x{hp}, jitter (0.3, 0.7), {raster.BANDS} blocks per "
+          f"tile): q/tri/u/v bit-equal {same}, max |diff| {raster_err:.3e}, "
+          f"{pairs} pairs over {seg.shape[0] - 1} tiles "
+          f"({per_tile.mean().item():.1f} mean, {int(per_tile.max().item())} "
+          f"max per tile), {100 * hit_share:.1f}% of pixels hit, overflow "
+          f"{overflow} | cull: {tested} (pair, band) tests, {culled} culled, "
+          f"{100 * tested / (tested + culled):.2f}% of the {pairs} pairs x "
+          f"{raster.BANDS} bands tested; {needed} "
+          f"({100 * needed / (tested + culled):.2f}%) that any exact cull "
+          f"of a band must test | winners above the largest q of their "
+          f"plane in their band: {above_own} of {pix.shape[0]} (must be 0)",
+          flush=True)
     if not all(same) or overflow:
         fail("the raster kernel disagrees with its plain version")
+    if above_own or not tested + culled == pairs * raster.BANDS \
+            or not needed <= tested < pairs * raster.BANDS:
+        fail("the raster kernel's cull bound or work count is wrong")
 
     # 15. The blur at the frame's seven shapes and the tonemap at 1080p,
     # both against their plain versions; the library blur (replicate pad +
@@ -973,9 +1022,12 @@ def raster_frame(card, cuda_ms):
           + f" (bounds {100 * SLICE_SHARE:.0f}%, {RASTER_MEAN_TOL})",
           flush=True)
 
+    # The (pair, band) tests any exact cull must run, each over its band's
+    # pixels.
     px = wp * hp
     r_bound = bound(planes.numel() * 4 + pairs * 4 + seg.numel() * 4 + 8
-                    + px * 16, pairs * raster.PX * RASTER_PAIR_FLOP)
+                    + px * 16,
+                    needed * (raster.PX // raster.BANDS) * RASTER_PAIR_FLOP)
     b_bound = bound(blur["bytes"], blur["flop"])
     n = RASTER_W * RASTER_H * 3
     t_bound = bound(2 * 4 * n, n * TONEMAP_FLOP)

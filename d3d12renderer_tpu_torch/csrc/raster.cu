@@ -1,5 +1,6 @@
 // The tile rasterizer's kernel: primary visibility of a pinhole camera by
-// 2D-homogeneous edge functions, one block per 64x32-pixel screen tile.
+// 2D-homogeneous edge functions, one block per row band of a 64x32-pixel
+// screen tile.
 //
 // Replaces the JAX package's Pallas kernel
 // d3d12renderer_tpu/ops/raster_pallas.py:329 `_raster_kernel` on its pair
@@ -20,13 +21,33 @@
 // keeps its pixels' best hit in registers.  A candidate wins only with a
 // strictly larger q, so among equal q the first pair in the run wins.
 //
+// The cull plays the part of JAX's early-out (raster_pallas.py:415-418), on
+// another bound.  JAX skips a 128-pair visit when every pixel already holds
+// a q above the visit's bound, the largest q at its triangles' vertices; but
+// the float32 planes of sub-pixel triangles cover samples outside them with
+// any q, so that bound does not hold (PERF.md §6).  Here, at each stage,
+// the block takes the least best q of its pixels (a warp-shuffle minimum in
+// the barrier that opens the stage) and, while staging each row, the largest
+// q its plane gives at any sample of the band: q = (qx px + qy py) + qw,
+// each operation rounded, is monotone in px and in py, so that largest is
+// the plane at one corner sample, picked by the signs of qx and qy, and it
+// is exact.  A pair whose largest q is at most the least best q cannot win
+// a pixel (a win needs a strictly larger q) and is culled.  The pairs keep
+// their front-to-back order, so the near ones raise the least best q early;
+// the result is that of the walk without culling, bit for bit.
+//
+// A tile is split into RASTER_BANDS row bands, one block per band, each
+// walking the tile's whole run and culling against its own pixels: the
+// heaviest tiles (thousands of pairs) spread over more SMs, and a band
+// covered near the camera culls more than the whole tile would.  Two bands
+// were the fastest of 1, 2 and 4 on the H100 (PERF.md §6).
+//
 // Bounds on the H100: the plane test is 4 two-term dots (16 operations) and 6
-// compares per (pair, pixel), so at P pairs a frame does P x 2048 x 22
-// operations over 67 TFLOP/s (PERF.md's kernel table, row 5, gives the
-// atrium's pair count and bound at 1080p); it reads 48 bytes per pair and
-// writes 16 bytes per pixel (0.01 ms at 1080p).  The
-// kernel is bound by operations; this first version does every pair of a
-// tile for every pixel (no early-out once a tile is covered nearer).
+// compares per (pair, pixel), so at P (pair, band) tests a frame does P x
+// (2048 / RASTER_BANDS) x 22 operations over 67 TFLOP/s; it reads 48 bytes
+// per pair and writes 16 bytes per pixel.  With P the tests any exact cull
+// must run, the two bounds are close on the atrium at 1080p (PERF.md's
+// kernel table, row 5).
 //
 // Every operation is rounded on its own (rn_math.cuh) in the plain version's
 // order, e = (ex * px + ey * py) + ew, so the kernel returns the same bits.
@@ -43,23 +64,27 @@ constexpr int RASTER_TILE_X = 64;
 constexpr int RASTER_TILE_Y = 32;
 constexpr int RASTER_PX = RASTER_TILE_X * RASTER_TILE_Y;
 constexpr int RASTER_PLANE_COLS = 12;  // e0, e1, e2, q rows of (x, y, w)
-constexpr int RASTER_THREADS = 256;
+constexpr int RASTER_PPT = 8;          // pixels per thread on the card
 constexpr int RASTER_STAGE = 128;      // plane rows staged per step (6 KB)
+constexpr int RASTER_BANDS = 2;        // blocks per tile, one per row band
+constexpr int RASTER_BAND_PX = RASTER_PX / RASTER_BANDS;
+static_assert(RASTER_BAND_PX % (RASTER_PPT * 32) == 0,
+              "a band is whole warps of RASTER_PPT pixels a thread");
 
 // One launch.  Device pointers of contiguous tensors.
 struct RasterArgs {
-  const float* planes;    // (T, RASTER_PLANE_COLS)
-  const int* pair_tri;    // (P,) triangle of each pair, sorted by tile
-  const int* seg;         // (n_tiles + 1,) tile t's pairs: [seg[t], seg[t+1])
-  const float* jitter;    // (2,) sub-pixel sample offset
-  float* q_out;           // (rows * row_pixels,) row-major, 0 on a miss
-  int* tri_out;           // -1 on a miss
-  float* u_out;           // 0 on a miss
+  const float* planes;      // (T, RASTER_PLANE_COLS), 16-byte aligned
+  const int* pair_tri;      // (P,) triangle of each pair, sorted by tile
+  const int* seg;           // (n_tiles + 1,) tile t's pairs: [seg[t], seg[t+1])
+  const float* jitter;      // (2,) sub-pixel sample offset
+  float* q_out;             // (rows * row_pixels,) row-major, 0 on a miss
+  int* tri_out;             // -1 on a miss
+  float* u_out;             // 0 on a miss
   float* v_out;
-  int ntx;                // tiles per row
+  unsigned long long* stats;  // null, or (2,) += pairs tested, pairs culled
+  int ntx;                  // tiles per row
   int n_tiles;
-  int row_pixels;         // image width (a multiple of RASTER_TILE_X)
-  int pad_;
+  int row_pixels;           // image width (a multiple of RASTER_TILE_X)
 };
 
 namespace {
@@ -69,38 +94,75 @@ __device__ __forceinline__ float edge(float ex, float ey, float ew, float px,
   return rn_add(rn_add(rn_mul(ex, px), rn_mul(ey, py)), ew);
 }
 
-// PPT pixels per thread: RASTER_PX / RASTER_THREADS on the card, all of a
-// tile's pixels for the one-thread blocks of the host tests.
+// The least of a warp's values (every lane of the warp takes part).
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// PPT pixels per thread: RASTER_PPT on the card, all of a band's pixels for
+// the one-thread blocks of the host tests.
 template <int PPT>
-__global__ void __launch_bounds__(RASTER_PX / PPT) raster_tiles(const RasterArgs A) {
-  __shared__ float s_plane[RASTER_STAGE * RASTER_PLANE_COLS];
+__global__ void __launch_bounds__(RASTER_BAND_PX / PPT) raster_tiles(const RasterArgs A) {
+  __shared__ float4 s_plane[RASTER_STAGE * 3];
   __shared__ int s_tri[RASTER_STAGE];
-  const int tile = blockIdx.x;
+  __shared__ bool s_keep[RASTER_STAGE];
+  __shared__ float s_warp_min[RASTER_BAND_PX / RASTER_PPT / 32];
+  const int tile = blockIdx.x / RASTER_BANDS, band = blockIdx.x % RASTER_BANDS;
   const int tx0 = (tile % A.ntx) * RASTER_TILE_X;
   const int ty0 = (tile / A.ntx) * RASTER_TILE_Y;
+  constexpr int rows = RASTER_TILE_Y / RASTER_BANDS;    // the band's pixel rows
+  const int r0 = band * rows * RASTER_TILE_X;           // the band's first pixel
   const float jx = A.jitter[0], jy = A.jitter[1];
   float px[PPT], py[PPT], best_q[PPT], best_e1[PPT], best_e2[PPT];
   int best_tri[PPT];
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
-    const int r = threadIdx.x + j * blockDim.x;
+    const int r = r0 + threadIdx.x + j * blockDim.x;
     px[j] = rn_add((float)(tx0 + r % RASTER_TILE_X), jx);
     py[j] = rn_add((float)(ty0 + r / RASTER_TILE_X), jy);
     best_q[j] = 0.0f;
     best_e1[j] = best_e2[j] = 0.0f;
     best_tri[j] = -1;
   }
+  // The band's first and last sample column and row, as the pixels have them.
+  const float x_lo = rn_add((float)tx0, jx);
+  const float x_hi = rn_add((float)(tx0 + RASTER_TILE_X - 1), jx);
+  const float y_lo = rn_add((float)(ty0 + band * rows), jy);
+  const float y_hi = rn_add((float)(ty0 + band * rows + rows - 1), jy);
+  const float4* planes = reinterpret_cast<const float4*>(A.planes);
   const int begin = A.seg[tile], end = A.seg[tile + 1];
+  int culled = 0;
   for (int base = begin; base < end; base += RASTER_STAGE) {
     const int n = end - base < RASTER_STAGE ? end - base : RASTER_STAGE;
+    float least = best_q[0];
+#pragma unroll
+    for (int j = 1; j < PPT; ++j) least = fminf(least, best_q[j]);
+    least = warp_min(least);
+    if (threadIdx.x % 32 == 0) s_warp_min[threadIdx.x / 32] = least;
     __syncthreads();                                   // last stage consumed
-    for (int i = threadIdx.x; i < n * RASTER_PLANE_COLS; i += blockDim.x)
-      s_plane[i] = A.planes[(size_t)A.pair_tri[base + i / RASTER_PLANE_COLS] *
-                                RASTER_PLANE_COLS + i % RASTER_PLANE_COLS];
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s_tri[i] = A.pair_tri[base + i];
+    least = s_warp_min[0];
+    for (int w = 1; w < (int)(blockDim.x + 31) / 32; ++w) least = fminf(least, s_warp_min[w]);
+    // Stage the rows; cull each pair whose q, at any sample of the band, is
+    // at most the band's least best q: it cannot win a pixel.
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int tri = A.pair_tri[base + i];
+      const float4* row = planes + (size_t)tri * 3;
+      const float4 a = row[0], b = row[1], c = row[2];
+      s_plane[3 * i] = a;
+      s_plane[3 * i + 1] = b;
+      s_plane[3 * i + 2] = c;
+      s_tri[i] = tri;
+      s_keep[i] = !(edge(c.y, c.z, c.w, c.y >= 0.0f ? x_hi : x_lo,
+                         c.z >= 0.0f ? y_hi : y_lo) <= least);
+    }
     __syncthreads();
     for (int k = 0; k < n; ++k) {
-      const float* p = s_plane + k * RASTER_PLANE_COLS;
+      if (!s_keep[k]) {
+        ++culled;
+        continue;
+      }
+      const float* p = reinterpret_cast<const float*>(s_plane + 3 * k);
       const int tri = s_tri[k];
 #pragma unroll
       for (int j = 0; j < PPT; ++j) {
@@ -119,9 +181,13 @@ __global__ void __launch_bounds__(RASTER_PX / PPT) raster_tiles(const RasterArgs
       }
     }
   }
+  if (A.stats != nullptr && threadIdx.x == 0) {
+    atomicAdd(A.stats, (unsigned long long)(end - begin - culled));
+    atomicAdd(A.stats + 1, (unsigned long long)culled);
+  }
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
-    const int r = threadIdx.x + j * blockDim.x;
+    const int r = r0 + threadIdx.x + j * blockDim.x;
     const size_t o = (size_t)(ty0 + r / RASTER_TILE_X) * A.row_pixels + tx0 +
                      r % RASTER_TILE_X;
     const bool hit = best_tri[j] >= 0;
@@ -137,16 +203,17 @@ __global__ void __launch_bounds__(RASTER_PX / PPT) raster_tiles(const RasterArgs
 
 extern "C" int raster_args_size() { return (int)sizeof(RasterArgs); }
 
-// Launches one block per tile on `stream`; returns cudaGetLastError() after
-// the launch (0 = ok).
+// Launches RASTER_BANDS blocks per tile on `stream`; returns
+// cudaGetLastError() after the launch (0 = ok).
 extern "C" int raster_launch(const RasterArgs* args, int device, void* stream) {
   if (args->n_tiles == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const RasterArgs a = *args;
   void* params[] = {(void*)&a};
-  err = cudaLaunchKernel((const void*)raster_tiles<RASTER_PX / RASTER_THREADS>,
-                         dim3(a.n_tiles), dim3(RASTER_THREADS), params, 0,
+  err = cudaLaunchKernel((const void*)raster_tiles<RASTER_PPT>,
+                         dim3(a.n_tiles * RASTER_BANDS),
+                         dim3(RASTER_BAND_PX / RASTER_PPT), params, 0,
                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

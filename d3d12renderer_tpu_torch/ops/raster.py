@@ -19,12 +19,15 @@ Counterpart of ``d3d12renderer_tpu/ops/raster_pallas.py`` on its pair path
   kernel of `csrc/raster.cu` on CUDA tensors, `rasterize_plain` on CPU
   tensors.  Per pixel, the largest q = Q.p among the tile's pairs with
   e0, e1, e2 >= 0 and 0 < q < inf, the first pair in the sorted order on
-  a tie; u = e1 / q, v = e2 / q.
+  a tie; u = e1 / q, v = e2 / q.  The kernel culls, front to back, the
+  pairs that cannot win a pixel of their band (the part of JAX's early-out,
+  `:415-418`, on an exact bound) and returns the plain version's bits.
 * `closest_hit_raster`: `{t, tri, uv, hit, overflow, tile_qmin}`, t from q
   in closed form (`:838-847`).
 
-The group binning with two-phase occlusion feedback (`rasterize` `:733`) is
-not ported.
+The group binning with two-phase occlusion feedback (`rasterize` `:733`,
+`closest_hit_raster(binning="group", tile_qmin=...)`) is not ported: it
+raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ TILE_Y = 32
 PX = TILE_X * TILE_Y
 PLANE_COLS = 12
 W_EPS = 1e-6
+BANDS = 2                # blocks per tile, one per row band
 # (tiles x pairs x pixels) elements per step of the plain version.
 PLAIN_BLOCK = 1 << 24
 
@@ -53,8 +57,8 @@ class RasterArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "planes", "pair_tri", "seg", "jitter", "q_out", "tri_out", "u_out",
-        "v_out")] + [(name, ctypes.c_int) for name in (
-            "ntx", "n_tiles", "row_pixels", "pad_")]
+        "v_out", "stats")] + [(name, ctypes.c_int) for name in (
+            "ntx", "n_tiles", "row_pixels")]
 
 
 # --------------------------------------------------------------------------
@@ -287,21 +291,30 @@ def _check(name, x, dtype, cols, device):
         raise ValueError(f"{name} is on {x.device}, planes on {device}")
 
 
-def launch(launch_fn, planes, pair_tri, seg, jitter, width: int, height: int):
+def launch(launch_fn, planes, pair_tri, seg, jitter, width: int, height: int,
+           stats=None):
     """Checks the inputs, allocates the row-major outputs (q, tri, u, v),
     calls `launch_fn(RasterArgs*)` and raises if it reports an error.
     `launch_fn` is the CUDA launcher bound to a device and stream or, in the
-    CPU tests, the kernel source compiled as host code."""
+    CPU tests, the kernel source compiled as host code.  BANDS blocks walk
+    each tile, one per row band; `stats`, a (2,) int64 tensor, receives the
+    pairs the blocks tested and the pairs they culled (added to it, summed
+    over the blocks)."""
     dev = planes.device
     _check("planes", planes, torch.float32, PLANE_COLS, dev)
     _check("pair_tri", pair_tri, torch.int32, None, dev)
     _check("seg", seg, torch.int32, None, dev)
     _check("jitter", jitter, torch.float32, None, dev)
+    if stats is not None:
+        _check("stats", stats, torch.int64, None, dev)
     ntx, nty = width // TILE_X, height // TILE_Y
     if width % TILE_X or height % TILE_Y or seg.shape != (ntx * nty + 1,) \
-            or jitter.shape != (2,):
+            or jitter.shape != (2,) \
+            or (stats is not None and stats.shape != (2,)):
         raise ValueError(f"bad raster shapes: {width}x{height}, seg "
                          f"{tuple(seg.shape)}, jitter {tuple(jitter.shape)}")
+    if planes.data_ptr() % 16:
+        raise ValueError("planes must be 16-byte aligned")
     n = width * height
     q = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
@@ -309,21 +322,24 @@ def launch(launch_fn, planes, pair_tri, seg, jitter, width: int, height: int):
     v = torch.empty_like(q)
     args = RasterArgs(planes.data_ptr(), pair_tri.data_ptr(), seg.data_ptr(),
                       jitter.data_ptr(), q.data_ptr(), tri.data_ptr(),
-                      u.data_ptr(), v.data_ptr(), ntx, ntx * nty, width, 0)
+                      u.data_ptr(), v.data_ptr(),
+                      0 if stats is None else stats.data_ptr(), ntx,
+                      ntx * nty, width)
     err = launch_fn(ctypes.byref(args))
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: error {err}")
     return q, tri, u, v
 
 
-def rasterize_tiles(planes, pair_tri, seg, jitter, width: int, height: int):
+def rasterize_tiles(planes, pair_tri, seg, jitter, width: int, height: int,
+                    stats=None):
     """Kernel #5's port on CUDA tensors, the plain version on CPU tensors:
     (q, tri, u, v) row-major (height * width,).  Counts its launches in
-    `rasterize_tiles.launches`."""
+    `rasterize_tiles.launches`; `stats`: see `launch`."""
     if not planes.is_cuda:
         return rasterize_plain(planes, pair_tri, seg, jitter, width, height)
     out = launch(launcher("raster_launch", planes.device), planes, pair_tri,
-                 seg, jitter, width, height)
+                 seg, jitter, width, height, stats)
     rasterize_tiles.launches += 1
     return out
 
@@ -335,14 +351,23 @@ rasterize_tiles.launches = 0
 # The query
 # --------------------------------------------------------------------------
 
-def closest_hit_raster(bvh, camera, width: int, height: int,
-                       jitter=None) -> Dict[str, object]:
+def closest_hit_raster(bvh, camera, width: int, height: int, jitter=None,
+                       binning: str = "tri",
+                       tile_qmin=None) -> Dict[str, object]:
     """Primary visibility of `camera` at width x height, sampled at pixel +
     `jitter` ((2,), default the pixel centres): the contract of
     `bvh.closest_hit` over `generate_rays(offset=jitter)` rays, row-major:
     t (+inf on a miss), tri (-1), uv (0) and hit, plus `overflow` (pairs
     dropped: always 0), `tile_qmin` (each padded tile's least q) and
-    `pairs` (the frame's (tile, triangle) pair count)."""
+    `pairs` (the frame's (tile, triangle) pair count).  Only JAX's
+    `binning="tri"` is ported; the group binning and its occlusion feedback
+    (`tile_qmin=`, last frame's `tile_qmin`) raise."""
+    if binning not in ("tri", "group"):
+        raise ValueError(f"unknown binning {binning!r}")
+    if binning == "group" or tile_qmin is not None:
+        raise NotImplementedError(
+            "the group binning and its tile_qmin occlusion feedback are not "
+            "ported to the PyTorch rasterizer yet (ROADMAP.md, Queue 2)")
     dev = bvh.tri_v0.device
     if jitter is None:
         jitter = (0.5, 0.5)

@@ -411,19 +411,24 @@ def _atrium_frame_inputs():
 @pytest.mark.cuda
 def test_raster_kernel_matches_plain_on_cuda():
     """The raster kernel against its plain version over the atrium at
-    1080p (~300k pairs): q, tri, u, v equal bit for bit, one launch."""
+    1080p (~300k pairs): q, tri, u, v equal bit for bit, one launch, most
+    pairs culled."""
     _need_cuda()
     from d3d12renderer_tpu_torch.ops import raster
 
     args = _atrium_frame_inputs() + (1920, 1088)
     before = raster.rasterize_tiles.launches
-    got = raster.rasterize_tiles(*args)
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    got = raster.rasterize_tiles(*args, stats=stats)
     assert raster.rasterize_tiles.launches == before + 1
     want = raster.rasterize_plain(*args)
     torch.cuda.synchronize()
     assert (want[1] >= 0).float().mean() > 0.5
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    tested, culled = stats.tolist()
+    assert tested + culled == raster.BANDS * args[1].shape[0]
+    assert 0 < tested < culled
 
 
 @pytest.mark.cuda

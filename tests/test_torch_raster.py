@@ -246,10 +246,10 @@ def test_binning_is_exact_and_ordered(scenes):
 
 def _jax_tile_lists(jb, mat, attr, w, h, pair_cap):
     """JAX's pair binning (`visit_plan_pairs`) decoded into each tile's
-    triangle list in its visit order: the live visit words give (tile,
-    visit), a visit's table block carries its triangle ids in row 12 (NaN
-    for pad lanes)."""
-    packed, _, _, table, p_ovf, v_ovf, bits = rp.visit_plan_pairs(
+    triangle list in its visit order, and each tile's visit bounds: the
+    live visit words give (tile, visit, quantised bound), a visit's table
+    block carries its triangle ids in row 12 (NaN for pad lanes)."""
+    packed, _, scale2, table, p_ovf, v_ovf, bits = rp.visit_plan_pairs(
         jb.tri_v0, jb.tri_e1, jb.tri_e2, jb.tri_valid, mat, attr, w, h,
         pair_cap=pair_cap)
     assert int(p_ovf) == 0 and int(v_ovf) == 0
@@ -257,12 +257,20 @@ def _jax_tile_lists(jb, mat, attr, w, h, pair_cap):
     words = words[words != 0x7FFFFFFF]
     vidx = words & ((1 << bits["group_bits"]) - 1)
     tile = words >> (bits["q_bits"] + bits["group_bits"])
+    qq2 = (words >> bits["group_bits"]) & ((1 << bits["q_bits"]) - 1)
+    # The bound `_raster_kernel` compares (raster_pallas.py:356-359).
+    bound2 = np.where(qq2 == 0, np.inf, ((1 << bits["q_bits"]) - 1 - qq2)
+                      .astype(np.float32) * np.asarray(scale2)[0])
     ids = np.asarray(table).reshape(-1, 16, rp.GROUP)[:, 12, :]
-    lists = [[] for _ in range((w // raster.TILE_X) * (h // raster.TILE_Y))]
+    n_tiles = (w // raster.TILE_X) * (h // raster.TILE_Y)
+    lists = [[] for _ in range(n_tiles)]
+    bounds = [[] for _ in range(n_tiles)]
     for i in np.lexsort((vidx, tile)):
         row = ids[vidx[i]]
+        if np.isfinite(row).any():
+            bounds[tile[i]].append(bound2[i])
         lists[tile[i]].extend(row[np.isfinite(row)].astype(np.int64).tolist())
-    return lists
+    return lists, bounds
 
 
 def _assert_same_binning(jb, tb, mat, attr, w, h, pair_cap):
@@ -272,7 +280,7 @@ def _assert_same_binning(jb, tb, mat, attr, w, h, pair_cap):
         tb.tri_v0, tb.tri_e1, tb.tri_e2, tb.tri_valid,
         torch.as_tensor(np.array(mat)), torch.as_tensor(np.array(attr)), w, h)
     pair_tri, seg = raster.bin_pairs(rect, q_tri, w, h)
-    want = _jax_tile_lists(jb, mat, attr, w, h, pair_cap)
+    want, _ = _jax_tile_lists(jb, mat, attr, w, h, pair_cap)
     seg = seg.tolist()
     got = pair_tri.tolist()
     assert [seg[t + 1] - seg[t] for t in range(len(want))] == \
@@ -311,6 +319,43 @@ def test_atrium_binning_matches_jax(detail, tris, pairs):
     n = _assert_same_binning(jb, convert.bvh_from_numpy(jb, "cpu"), mat,
                              attr, 1920, 1088, rp.PAIR_CAP)
     assert n == pairs
+
+
+def _far_sphere():
+    """A subdivided ico sphere 60 units off under a 3-degree view at 128x64:
+    its 5,120 triangles are sub-pixel, and their float32 planes cover
+    samples outside them (no near-plane clipping, as in JAX)."""
+    jb = jbvh.build_bvh([(jmesh.ico_sphere(1.0, 4).transformed(
+        translate=(0.0, 1.0, 60.0)), 0)], cache=False)
+    cam = jcam.look_at((0.0, 1.0, 0.0), (0.0, 1.0, 1.0),
+                       v_fov=math.radians(3), aspect=2.0)
+    return jb, convert.bvh_from_numpy(jb, "cpu"), cam, 128, 64
+
+
+def test_jax_bound_does_not_hold_sub_pixel_planes():
+    """Why the kernel culls on its own bound and not on JAX's: on sub-pixel
+    triangles the plain version's winners (which the kernel must return
+    bit for bit) include pixels whose q lies above the bound of their JAX
+    visit, decoded from JAX's visit words."""
+    jb, tb, jc, w, h = _far_sphere()
+    mat, attr = rp.perspective_rows(jc, w, h)
+    mat_t, attr_t = (torch.as_tensor(np.array(x)) for x in (mat, attr))
+    planes, rect, q_tri = raster.project_planes(
+        tb.tri_v0, tb.tri_e1, tb.tri_e2, tb.tri_valid, mat_t, attr_t, w, h)
+    pair_tri, seg = raster.bin_pairs(rect, q_tri, w, h)
+    lists, visit_bounds = _jax_tile_lists(jb, mat, attr, w, h, PAIR_CAP)
+    assert all(pair_tri[seg[t]:seg[t + 1]].tolist() == lst
+               for t, lst in enumerate(lists))
+    q, tri, _, _ = raster.rasterize_plain(planes, pair_tri, seg,
+                                          torch.tensor([0.5, 0.5]), w, h)
+    ntx = w // raster.TILE_X
+    above = 0
+    for pix in torch.nonzero(tri >= 0)[:, 0].tolist():
+        y, x = divmod(pix, w)
+        t = (y // raster.TILE_Y) * ntx + x // raster.TILE_X
+        rank = lists[t].index(int(tri[pix]))
+        above += float(q[pix]) > visit_bounds[t][rank // rp.GROUP]
+    assert above > 0
 
 
 def test_plain_blocks_keep_the_first_winner(monkeypatch):
@@ -384,14 +429,14 @@ def test_raster_matches_the_ray_path_on_the_port(scenes):
 
 HARNESS = """\
 #include "raster.cu"
-// One one-thread block per tile: that thread owns all of the tile's pixels
-// and stages every plane row itself.
+// One one-thread block per band of a tile: that thread owns all of the
+// band's pixels and stages every plane row itself.
 extern "C" int host_raster(const RasterArgs* a) {
   blockDim = dim3(1);
   threadIdx = dim3(0);
-  for (int t = 0; t < a->n_tiles; ++t) {
-    blockIdx = dim3(t);
-    raster_tiles<RASTER_PX>(*a);
+  for (int b = 0; b < a->n_tiles * RASTER_BANDS; ++b) {
+    blockIdx = dim3(b);
+    raster_tiles<RASTER_BAND_PX>(*a);
   }
   return 0;
 }
@@ -406,27 +451,121 @@ def host_raster(tmp_path_factory):
     return host
 
 
-@pytest.mark.parametrize("case", ["demo", "near-plane-crossing", "jittered"])
-def test_host_kernel_matches_plain(host_raster, scenes, case):
-    """Through the real wrapper (`raster.launch`): q, tri, u and v equal
-    bit for bit (every operation rounded as the plain version rounds it),
-    with a duplicated sphere so that exact ties occur."""
+def _kernel_inputs(case, meshes):
+    """The raster kernel's inputs for `meshes` seen by CASES[case]'s camera
+    at the padded size, as `closest_hit_raster` makes them, and that
+    size."""
     _, _, _, w, h, jit = CASES[case]
-    meshes = _demo(tmesh)
-    tb = tbvh.build_bvh(meshes + [meshes[1]], device="cpu")
+    tb = tbvh.build_bvh(meshes, device="cpu")
     cam = convert.camera_from_numpy(_camera(case), "cpu")
     wp, hp = w + (-w) % raster.TILE_X, h + (-h) % raster.TILE_Y
     mat, attr = raster.perspective_rows(cam, w, h)
     planes, rect, q_tri = raster.project_planes(
         tb.tri_v0, tb.tri_e1, tb.tri_e2, tb.tri_valid, mat, attr, wp, hp)
     pair_tri, seg = raster.bin_pairs(rect, q_tri, wp, hp)
-    jitter = torch.tensor(jit)
-    want = raster.rasterize_plain(planes, pair_tri, seg, jitter, wp, hp)
-    got = raster.launch(host_raster.host_raster, planes, pair_tri, seg,
-                        jitter, wp, hp)
+    return (planes, pair_tri, seg, torch.tensor(jit)), wp, hp
+
+
+def _host_run(host, args, wp, hp):
+    """The kernel source through the real wrapper (`raster.launch`), with
+    its work counters: (q, tri, u, v), [pairs tested, pairs culled]."""
+    stats = torch.zeros(2, dtype=torch.int64)
+    out = raster.launch(host.host_raster, *args, wp, hp, stats=stats)
+    return out, stats.tolist()
+
+
+@pytest.mark.parametrize("case", ["demo", "near-plane-crossing", "jittered"])
+def test_host_kernel_matches_plain(host_raster, case):
+    """Through the real wrapper (`raster.launch`): q, tri, u and v equal
+    bit for bit (every operation rounded as the plain version rounds it,
+    the cull never dropping a pair that could win), with a duplicated
+    sphere so that exact ties occur; every pair of every band is tested or
+    culled."""
+    meshes = _demo(tmesh)
+    args, wp, hp = _kernel_inputs(case, meshes + [meshes[1]])
+    want = raster.rasterize_plain(*args, wp, hp)
+    got, (tested, culled) = _host_run(host_raster, args, wp, hp)
     assert (want[1] >= 0).float().mean() > 0.2
     for name, a, b in zip(("q", "tri", "u", "v"), got, want):
         assert torch.equal(a, b), name
+    assert tested + culled == raster.BANDS * args[1].shape[0]
+
+
+def _occluded_scene():
+    """A quad close to the demo camera, facing it and filling the left half
+    of the view, in front of a grid of 64 spheres: the left tiles hold
+    thousands of pairs behind a nearer surface, the right ones none."""
+    spheres = [(tmesh.uv_sphere(0.35, 12, 16).transformed(
+        translate=(-3.5 + i % 8, 0.2 + (i // 8) % 2, 1.0 + i // 16)), 1)
+        for i in range(64)]
+    wall = tmesh.quad(1.6).transformed(
+        translate=(-1.6, 1.2, -4.0),
+        rotate=(math.sin(-math.pi / 4), 0.0, 0.0, math.cos(-math.pi / 4)))
+    return spheres + [(wall, 2)]
+
+
+# Sample offsets at the pixel's edges put the band's corner samples, where
+# the cull takes each plane's largest q, on the band's own border.
+JITTERS = [(0.5, 0.5), (0.0, 0.0), (0.999, 0.001)]
+
+
+@pytest.mark.parametrize("jitter", JITTERS)
+def test_host_kernel_culls_occluded_pairs(host_raster, jitter):
+    """The cull fires: behind a near quad the blocks cull pairs, and the
+    output still equals the plain version's (which tests every pair) bit
+    for bit."""
+    args, wp, hp = _kernel_inputs("demo", _occluded_scene())
+    args = args[:3] + (torch.tensor(jitter),)
+    want = raster.rasterize_plain(*args, wp, hp)
+    got, (tested, culled) = _host_run(host_raster, args, wp, hp)
+    for name, a, b in zip(("q", "tri", "u", "v"), got, want):
+        assert torch.equal(a, b), name
+    assert tested + culled == raster.BANDS * args[1].shape[0]
+    assert culled > 0.2 * (tested + culled)
+    assert (want[1] >= 0).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("jitter", JITTERS)
+def test_host_kernel_matches_plain_on_sub_pixel_planes(host_raster, jitter):
+    """Where JAX's bound fails (the far sphere's sub-pixel triangles, see
+    `test_jax_bound_does_not_hold_sub_pixel_planes`), the kernel's own
+    bound holds: the plain version's bits.  (The sphere leaves background
+    in every tile, so nothing is culled here: the occluded scene above
+    shows the cull.)"""
+    _, tb, jc, w, h = _far_sphere()
+    mat, attr = raster.perspective_rows(convert.camera_from_numpy(jc, "cpu"),
+                                        w, h)
+    planes, rect, q_tri = raster.project_planes(
+        tb.tri_v0, tb.tri_e1, tb.tri_e2, tb.tri_valid, mat, attr, w, h)
+    pair_tri, seg = raster.bin_pairs(rect, q_tri, w, h)
+    args = (planes, pair_tri, seg, torch.tensor(jitter))
+    want = raster.rasterize_plain(*args, w, h)
+    got, (tested, culled) = _host_run(host_raster, args, w, h)
+    assert int((want[1] >= 0).sum()) > 1000
+    for name, a, b in zip(("q", "tri", "u", "v"), got, want):
+        assert torch.equal(a, b), name
+    assert tested + culled == raster.BANDS * pair_tri.shape[0]
+
+
+def test_host_kernel_matches_plain_on_the_atrium(host_raster):
+    """The main path's frame (`bench_raster_frame`'s atrium and camera at
+    1920x1080, padded to 1920x1088), whose ~2,100 plain winners above
+    JAX's bound come from sub-pixel planes: the kernel returns the plain
+    version's bits and culls most of its (pair, band) work."""
+    tb = tbvh.build_bvh(tmesh.atrium_scene(1.4), device="cpu")
+    cam = tcam.look_at((8.0, 6.0, -14.0), (0.0, 3.0, 0.0), device="cpu",
+                       v_fov=math.radians(60), aspect=1920 / 1080)
+    mat, attr = raster.perspective_rows(cam, 1920, 1080)
+    planes, rect, q_tri = raster.project_planes(
+        tb.tri_v0, tb.tri_e1, tb.tri_e2, tb.tri_valid, mat, attr, 1920, 1088)
+    pair_tri, seg = raster.bin_pairs(rect, q_tri, 1920, 1088)
+    args = (planes, pair_tri, seg, torch.tensor([0.3, 0.7]))
+    want = raster.rasterize_plain(*args, 1920, 1088)
+    got, (tested, culled) = _host_run(host_raster, args, 1920, 1088)
+    for name, a, b in zip(("q", "tri", "u", "v"), got, want):
+        assert torch.equal(a, b), name
+    assert tested + culled == raster.BANDS * pair_tri.shape[0]
+    assert tested < 0.3 * (tested + culled)
 
 
 def test_kernel_layout_matches_the_wrapper(host_raster):
@@ -436,10 +575,12 @@ def test_kernel_layout_matches_the_wrapper(host_raster):
     assert consts["RASTER_TILE_X"] == raster.TILE_X
     assert consts["RASTER_TILE_Y"] == raster.TILE_Y
     assert consts["RASTER_PLANE_COLS"] == raster.PLANE_COLS
+    assert consts["RASTER_BANDS"] == raster.BANDS
     assert host_raster.raster_args_size() == ctypes.sizeof(raster.RasterArgs)
     fields = re.search(r"struct RasterArgs \{(.*?)\};", src, re.S).group(1)
     names = re.findall(r"(\w+);", fields)
     assert names == [f for f, _ in raster.RasterArgs._fields_]
+    assert "stats" in names
 
 
 def test_wrapper_takes_the_plain_version_on_cpu(scenes):
@@ -456,3 +597,21 @@ def test_wrapper_takes_the_plain_version_on_cpu(scenes):
     b = raster.rasterize_plain(planes, pair_tri, seg, torch.tensor(jit), w, 96)
     assert raster.rasterize_tiles.launches == before
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("kw,error", [
+    ({"binning": "group"}, NotImplementedError),
+    ({"tile_qmin": torch.zeros(6)}, NotImplementedError),
+    ({"binning": "tri", "tile_qmin": torch.zeros(6)}, NotImplementedError),
+    ({"binning": "cluster"}, ValueError)])
+def test_unported_binning_raises(scenes, kw, error):
+    """JAX's `binning=` and `tile_qmin=` keywords: "tri" is the port's
+    path; the group binning and its occlusion feedback raise
+    NotImplementedError naming the roadmap, not a TypeError."""
+    _, tb = scenes["demo"]
+    cam = convert.camera_from_numpy(_camera("demo"), "cpu")
+    with pytest.raises(error, match="ROADMAP" if error is
+                       NotImplementedError else "binning"):
+        raster.closest_hit_raster(tb, cam, 128, 96, **kw)
+    got = raster.closest_hit_raster(tb, cam, 128, 96, binning="tri")
+    assert got["hit"].any()

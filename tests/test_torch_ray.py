@@ -218,6 +218,27 @@ def test_node_table_links_and_padding(scenes):
     assert torch.all(nodes[:, 3:6] > tb.node_max)
 
 
+@pytest.mark.parametrize("scene", ["single", "multi"])
+def test_node_table_reaches_every_leaf_row(scenes, scene):
+    """From the root, the walk's links (left child i + 1, right child the
+    link of an inner row) reach every node once and every leaf's rows once:
+    the leaves cover the soup's triangles exactly, not the padding."""
+    tb = scenes[scene][1]
+    nodes = ray_trace.node_table(tb)
+    link, count = nodes[:, 6:8].contiguous().view(torch.int32).T.tolist()
+    seen, rows, todo = set(), [], [0]
+    while todo:
+        i = todo.pop()
+        assert i not in seen
+        seen.add(i)
+        if count[i] > 0:
+            rows += range(link[i], link[i] + count[i])
+        else:
+            todo += [i + 1, link[i]]
+    assert seen == set(range(nodes.shape[0]))
+    assert sorted(rows) == list(range(int(tb.tri_valid.sum())))
+
+
 # --------------------------------------------------------------------------
 # The kernels' source, compiled as host C++
 # --------------------------------------------------------------------------
@@ -261,6 +282,7 @@ def _host_query(host, kernel, tb, o, d, tm, any_hit, stack_limit=64):
 
 @pytest.mark.parametrize("mode", ["closest", "any"])
 @pytest.mark.parametrize("kernel,scene", [("bvh", "multi"),
+                                          ("bvh", "single"),
                                           ("brute", "multi"),
                                           ("brute", "single")])
 def test_host_kernel_matches_plain(host_kernels, scenes, kernel, scene, mode):

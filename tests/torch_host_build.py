@@ -46,6 +46,7 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 }
 inline void __syncthreads() {}
 inline int __syncthreads_or(int p) { return p; }
+inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 static std::vector<float> host_dynamic_shared;
 #define DYNAMIC_SHARED(name) float* name = host_dynamic_shared.data()
