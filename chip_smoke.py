@@ -127,9 +127,14 @@ ROW_FLOP = {"ball": 114, "distance": 62, "fixed": 174, "hinge": 250,
 CONTACT_POINT_FLOP = 85
 # The ray plane test (csrc/ray_plane.cuh): 6 three-term dots (5 each), the
 # quotient, u, v and the accept terms = 42; a slab test of a node box: 6
-# subtractions, 6 products and 12 min/max = 24.
+# subtractions, 6 products and 12 min/max = 24.  Of these, o.n, n_off - o.n
+# and the origin terms o.e1p + e1_off, o.e2p + e2_off (18) and the slab's
+# lo - o, hi - o (6) depend on the row or node and the ray's origin only:
+# rays that share an origin need them once per row or node.
 PLANE_TEST_FLOP = 42
+PLANE_ORIGIN_FLOP = 18
 BOX_TEST_FLOP = 24
+BOX_ORIGIN_FLOP = 6
 # The raster kernel's test of one (pair, pixel) (csrc/raster.cu): 4
 # two-term dots with an offset (4 operations each) and 6 compares = 22.
 # The tonemap: exposure, the curve (8), its quotient and clamps = 14.
@@ -395,8 +400,7 @@ def path_tracing(card, cuda_ms):
                               ("small", (0.0, 2.5, 6.0), (0.0, 1.0, 0.0))):
         o, d = wavefront(eye, target)
         full[name, "primary"] = (o, d)
-        if name != "small":
-            full[name, "bounce"] = bounces(scenes[name], o, d)
+        full[name, "bounce"] = bounces(scenes[name], o, d)
 
     lines, max_dt = [], {"bvh": 0.0, "brute": 0.0}
     planes, nodes = rt.kernel_tables(scenes["atrium"])
@@ -426,8 +430,9 @@ def path_tracing(card, cuda_ms):
             hits = int((want[1] >= 0).sum())
             lines[-1] += f" [{hits} of {o.shape[0]} rays hit]"
     splanes = rt.kernel_tables(scenes["small"])[0]
-    o, d = full["small", "primary"]
-    for mode in ("closest", "any"):
+    for wf, mode in ((wf, mode) for wf in ("primary", "bounce")
+                     for mode in ("closest", "any")):
+        o, d = full["small", wf]
         any_hit = mode == "any"
         tm = (torch.rand(o.shape[0], generator=gen, device=dev) * 6 + 0.5
               if any_hit else torch.full((o.shape[0],), 1e30, device=dev))
@@ -436,10 +441,12 @@ def path_tracing(card, cuda_ms):
             "brute", brute_k(splanes, o, d, tm, any_hit), want, splanes, o,
             d, tm, any_hit)
         max_dt["brute"] = max(max_dt["brute"], dt_abs)
-        lines.append(f"brute small 1080p {mode}: {n_bad} differ ({outside} "
-                     f"outside margins), max |dt| rel {dt_rel:.2e}")
+        lines.append(f"brute small 1080p {wf} {mode}: {n_bad} differ "
+                     f"({outside} outside margins), max |dt| rel "
+                     f"{dt_rel:.2e}")
         if outside or dt_rel > MAX_DT_REL:
-            fail(f"brute disagrees with the plain version (small, {mode})")
+            fail(f"brute disagrees with the plain version (small, {wf}, "
+                 f"{mode})")
     print(f"ray kernels vs plain on the card ({RAY_SUBSET} rays strided from "
           f"each atrium 1080p wavefront; all 1080p rays on the "
           f"{int(scenes['small'].tri_valid.sum())}-tri scene): "
@@ -462,7 +469,9 @@ def path_tracing(card, cuda_ms):
     for (name, wf), (o, d) in full.items():
         planes, nodes = rt.kernel_tables(scenes[name])
         tm = torch.full((o.shape[0],), 1e30, device=dev)
-        entry = [f"{name} {wf} ({o.shape[0]} rays)"]
+        # Distinct origins, bit for bit (a pinhole camera's wavefront: 1).
+        origins = torch.unique(o.view(torch.int32), dim=0).shape[0]
+        entry = [f"{name} {wf} ({o.shape[0]} rays, {origins} origins)"]
         for kname in ("bvh", "brute"):
             if kname == "bvh" and name == "small":
                 continue
@@ -477,7 +486,8 @@ def path_tracing(card, cuda_ms):
             ms = cuda_ms(fn, reps)
             rt.raise_on_error(err)
             tests, boxes = work(fn)
-            times.append((name, wf, kname, ms, tests, boxes, o.shape[0]))
+            times.append((name, wf, kname, ms, tests, boxes, o.shape[0],
+                          origins))
             entry.append(f"{kname} {ms:.3f} ms ({o.shape[0] / ms / 1e3:.1f} "
                          f"Mrays/s, {reps} launches, {tests / o.shape[0]:.1f} "
                          f"plane tests and {boxes / o.shape[0]:.1f} box "
@@ -485,13 +495,17 @@ def path_tracing(card, cuda_ms):
         print(f"ray kernel times at 1080p: {' | '.join(entry)} | {card}",
               flush=True)
 
-    def ray_bound(name, rays, tests, boxes):
+    def ray_bound(name, rays, tests, boxes, origins):
+        """The walk's plane and box tests, each origin-only term counted
+        once per (origin, row or node) where rays share origins."""
         b = scenes[name]
-        return bound(rays * (12 + 12 + 4 + 4 + 4)
-                     + b.dense.n.shape[0] * 4 * rt.PLANE_COLS
-                     + (b.node_min.shape[0] * 4 * rt.NODE_COLS
-                        if boxes else 0),
-                     tests * PLANE_TEST_FLOP + boxes * BOX_TEST_FLOP)
+        rows, nodes = b.dense.n.shape[0], b.node_min.shape[0]
+        flop = (tests * (PLANE_TEST_FLOP - PLANE_ORIGIN_FLOP)
+                + min(tests, origins * rows) * PLANE_ORIGIN_FLOP
+                + boxes * (BOX_TEST_FLOP - BOX_ORIGIN_FLOP)
+                + min(boxes, origins * nodes) * BOX_ORIGIN_FLOP)
+        return bound(rays * (12 + 12 + 4 + 4 + 4) + rows * 4 * rt.PLANE_COLS
+                     + (nodes * 4 * rt.NODE_COLS if boxes else 0), flop)
 
     def kernel_time(name, wf, kname):
         for t in times:
@@ -630,11 +644,21 @@ def path_tracing(card, cuda_ms):
     if s_brute == 0 or s_bvh:
         fail(f"small-scene path: {s_bvh} BVH and {s_brute} brute-force "
              "launches")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        small_frame(small, small_cam, sampler)
+        sync()
+    brute_events = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and "ray_closest_hit_brute" in e.name]
     print(f"brute-force path (path tracer on the "
           f"{int(scenes['small'].tri_valid.sum())}-tri scene, {PT_W}x{PT_H}, "
           f"depth {PT_DEPTH}): one frame, rays_traced {s_rays[0]}, "
           f"{s_ms:.1f} ms, {s_mrays:.2f} Mrays/s, brute-force launches "
-          f"{s_brute} (BVH {s_bvh}) | {card}", flush=True)
+          f"{s_brute} (BVH {s_bvh}) | profiler, one frame: brute-force "
+          f"kernel {sum(brute_events):.3f} ms in {len(brute_events)} "
+          f"launches ({', '.join(f'{x:.3f}' for x in brute_events)}) | "
+          f"{card}", flush=True)
 
     # 13. The card against the CPU over the whole slice: the card's draws
     # replayed into the CPU path (plain ray version), a 1,678-tri scene with
@@ -695,8 +719,8 @@ def path_tracing(card, cuda_ms):
              "d3d12renderer_tpu/ops/ray_trace_pallas.py:333"),
             ("brute", brute_t, s_brute,
              "d3d12renderer_tpu/ops/ray_trace_pallas.py:157")):
-        name, _, _, ms, tests, boxes, rays_n = t
-        b_ms, b_by = ray_bound(name, rays_n, tests, boxes)
+        name, _, _, ms, tests, boxes, rays_n, origins = t
+        b_ms, b_by = ray_bound(name, rays_n, tests, boxes, origins)
         entries.append({
             "name": f"ray_closest_hit_{kname}", "route": "cuda",
             "source": "d3d12renderer_tpu_torch/csrc/ray_trace.cu",
@@ -848,15 +872,75 @@ def raster_frame(card, cuda_ms):
 
     # 15. The blur at the frame's seven shapes and the tonemap at 1080p,
     # both against their plain versions; the library blur (replicate pad +
-    # two depthwise 1-D convolutions) timed beside the blur kernel.
+    # two depthwise 1-D convolutions) timed beside the blur kernel.  `ms` is
+    # CUDA events over back-to-back calls, which at the small shapes time
+    # the host's work per call (longer than the card's); `device_ms` is the
+    # profiler's device time of the call's own kernels, each call after a
+    # write of twice the L2 (cold L2: no input left there by the call
+    # before); `warm_ms` the same with a one-float write between calls.
+    l2_flush = torch.empty(2 * torch.cuda.get_device_properties(
+        dev).L2_cache_size // 4, device=dev)
+    marker = torch.zeros(1, device=dev)
+    separators = {"cold": l2_flush.zero_, "warm": lambda: marker.add_(1.0)}
+
+    def kernel_events(fn):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        return sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+
+    def separator_names(sep):
+        names = {e.name for e in kernel_events(
+            lambda: [sep() for _ in range(4 * IMAGE_REPS)])}
+        if not names:
+            fail("the profiler saw none of the separators' kernels")
+        return names
+
+    sep_names = {k: separator_names(v) for k, v in separators.items()}
+
+    def device_ms(fn, reps):
+        """{cold, warm}: device ms per call of fn's kernels, the mean over
+        the calls the profiler saw whole (a separator on either side: it
+        may miss the first or last kernels of a session)."""
+        out = {}
+        for kind, sep in separators.items():
+            def run():
+                for _ in range(reps):
+                    sep()
+                    fn()
+                sep()
+
+            calls, cur = [], None
+            for e in kernel_events(run):
+                if e.name in sep_names[kind]:
+                    if cur:
+                        calls.append(cur)
+                    cur = []
+                elif cur is not None:
+                    cur.append(e.time_range.elapsed_us())
+            sizes = [len(c) for c in calls]
+            whole = [c for c in calls
+                     if sizes and len(c) == max(set(sizes), key=sizes.count)]
+            if len(whole) < reps // 2:
+                fail(f"the profiler saw {len(whole)} of {reps} timed calls "
+                     f"whole ({kind})")
+            out[kind] = sum(map(sum, whole)) / len(whole) / 1e3
+        return out["cold"], out["warm"]
+
     gen = torch.Generator(device=dev).manual_seed(12)
-    blur_rows, blur = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+    blur_rows, blur = [], {"ms": 0.0, "device_ms": 0.0, "warm_ms": 0.0,
+                           "plain_ms": 0.0, "library_ms": 0.0,
+                           "library_device_ms": 0.0, "library_warm_ms": 0.0,
                            "bytes": 0, "flop": 0, "err": 0.0}
     for shape, sigma in BLUR_SHAPES:
         x = torch.rand(shape, generator=gen, device=dev) * 4
         taps = image.gaussian_kernel(sigma)
         r = taps.shape[0] // 2
         ms = cuda_ms(lambda: blur_k(x, taps), IMAGE_REPS)
+        dev_ms, warm_ms = device_ms(lambda: blur_k(x, taps), IMAGE_REPS)
         p_ms, want = once_ms(lambda: image.blur_plain(x, taps.to(dev)))
         got = blur_k(x, taps)
         err = (got - want).abs().max().item()
@@ -873,17 +957,24 @@ def raster_frame(card, cuda_ms):
             return F.conv2d(F.conv2d(y, wv, groups=c), wh, groups=c)
 
         lib_ms = cuda_ms(library, IMAGE_REPS)
+        lib_dev_ms, lib_warm_ms = device_ms(library, IMAGE_REPS)
         lib_err = (library()[0].permute(1, 2, 0) - got).abs().max().item()
         if not lib_err < 1e-5:
             fail(f"the library blur does not compute the blur ({lib_err:.3e})")
         blur["ms"] += ms
+        blur["device_ms"] += dev_ms
         blur["plain_ms"] += p_ms
         blur["library_ms"] += lib_ms
+        blur["library_device_ms"] += lib_dev_ms
         blur["bytes"] += 2 * 4 * x.numel()
         blur["flop"] += x.numel() * 2 * 2 * (2 * r + 1)
         blur["err"] = max(blur["err"], err)
-        blur_rows.append(f"{shape} sigma {sigma}: {ms:.4f} ms (plain "
-                         f"{p_ms:.3f}, library {lib_ms:.4f})")
+        blur["warm_ms"] += warm_ms
+        blur["library_warm_ms"] += lib_warm_ms
+        blur_rows.append(f"{shape} sigma {sigma}: {ms:.4f} ms (device, cold "
+                         f"L2 {dev_ms:.4f}, warm {warm_ms:.4f}), plain "
+                         f"{p_ms:.3f}, library {lib_ms:.4f} (device, cold L2 "
+                         f"{lib_dev_ms:.4f}, warm {lib_warm_ms:.4f})")
     x = torch.rand((RASTER_H, RASTER_W, 3), generator=gen, device=dev) * 20
     settings = post.TonemapSettings()
     consts = image.tonemap_constants(settings)
@@ -900,8 +991,11 @@ def raster_frame(card, cuda_ms):
                               IMAGE_REPS), p_ms, err)
     print(f"blur kernel vs plain at the frame's 7 shapes: bit-equal | "
           f"{' | '.join(blur_rows)} | the frame's 7: kernel "
-          f"{blur['ms']:.4f} ms, plain {blur['plain_ms']:.3f} ms, library "
-          f"{blur['library_ms']:.4f} ms | tonemap kernel vs plain at "
+          f"{blur['ms']:.4f} ms (device, cold L2 {blur['device_ms']:.4f}, "
+          f"warm {blur['warm_ms']:.4f}), plain {blur['plain_ms']:.3f} ms, "
+          f"library {blur['library_ms']:.4f} ms (device, cold L2 "
+          f"{blur['library_device_ms']:.4f}, warm "
+          f"{blur['library_warm_ms']:.4f}) | tonemap kernel vs plain at "
           f"{RASTER_W}x{RASTER_H}x3: sRGB off bit-equal, {tone[False][0]:.4f} ms "
           f"(plain {tone[False][1]:.3f}); sRGB on max |diff| "
           f"{tone[True][2]:.2e} (bound {SRGB_TOL}: CUDA's expf / logf against "
@@ -1050,9 +1144,11 @@ def raster_frame(card, cuda_ms):
         "source": "d3d12renderer_tpu_torch/csrc/image.cu",
         "replaces": "d3d12renderer_tpu/ops/pallas_kernels.py:122",
         "launches": launches["blur"], "max_abs_err": blur["err"],
-        "ms": blur["ms"], "plain_ms": blur["plain_ms"],
+        "ms": blur["ms"], "device_ms": blur["device_ms"],
+        "plain_ms": blur["plain_ms"],
         "bound_ms": b_bound[0], "bound_by": b_bound[1],
         "library_ms": blur["library_ms"],
+        "library_device_ms": blur["library_device_ms"],
     }]
 
 
@@ -1143,9 +1239,12 @@ def main():
     print(f"ray kernels: {ptxas_summary(log, 'ray_closest_hit_bvh')} | "
           f"{ptxas_summary(log, 'ray_closest_hit_brute')} | native BVH "
           f"builder: {host_s:.1f} s -> {host_lib}", flush=True)
+    # The blur has one instance per radius and channel count; the frame's
+    # are r = 4 (sigma 1.5) with C = 1 and 3, and r = 3 (sigma 1.0), C = 3.
     print(f"raster and image kernels: {ptxas_summary(log, 'raster_tiles')} | "
-          f"{ptxas_summary(log, 'gaussian_blur')} | "
-          f"{ptxas_summary(log, 'tonemap')}", flush=True)
+          + " | ".join(ptxas_entries(log, f"gaussian_blurILi{r}ELi{c}E")[0]
+                       for r, c in ((4, 1), (4, 3), (3, 3)))
+          + f" | {ptxas_summary(log, 'tonemap')}", flush=True)
 
     # 3. Colored solver vs plain on the preps of a disturbed batch.
     gen = torch.Generator(device=dev).manual_seed(7)

@@ -6,12 +6,23 @@
 //   render/post.py `gaussian_blur`'s function (`_sep_conv`): a 1-D filter of
 //   2r+1 taps down the columns, then the same filter along the rows, each
 //   edge-clamped, each output summed from zero in tap order.  The TPU kernel
-//   held a whole channel image in VMEM and rolled it; here one block makes a
-//   32x32 output tile of one channel: the column pass for the tile's rows and
-//   its 2r halo columns into shared memory (8 KB), then the row pass from
-//   there, so the intermediate never goes to device memory.  Bound by bytes
-//   on the H100: H W C floats read and written once (1080p RGB: 50 MB, 0.015
-//   ms at 3.35 TB/s); the 2 (2r+1) operations per output are 0.002 ms.
+//   held a whole channel image in VMEM and rolled it; here one block makes an
+//   output tile of BLUR_TILE_W x BLUR_TILE_H pixels with all their channels
+//   (an image of more channels than a block's shared memory holds goes in
+//   slices of channels, one per grid.z).  It stages the tile's input rows
+//   and its r-halo, clamped at the edges, in shared memory with asynchronous
+//   copies (cp.async: every copy of a thread in flight at once; a warp's
+//   lanes on neighbouring floats), runs the column pass from there into a
+//   second shared buffer, and the row pass from that into rows of 64 C
+//   contiguous output floats.  The intermediate never goes to device
+//   memory.  One instance per radius and for C = 1 and 3 (any other C reads
+//   it at run time), so the taps and the shared-memory strides are
+//   constants.  Bound by bytes on the H100: H W C floats read
+//   and written once (1080p RGB: 50 MB, 0.015 ms at 3.35 TB/s); the halo
+//   re-reads (1.7x the tile's input at 64 x 16 and r = 4) come from L2.  Its
+//   instructions (the 2 (2r+1) rounded operations per output, their loads,
+//   the staging) take about as long at the SMs' issue rate.  Images of 0.1
+//   MB and less (the small bloom levels) are bound by the launch's latency.
 // * tonemap replaces `_tonemap_kernel` (pallas_kernels.py:57): exposure,
 //   the Uncharted-2 curve normalised by its value at the linear white, a
 //   clamp to [0, 1], and with `srgb` the encode of that kernel,
@@ -28,10 +39,12 @@
 
 #include "rn_math.cuh"
 
-constexpr int BLUR_TILE = 32;
+constexpr int BLUR_TILE_W = 64;      // output pixels per tile row
+constexpr int BLUR_TILE_H = 16;      // output rows per tile
 constexpr int BLUR_MAX_RADIUS = 16;
 constexpr int BLUR_MAX_TAPS = 2 * BLUR_MAX_RADIUS + 1;
-constexpr int BLUR_THREADS = 256;
+constexpr int BLUR_THREADS_X = 32;
+constexpr int BLUR_THREADS_Y = 8;
 constexpr int TONEMAP_THREADS = 256;
 // The float32 nearest 1 / 2.4 (not 1.0f / 2.4f, which rounds twice).
 constexpr float INV_GAMMA = 0.4166666666666667f;
@@ -60,38 +73,111 @@ struct TonemapArgs {
   int pad_;
 };
 
+// How a blur launches: the grid (tiles across, tiles down, channel slices)
+// and the dynamic shared memory of a block, which holds `group` channels
+// of a tile.
+struct BlurPlan {
+  int group;
+  int grid_x;
+  int grid_y;
+  int grid_z;
+  int shared_bytes;
+};
+
 namespace {
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-__global__ void __launch_bounds__(BLUR_THREADS) gaussian_blur(const BlurArgs A) {
-  __shared__ float inter[BLUR_TILE * (BLUR_TILE + 2 * BLUR_MAX_RADIUS)];
-  const int x0 = blockIdx.x * BLUR_TILE, y0 = blockIdx.y * BLUR_TILE;
-  const int c = blockIdx.z, C = A.channels, r = A.radius, k = 2 * r + 1;
-  const int span = BLUR_TILE + 2 * r;
-  // Column pass: rows y0.. of the tile, columns x0 - r .. x0 + 31 + r
-  // (clamped: the row pass's edge clamp reads the clamped column).
-  for (int i = threadIdx.x; i < BLUR_TILE * span; i += blockDim.x) {
-    const int yy = i / span, xs = i % span, y = y0 + yy;
-    if (y >= A.height) continue;
-    const int x = clampi(x0 - r + xs, 0, A.width - 1);
-    float acc = 0.0f;
-    for (int t = 0; t < k; ++t) {
-      const int ys = clampi(y + t - r, 0, A.height - 1);
-      acc = rn_add(acc, rn_mul(A.taps[t], A.src[((size_t)ys * A.width + x) * C + c]));
+// Copies one float from device to shared memory without passing it through
+// a register (cp.async), so that a thread has all its copies in flight at
+// once; host builds copy at once.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+// Waits for this thread's copy_async copies.
+__device__ __forceinline__ void copy_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// sum_t A.taps[t] x[t stride] over the 2R+1 taps, from zero in tap order.
+template <int R>
+__device__ __forceinline__ float blur_taps(const BlurArgs& A, const float* x, int stride) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int t = 0; t <= 2 * R; ++t) acc = rn_add(acc, rn_mul(A.taps[t], x[t * stride]));
+  return acc;
+}
+
+// One instance per radius R and channel count C (1 and 3, the frame's,
+// with every channel in one block; 0 for any other count, read from A, a
+// slice of ceil(C / gridDim.z) channels per block): the taps unrolled, each
+// a kernel parameter at a fixed offset, and with C known the shared-memory
+// strides too.
+template <int R, int C>
+__global__ void __launch_bounds__(BLUR_THREADS_X * BLUR_THREADS_Y)
+gaussian_blur(const BlurArgs A) {
+  DYNAMIC_SHARED(src);
+  const int stride = C > 0 ? C : A.channels, W = A.width, H = A.height;
+  const int group = C > 0 ? C : (stride + gridDim.z - 1) / gridDim.z;
+  const int c0 = C > 0 ? 0 : blockIdx.z * group;
+  const int ch = C > 0 ? C : (stride - c0 < group ? stride - c0 : group);
+  if (ch <= 0) return;
+  const int x0 = blockIdx.x * BLUR_TILE_W, y0 = blockIdx.y * BLUR_TILE_H;
+  const int span = (BLUR_TILE_W + 2 * R) * ch;   // floats of a staged row
+  float* inter = src + (BLUR_TILE_H + 2 * R) * span;
+  // Input rows y0 - R .. y0 + BLUR_TILE_H - 1 + R, pixels x0 - R .. x0 +
+  // BLUR_TILE_W - 1 + R, clamped (the row pass's edge clamp reads the
+  // column pass at the clamped column); a warp's lanes on neighbouring
+  // pixels.
+  for (int row = threadIdx.y; row < BLUR_TILE_H + 2 * R; row += blockDim.y) {
+    const float* line = A.src + (size_t)clampi(y0 - R + row, 0, H - 1) * W * stride + c0;
+    for (int xs = threadIdx.x; xs < BLUR_TILE_W + 2 * R; xs += blockDim.x) {
+      const float* from = line + clampi(x0 - R + xs, 0, W - 1) * stride;
+      for (int c = 0; c < ch; ++c) copy_async(src + row * span + xs * ch + c, from + c);
     }
-    inter[yy * span + xs] = acc;
   }
+  copy_async_wait();
   __syncthreads();
-  for (int i = threadIdx.x; i < BLUR_TILE * BLUR_TILE; i += blockDim.x) {
-    const int yy = i / BLUR_TILE, xx = i % BLUR_TILE;
-    const int y = y0 + yy, x = x0 + xx;
-    if (y >= A.height || x >= A.width) continue;
-    float acc = 0.0f;
-    for (int t = 0; t < k; ++t) acc = rn_add(acc, rn_mul(A.taps[t], inter[yy * span + xx + t]));
-    A.dst[((size_t)y * A.width + x) * C + c] = acc;
+  const int rows = H - y0 < BLUR_TILE_H ? H - y0 : BLUR_TILE_H;
+  for (int row = threadIdx.y; row < rows; row += blockDim.y)
+    for (int e = threadIdx.x; e < span; e += blockDim.x)
+      inter[row * span + e] = blur_taps<R>(A, src + row * span + e, span);
+  __syncthreads();
+  // Each output row: the tile's pixels times ch floats, contiguous in
+  // device memory when the block has every channel.
+  const int outs = (W - x0 < BLUR_TILE_W ? W - x0 : BLUR_TILE_W) * ch;
+  for (int row = threadIdx.y; row < rows; row += blockDim.y) {
+    float* out = A.dst + ((size_t)(y0 + row) * W + x0) * stride + c0;
+    for (int o = threadIdx.x; o < outs; o += blockDim.x)
+      out[ch == stride ? o : o / ch * stride + o % ch] =
+          blur_taps<R>(A, inter + row * span + o, ch);
+  }
+}
+
+using BlurKernel = void (*)(const BlurArgs);
+
+// The instance for radius r (0 <= r <= BLUR_MAX_RADIUS) and a block of
+// `group` of the image's c channels.
+template <int R = 0>
+BlurKernel blur_kernel(int r, int c, int group) {
+  if constexpr (R > BLUR_MAX_RADIUS) {
+    return nullptr;
+  } else {
+    if (r != R) return blur_kernel<R + 1>(r, c, group);
+    if (group == c && c == 1) return gaussian_blur<R, 1>;
+    if (group == c && c == 3) return gaussian_blur<R, 3>;
+    return gaussian_blur<R, 0>;
   }
 }
 
@@ -114,12 +200,30 @@ __global__ void __launch_bounds__(TONEMAP_THREADS) tonemap(const TonemapArgs A) 
   }
 }
 
-cudaError_t launch(const void* kernel, dim3 grid, dim3 block, const void* args,
+// The plan of a blur on a card whose blocks may have `shared_limit` bytes
+// of shared memory: as many channels per block as fit, split evenly over
+// the fewest slices; -1 when not even one channel of a tile fits.
+int blur_plan(const BlurArgs& a, int shared_limit, BlurPlan* p) {
+  const long long per_channel =
+      4LL * (2 * BLUR_TILE_H + 2 * a.radius) * (BLUR_TILE_W + 2 * a.radius);
+  const long long fit = shared_limit / per_channel;
+  if (fit < 1) return -1;
+  const int slices = (int)((a.channels + fit - 1) / fit);
+  const int group = (a.channels + slices - 1) / slices;
+  *p = {group, (a.width + BLUR_TILE_W - 1) / BLUR_TILE_W,
+        (a.height + BLUR_TILE_H - 1) / BLUR_TILE_H, slices, (int)(per_channel * group)};
+  return 0;
+}
+
+cudaError_t launch(const void* kernel, dim3 grid, dim3 block, void** params, int shared_bytes,
                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  void* params[] = {const_cast<void*>(args)};
-  err = cudaLaunchKernel(kernel, grid, block, params, 0, (cudaStream_t)stream);
+  if (shared_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaLaunchKernel(kernel, grid, block, params, shared_bytes, (cudaStream_t)stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -133,15 +237,21 @@ extern "C" int tonemap_args_size() { return (int)sizeof(TonemapArgs); }
 extern "C" int blur_max_radius() { return BLUR_MAX_RADIUS; }
 
 // Both launch on `stream` and return cudaGetLastError() after the launch
-// (0 = ok); -1 for a radius outside [0, BLUR_MAX_RADIUS].
+// (0 = ok); the blur -1 for a radius outside [0, BLUR_MAX_RADIUS] or when
+// not even one channel of a tile fits in a block's shared memory.
 extern "C" int gaussian_blur_launch(const BlurArgs* args, int device, void* stream) {
   if (args->radius < 0 || args->radius > BLUR_MAX_RADIUS) return -1;
   if (args->height == 0 || args->width == 0 || args->channels == 0) return 0;
+  int limit = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  BlurPlan plan;
+  if (blur_plan(*args, limit, &plan) != 0) return -1;
   const BlurArgs a = *args;
-  const dim3 grid((a.width + BLUR_TILE - 1) / BLUR_TILE,
-                  (a.height + BLUR_TILE - 1) / BLUR_TILE, a.channels);
-  return (int)launch((const void*)gaussian_blur, grid, dim3(BLUR_THREADS), &a,
-                     device, stream);
+  void* params[] = {(void*)&a};
+  return (int)launch((const void*)blur_kernel(a.radius, a.channels, plan.group),
+                     dim3(plan.grid_x, plan.grid_y, plan.grid_z), dim3(BLUR_THREADS_X, BLUR_THREADS_Y),
+                     params, plan.shared_bytes, device, stream);
 }
 
 extern "C" int tonemap_launch(const TonemapArgs* args, int device, void* stream) {
@@ -149,6 +259,7 @@ extern "C" int tonemap_launch(const TonemapArgs* args, int device, void* stream)
   const TonemapArgs a = *args;
   long long blocks = (a.n + TONEMAP_THREADS - 1) / TONEMAP_THREADS;
   if (blocks > 65535) blocks = 65535;
-  return (int)launch((const void*)tonemap, dim3((unsigned)blocks),
-                     dim3(TONEMAP_THREADS), &a, device, stream);
+  void* params[] = {(void*)&a};
+  return (int)launch((const void*)tonemap, dim3((unsigned)blocks), dim3(TONEMAP_THREADS), params,
+                     0, device, stream);
 }

@@ -32,7 +32,10 @@ constexpr int RAY_NODE_COLS = 8;     // floats per node-table row
 constexpr int RAY_MAX_STACK = 64;    // traversal stack entries per thread
 constexpr int RAY_BVH_THREADS = 128;
 constexpr int RAY_BRUTE_THREADS = 256;
-constexpr int RAY_BRUTE_TILE = 256;  // triangles per shared-memory tile
+// A brute-force block holds a table of at most this many rows whole in
+// shared memory (with the rows' origin terms, 64 bytes a row), and a larger
+// one in chunks of this many rows (48 bytes a row).
+constexpr int RAY_BRUTE_CHUNK = 1024;
 constexpr int RAY_ERR_STACK = 1;     // error bit: a traversal stack overflowed
 
 // One launch.  Pointers are device pointers of contiguous float32 / int32
@@ -65,6 +68,24 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
+// u's or v's origin term of a row: o.e1p + e1_off (p = the row's second
+// float4) or o.e2p + e2_off (its third).
+__device__ __forceinline__ float ray_origin_term(const Ray& r, float4 p) {
+  return rn_add(ray_dot(r.ox, r.oy, r.oz, p.x, p.y, p.z), p.w);
+}
+
+// Whether the hit at t of a ray on a row's plane lies in the triangle and
+// in front of the ray: u, v >= 0, 1 - (u + v) >= 0 and t - 1e-4 >= 0; ou
+// and ov are the row's origin terms (ray_origin_term of pu and pv, the
+// row's second and third float4).  Branch-free.
+__device__ __forceinline__ bool ray_plane_inside(const Ray& r, float4 pu, float4 pv, float ou,
+                                                 float ov, float t) {
+  const float u = rn_add(ou, rn_mul(t, ray_dot(r.dx, r.dy, r.dz, pu.x, pu.y, pu.z)));
+  const float v = rn_add(ov, rn_mul(t, ray_dot(r.dx, r.dy, r.dz, pv.x, pv.y, pv.z)));
+  return (u >= 0.0f) & (v >= 0.0f) & (rn_sub(1.0f, rn_add(u, v)) >= 0.0f) &
+         (rn_sub(t, 1e-4f) >= 0.0f);
+}
+
 // The plane test of one ray against one table row (pn, pu, pv = the row's
 // first three float4).  Returns true and sets t when the row is accepted
 // against t_best.
@@ -74,12 +95,22 @@ __device__ __forceinline__ bool ray_plane_test(const Ray& r, float4 pn,
   const float on = ray_dot(r.ox, r.oy, r.oz, pn.x, pn.y, pn.z);
   const float dn = ray_dot(r.dx, r.dy, r.dz, pn.x, pn.y, pn.z);
   t = rn_div(rn_sub(pn.w, on), dn);
-  const float u = rn_add(rn_add(ray_dot(r.ox, r.oy, r.oz, pu.x, pu.y, pu.z), pu.w),
-                         rn_mul(t, ray_dot(r.dx, r.dy, r.dz, pu.x, pu.y, pu.z)));
-  const float v = rn_add(rn_add(ray_dot(r.ox, r.oy, r.oz, pv.x, pv.y, pv.z), pv.w),
-                         rn_mul(t, ray_dot(r.dx, r.dy, r.dz, pv.x, pv.y, pv.z)));
-  return u >= 0.0f && v >= 0.0f && rn_sub(1.0f, rn_add(u, v)) >= 0.0f &&
-         rn_sub(t, 1e-4f) >= 0.0f && rn_sub(t_best, t) >= 0.0f;
+  return ray_plane_inside(r, pu, pv, ray_origin_term(r, pu), ray_origin_term(r, pv), t) &&
+         rn_sub(t_best, t) >= 0.0f;
+}
+
+// The brute-force kernel's test of a row k against (t_best, tri_best) with
+// tri_best < k (rows visited in ascending order), from num = n_off - o.n,
+// dn = d.n and the row's origin terms: ray_plane_test's acceptance and
+// ray_better's preference.  There a tie in t never wins, and t < t_best
+// holds exactly when rn(t_best - t) >= 0 and ray_better do (a finite
+// difference of two distinct floats does not round to zero; inf - inf and
+// NaN compare false), so the two fold into t < t_best.  Branch-free.
+__device__ __forceinline__ bool ray_plane_wins(const Ray& r, float4 pu, float4 pv, float ou,
+                                               float ov, float num, float dn, float t_best,
+                                               float& t) {
+  t = rn_div(num, dn);
+  return ray_plane_inside(r, pu, pv, ou, ov, t) & (t < t_best);
 }
 
 // Closest-hit order: nearer t first, the lower row on an exact tie.  The

@@ -19,13 +19,24 @@
 //   is ever dropped quietly.
 // * ray_closest_hit_brute replaces the brute-force Pallas kernel
 //   (ray_trace_pallas.py:157 `_kernel`, via `closest_hit_pallas`): every ray
-//   against every row.  A block stages tiles of RAY_BRUTE_TILE rows through
-//   shared memory (12 KB) and each thread tests its ray against the tile.
+//   against every row, for tables of at most 1024 rows on the path tracer.
+//   One thread per ray; a block stages such a table whole in shared memory
+//   (48 bytes a row).  Where all the block's rays start at one point (a
+//   pinhole camera's wavefront) the block computes each row's origin terms
+//   (o.n, o.e1p + e1_off, o.e2p + e2_off) once, saving 17 of the ~60
+//   instructions of each pair.  The test is branch-free, and a warp whose
+//   rays are all done skips the rows.
 //
 // Bounds on the H100: the plane test is 42 float operations (6 three-term
 // dots, the quotient, u, v and the accept terms); the brute kernel runs it
 // on every (ray, row) pair and reads its ray once, so at R rays x T rows it
-// is bound by operations (R T 42 / 67 TFLOP/s fp32).  The BVH kernel does the plane test
+// is bound by operations (R T 42 / 67 TFLOP/s fp32), or R T 24 + T 18 where
+// all rays share one origin (o.n, n_off - o.n and the two origin terms
+// once per row).  Every operation is rounded on its own, so none contracts
+// into an FMA: each is an instruction, the division about ten, and the
+// kernel is bound by the SMs' issue rate (132 SMs x 4 warp-instructions a
+// cycle).
+// The BVH kernel does the plane test
 // only on the rows of the leaves it reaches (~log T boxes and a few leaves
 // per ray) and is bound, at best, by reading its rays and writing its
 // results; in this first version it is latency-bound on dependent node loads
@@ -39,6 +50,13 @@
 #include "ray_plane.cuh"
 
 namespace {
+
+// The brute-force kernel's dynamic shared memory at T rows: the rows (three
+// float4 each) and, for a table of one chunk, their origin terms (one).
+int ray_brute_shared_bytes(int num_tris) {
+  const int row = (int)sizeof(float4);
+  return num_tris <= RAY_BRUTE_CHUNK ? 4 * num_tris * row : 3 * RAY_BRUTE_CHUNK * row;
+}
 
 // Adds this thread's plane-test and box-test counts to A.stats (when the
 // caller asked for them: the bounds in chip_smoke.py count the work).
@@ -165,10 +183,65 @@ ray_closest_hit_bvh(const RayArgs A) {
   add_stats(A, tests, boxes);
 }
 
+// Stages rows [base, base + n) of the plane table (their three float4) in
+// shared memory, cooperatively.
+__device__ __forceinline__ void stage_rows(const RayArgs& A, float4* rows, int base,
+                                           int n) {
+  const float4* planes = reinterpret_cast<const float4*>(A.planes);
+  for (int k = threadIdx.x; k < 3 * n; k += blockDim.x)
+    rows[k] = planes[(base + k / 3) * (RAY_PLANE_COLS / 4) + k % 3];
+}
+
+// One ray against the n rows staged at `row`, the first of them row `base`
+// of the table.  With SHARED_ORIGIN every ray of the block starts at `ray`'s
+// origin and `term` holds each row's origin terms (o.n, ou, ov), computed
+// once for the block by the same operations.  A warp whose rays are all
+// done (dead, or any-hit rays that have hit) skips the rows; the lanes of a
+// warp otherwise run every row together, so the votes are full-warp.
+// Returns whether the ray is done.
+template <bool SHARED_ORIGIN>
+__device__ __forceinline__ bool brute_rows(const float4* row, const float4* term, int base,
+                                           int n, const Ray& ray, bool any_hit,
+                                           float& t_best, int& tri_best, bool done) {
+  if (!__any_sync(0xffffffffu, !done)) return done;
+  for (int k = base; k < base + n; ++k, row += 3, ++term) {
+    const float4 pn = row[0], pu = row[1], pv = row[2];
+    float4 o_terms;
+    if (SHARED_ORIGIN) {
+      o_terms = *term;
+    } else {
+      o_terms = {ray_dot(ray.ox, ray.oy, ray.oz, pn.x, pn.y, pn.z),
+                 ray_origin_term(ray, pu), ray_origin_term(ray, pv), 0.0f};
+    }
+    const float dn = ray_dot(ray.dx, ray.dy, ray.dz, pn.x, pn.y, pn.z);
+    const float num = rn_sub(pn.w, o_terms.x);
+    float t;
+    const bool wins =
+        !done & ray_plane_wins(ray, pu, pv, o_terms.y, o_terms.z, num, dn, t_best, t);
+    t_best = wins ? t : t_best;
+    tri_best = wins ? k : tri_best;
+    if (any_hit) {
+      done = done | wins;
+      if (!__any_sync(0xffffffffu, !done)) break;
+    }
+  }
+  return done;
+}
+
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_int(a) == __float_as_int(b);
+}
+
+// One thread per ray.  A table of at most RAY_BRUTE_CHUNK rows is staged
+// whole, and where all the block's rays start at one point (a pinhole
+// camera's wavefront) each row's origin terms are computed once for them;
+// a larger table is staged chunk by chunk, with a barrier around every
+// chunk and the block stopping once all its rays are done.
 __global__ void __launch_bounds__(RAY_BRUTE_THREADS)
 ray_closest_hit_brute(const RayArgs A) {
-  __shared__ float4 tile[RAY_BRUTE_TILE * 3];
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  DYNAMIC_SHARED(smem);
+  float4* rows = reinterpret_cast<float4*>(smem);
+  const int r0 = blockIdx.x * blockDim.x, r = r0 + threadIdx.x;
   const bool live = r < A.num_rays;
   Ray ray = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   float t_best = 0.0f;
@@ -177,50 +250,79 @@ ray_closest_hit_brute(const RayArgs A) {
     ray = load_ray(A, r);
     t_best = A.t_max[r];
   }
+  // No row can pass t - 1e-4 >= 0 and t_best - t >= 0 for dead rays
+  // (t_max < 1e-4) and NaN t_max.
   bool done = !live || !(t_best >= 1e-4f);
   int tests = 0;
-  const float4* planes = reinterpret_cast<const float4*>(A.planes);
-  for (int base = 0; base < A.num_tris; base += RAY_BRUTE_TILE) {
-    const int n = A.num_tris - base < RAY_BRUTE_TILE ? A.num_tris - base : RAY_BRUTE_TILE;
-    for (int k = threadIdx.x; k < 3 * n; k += blockDim.x)
-      tile[k] = planes[(base + k / 3) * (RAY_PLANE_COLS / 4) + k % 3];
-    __syncthreads();
-    if (!done) {
-      tests += n;
-      for (int j = 0; j < n; ++j) {
-        float t;
-        if (ray_plane_test(ray, tile[3 * j], tile[3 * j + 1], tile[3 * j + 2], t_best, t) &&
-            ray_better(t, base + j, t_best, tri_best)) {
-          t_best = t;
-          tri_best = base + j;
-          if (A.any_hit) {
-            done = true;
-            break;
-          }
-        }
+  if (A.num_tris <= RAY_BRUTE_CHUNK) {
+    if (!done) tests = A.num_tris;
+    stage_rows(A, rows, 0, A.num_tris);
+    float4* terms = rows + 3 * A.num_tris;
+    const Ray first = load_ray(A, r0);
+    const bool shared = __syncthreads_and(
+        !live || (same_bits(ray.ox, first.ox) && same_bits(ray.oy, first.oy) &&
+                  same_bits(ray.oz, first.oz)));
+    if (shared) {
+      for (int j = threadIdx.x; j < A.num_tris; j += blockDim.x) {
+        const float4 pn = rows[3 * j];
+        terms[j] = {ray_dot(first.ox, first.oy, first.oz, pn.x, pn.y, pn.z),
+                    ray_origin_term(first, rows[3 * j + 1]),
+                    ray_origin_term(first, rows[3 * j + 2]), 0.0f};
       }
+      __syncthreads();
+      brute_rows<true>(rows, terms, 0, A.num_tris, ray, A.any_hit != 0, t_best, tri_best,
+                       done);
+    } else {
+      brute_rows<false>(rows, terms, 0, A.num_tris, ray, A.any_hit != 0, t_best, tri_best,
+                        done);
     }
-    // The barrier before the next tile load; the block stops once every
-    // ray in it is done (any-hit mode).
-    if (!__syncthreads_or(!done)) break;
+  } else {
+    for (int base = 0; base < A.num_tris; base += RAY_BRUTE_CHUNK) {
+      const int n = A.num_tris - base < RAY_BRUTE_CHUNK ? A.num_tris - base : RAY_BRUTE_CHUNK;
+      stage_rows(A, rows, base, n);
+      __syncthreads();
+      if (!done) tests += n;
+      done = brute_rows<false>(rows, rows, base, n, ray, A.any_hit != 0, t_best, tri_best,
+                               done);
+      // The barrier before the next chunk is staged; the block stops once
+      // every ray in it is done (any-hit mode).
+      if (!__syncthreads_or(!done)) break;
+    }
   }
   if (live) {
     A.t_out[r] = t_best;
     A.tri_out[r] = tri_best;
-    add_stats(A, tests, 0);
   }
+  add_stats(A, tests, 0);
 }
 
-int launch(const void* kernel, const RayArgs* args, int threads, int device,
-           void* stream) {
+cudaError_t launch_bvh(const RayArgs& a, cudaStream_t stream) {
+  void* params[] = {(void*)&a};
+  const dim3 blocks((a.num_rays + RAY_BVH_THREADS - 1) / RAY_BVH_THREADS);
+  return cudaLaunchKernel((const void*)ray_closest_hit_bvh, blocks, dim3(RAY_BVH_THREADS),
+                          params, 0, stream);
+}
+
+// One block per RAY_BRUTE_THREADS rays, with shared memory for the rows of
+// a one-chunk table and their origin terms, or for one chunk of rows.
+cudaError_t launch_brute(const RayArgs& a, cudaStream_t stream) {
+  const void* kernel = (const void*)ray_closest_hit_brute;
+  const int bytes = ray_brute_shared_bytes(a.num_tris);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  void* params[] = {(void*)&a};
+  const dim3 blocks((a.num_rays + RAY_BRUTE_THREADS - 1) / RAY_BRUTE_THREADS);
+  return cudaLaunchKernel(kernel, blocks, dim3(RAY_BRUTE_THREADS), params, bytes, stream);
+}
+
+int launch(bool brute, const RayArgs* args, int device, void* stream) {
   if (args->stack_limit < 1 || args->stack_limit > RAY_MAX_STACK) return -1;
   if (args->num_rays == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const RayArgs a = *args;
-  void* params[] = {(void*)&a};
-  const dim3 blocks((a.num_rays + threads - 1) / threads), block(threads);
-  err = cudaLaunchKernel(kernel, blocks, block, params, 0, (cudaStream_t)stream);
+  err = brute ? launch_brute(*args, (cudaStream_t)stream)
+              : launch_bvh(*args, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -234,9 +336,9 @@ extern "C" int ray_max_stack() { return RAY_MAX_STACK; }
 // Both launch on `stream` and return cudaGetLastError() after the launch
 // (0 = ok), or -1 for a stack limit outside [1, RAY_MAX_STACK].
 extern "C" int ray_closest_hit_bvh_launch(const RayArgs* args, int device, void* stream) {
-  return launch((const void*)ray_closest_hit_bvh, args, RAY_BVH_THREADS, device, stream);
+  return launch(false, args, device, stream);
 }
 
 extern "C" int ray_closest_hit_brute_launch(const RayArgs* args, int device, void* stream) {
-  return launch((const void*)ray_closest_hit_brute, args, RAY_BRUTE_THREADS, device, stream);
+  return launch(true, args, device, stream);
 }

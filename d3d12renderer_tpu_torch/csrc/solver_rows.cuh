@@ -16,13 +16,7 @@
 
 #pragma once
 
-// `float* name`: the block's dynamic shared memory, 16-byte aligned.  Host
-// builds of the kernel sources define it as a buffer of their own.
-#ifndef DYNAMIC_SHARED
-#define DYNAMIC_SHARED(name)                  \
-  extern __shared__ float4 name##_storage[]; \
-  float* name = reinterpret_cast<float*>(name##_storage)
-#endif
+#include "rn_math.cuh"
 
 namespace {
 

@@ -203,18 +203,28 @@ def test_settings_defaults_match_jax():
 
 HARNESS = """\
 #include "image.cu"
-// Each block run by one thread, which walks all of the block's work.
-extern "C" int host_blur(const BlurArgs* a) {
+// Each block of the launch's plan run by one thread, which walks all of
+// the block's work; `shared_limit` the bytes a block may have.
+extern "C" int host_blur(const BlurArgs* a, int shared_limit) {
   if (a->radius < 0 || a->radius > BLUR_MAX_RADIUS) return -1;
-  blockDim = dim3(1);
-  threadIdx = dim3(0);
-  for (int c = 0; c < a->channels; ++c)
-    for (int by = 0; by * BLUR_TILE < a->height; ++by)
-      for (int bx = 0; bx * BLUR_TILE < a->width; ++bx) {
-        blockIdx = dim3(bx, by, c);
-        gaussian_blur(*a);
+  BlurPlan plan;
+  if (blur_plan(*a, shared_limit, &plan) != 0) return -1;
+  host_dynamic_shared.assign(plan.shared_bytes / 4, 0.0f);
+  blockDim = dim3(1, 1);
+  threadIdx = dim3(0, 0);
+  gridDim = dim3(plan.grid_x, plan.grid_y, plan.grid_z);
+  for (int bz = 0; bz < plan.grid_z; ++bz)
+    for (int by = 0; by < plan.grid_y; ++by)
+      for (int bx = 0; bx < plan.grid_x; ++bx) {
+        blockIdx = dim3(bx, by, bz);
+        blur_kernel(a->radius, a->channels, plan.group)(*a);
       }
   return 0;
+}
+// The channel slices of the launch's plan (grid.z); -1 if refused.
+extern "C" int host_blur_slices(const BlurArgs* a, int shared_limit) {
+  BlurPlan plan;
+  return blur_plan(*a, shared_limit, &plan) == 0 ? plan.grid_z : -1;
 }
 extern "C" int host_tonemap(const TonemapArgs* a) {
   blockDim = dim3(1);
@@ -230,10 +240,21 @@ extern "C" int host_tonemap(const TonemapArgs* a) {
 @pytest.fixture(scope="module")
 def host_image(tmp_path_factory):
     host = build_host(tmp_path_factory, "host_image", HARNESS,
-                      ("host_blur", "host_tonemap", "blur_args_size",
-                       "tonemap_args_size", "blur_max_radius"))
-    host.host_blur.argtypes = host.host_tonemap.argtypes = [ctypes.c_void_p]
+                      ("host_blur", "host_blur_slices", "host_tonemap",
+                       "blur_args_size", "tonemap_args_size",
+                       "blur_max_radius"))
+    host.host_blur.argtypes = host.host_blur_slices.argtypes = [
+        ctypes.c_void_p, ctypes.c_int]
+    host.host_tonemap.argtypes = [ctypes.c_void_p]
     return host
+
+
+# The shared memory a block of the H100 may have, in bytes.
+SHARED_LIMIT = 232448
+
+
+def _host_blur(host, limit=SHARED_LIMIT):
+    return lambda args: host.host_blur(args, limit)
 
 
 @pytest.mark.parametrize("sigma,shape", [(1.5, (70, 45, 1)), (1.5, (33, 60, 3)),
@@ -244,7 +265,35 @@ def test_host_blur_matches_plain(host_image, sigma, shape):
     15 included."""
     x = torch.as_tensor(_img(14, shape, 3.0))
     taps = image.gaussian_kernel(sigma)
-    got = image.blur_launch(host_image.host_blur, x, taps)
+    got = image.blur_launch(_host_blur(host_image), x, taps)
+    assert torch.equal(got, image.blur_plain(x, taps))
+
+
+@pytest.mark.parametrize("radius,shape,limit,slices", [
+    (0, (67, 120, 3), SHARED_LIMIT, 1), (1, (67, 120, 1), SHARED_LIMIT, 1),
+    (3, (67, 120, 3), SHARED_LIMIT, 1), (4, (67, 120, 3), SHARED_LIMIT, 1),
+    (4, (67, 120, 1), SHARED_LIMIT, 1), (3, (130, 200, 3), SHARED_LIMIT, 1),
+    (16, (67, 120, 3), SHARED_LIMIT, 1), (16, (5, 7, 3), SHARED_LIMIT, 1),
+    (16, (20, 70, 24), SHARED_LIMIT, 3), (16, (67, 120, 3), 48 * 1024, 2),
+    (4, (40, 50, 24), 48 * 1024, 6), (16, (9, 9, 1), 16 * 1024, -1)])
+def test_host_blur_matches_plain_at_radius(host_image, radius, shape, limit,
+                                          slices):
+    """Bit for bit at the radii 0 to 16 (3 and 4 are the frame's), on
+    sizes that are not multiples of the 64 x 16 tile, with tiles clear of
+    every edge (130 x 200) and an image smaller than the halo; channels
+    beyond what a block's shared memory holds split into slices (24 at r =
+    16 on the H100, and at a smaller limit), and a launch where not even
+    one channel fits refused."""
+    x = torch.as_tensor(_img(17, shape, 3.0))
+    taps = image.gaussian_kernel(1.5, radius)
+    args = image.BlurArgs(x.data_ptr(), 0, shape[0], shape[1], shape[2],
+                          radius)
+    assert host_image.host_blur_slices(ctypes.byref(args), limit) == slices
+    if slices < 0:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            image.blur_launch(_host_blur(host_image, limit), x, taps)
+        return
+    got = image.blur_launch(_host_blur(host_image, limit), x, taps)
     assert torch.equal(got, image.blur_plain(x, taps))
 
 

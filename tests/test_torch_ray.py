@@ -245,20 +245,71 @@ def test_node_table_reaches_every_leaf_row(scenes, scene):
 
 _HARNESS = """\
 #include "ray_trace.cu"
-// Each kernel body once per ray index, as one-thread blocks: the brute
-// kernel's only thread then stages whole tiles itself.
-template <class K> int run(K kernel, const RayArgs* a) {
+// The BVH kernel once per ray index, as one-thread blocks.
+extern "C" int host_ray_bvh(const RayArgs* a) {
   if (a->stack_limit < 1 || a->stack_limit > RAY_MAX_STACK) return -1;
   blockDim = dim3(1);
   threadIdx = dim3(0);
+  gridDim = dim3(1);
   for (int r = 0; r < a->num_rays; ++r) {
     blockIdx = dim3(r);
-    kernel(*a);
+    ray_closest_hit_bvh(*a);
   }
   return 0;
 }
-extern "C" int host_ray_bvh(const RayArgs* a) { return run(ray_closest_hit_bvh, a); }
-extern "C" int host_ray_brute(const RayArgs* a) { return run(ray_closest_hit_brute, a); }
+// The brute-force kernel as one-thread blocks, one per ray.
+extern "C" int host_ray_brute(const RayArgs* a) {
+  if (a->stack_limit < 1 || a->stack_limit > RAY_MAX_STACK) return -1;
+  host_dynamic_shared.assign(ray_brute_shared_bytes(a->num_tris) / 4, 0.0f);
+  blockDim = dim3(1);
+  threadIdx = dim3(0);
+  gridDim = dim3(a->num_rays);
+  for (int r = 0; r < a->num_rays; ++r) {
+    blockIdx = dim3(r);
+    ray_closest_hit_brute(*a);
+  }
+  return 0;
+}
+// The brute-force kernel's rows for a block whose rays start at different
+// points (brute_rows<false> over the whole staged table), which one-thread
+// blocks never reach; each ray set up as the kernel sets it up.
+extern "C" int host_ray_brute_distinct(const RayArgs* a) {
+  if (a->num_tris > RAY_BRUTE_CHUNK) return -1;
+  host_dynamic_shared.assign(ray_brute_shared_bytes(a->num_tris) / 4, 0.0f);
+  float4* rows = reinterpret_cast<float4*>(host_dynamic_shared.data());
+  blockDim = dim3(1);
+  threadIdx = dim3(0);
+  blockIdx = dim3(0);
+  stage_rows(*a, rows, 0, a->num_tris);
+  for (int r = 0; r < a->num_rays; ++r) {
+    const Ray ray = load_ray(*a, r);
+    float t_best = a->t_max[r];
+    int tri_best = -1;
+    brute_rows<false>(rows, rows, 0, a->num_tris, ray, a->any_hit != 0, t_best, tri_best,
+                      !(t_best >= 1e-4f));
+    a->t_out[r] = t_best;
+    a->tri_out[r] = tri_best;
+  }
+  return 0;
+}
+// On pairs given by (num, dn, t_best): the brute force's folded win test
+// and ray_plane_test with ray_better, for a ray from the origin along +x
+// against a row (dn, 0, 0 | num) whose u and v are 0.25 wherever t is
+// finite, as a later row than tri_best.
+extern "C" void host_wins(const float* num, const float* dn, const float* t_best, int n,
+                          int* wins, int* accepted_better) {
+  const Ray ray = {0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f};
+  const float4 pu = {0.0f, 0.0f, 0.0f, 0.25f};
+  for (int i = 0; i < n; ++i) {
+    const float4 pn = {dn[i], 0.0f, 0.0f, num[i]};
+    const float row_num = rn_sub(pn.w, ray_dot(0.0f, 0.0f, 0.0f, pn.x, pn.y, pn.z));
+    const float row_dn = ray_dot(1.0f, 0.0f, 0.0f, pn.x, pn.y, pn.z);
+    float t, t_ref;
+    wins[i] = ray_plane_wins(ray, pu, pu, 0.25f, 0.25f, row_num, row_dn, t_best[i], t);
+    accepted_better[i] = ray_plane_test(ray, pn, pu, pu, t_best[i], t_ref) &&
+                         ray_better(t_ref, 1, t_best[i], 0);
+  }
+}
 """
 
 
@@ -266,18 +317,40 @@ extern "C" int host_ray_brute(const RayArgs* a) { return run(ray_closest_hit_bru
 def host_kernels(tmp_path_factory):
     """csrc/ray_trace.cu built as host C++ (tests/torch_host_build.py)."""
     host = build_host(tmp_path_factory, "host_ray", _HARNESS,
-                      ("host_ray_bvh", "host_ray_brute", "ray_args_size",
+                      ("host_ray_bvh", "host_ray_brute",
+                       "host_ray_brute_distinct", "ray_args_size",
                        "ray_max_stack"))
-    host.host_ray_bvh.argtypes = host.host_ray_brute.argtypes = [
-        ctypes.c_void_p]
+    for fn in (host.host_ray_bvh, host.host_ray_brute,
+               host.host_ray_brute_distinct):
+        fn.argtypes = [ctypes.c_void_p]
+    host.host_wins.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    host.host_wins.restype = None
     return host
 
 
 def _host_query(host, kernel, tb, o, d, tm, any_hit, stack_limit=64):
     planes, nodes = ray_trace.kernel_tables(tb)
     fn = host.host_ray_bvh if kernel == "bvh" else host.host_ray_brute
-    return ray_trace.launch(fn, planes, nodes if kernel == "bvh" else None,
+    return ray_trace.launch(fn, planes,
+                            nodes if kernel == "bvh" else None,
                             o, d, tm, any_hit, stack_limit)
+
+
+def _assert_matches_plain(planes, o, d, tm, t, tri, any_hit):
+    """Closest mode: `t` and `tri` equal to the plain version's bit for
+    bit; any-hit mode: `hit` equal and each reported hit a real one."""
+    want_t, want_tri = ray_trace.closest_hit_plain(planes, o, d, tm)
+    assert (want_tri >= 0).sum() > 100
+    if not any_hit:
+        assert torch.equal(tri, want_tri)
+        assert torch.equal(t, want_t)
+        return
+    assert torch.equal(tri >= 0, want_tri >= 0)
+    acc = _accepted_t(planes, o.numpy(), d.numpy(), tm.numpy())
+    hit = (tri >= 0).numpy()
+    rows = tri.numpy()[hit]
+    assert np.all(np.isfinite(acc[np.nonzero(hit)[0], rows]))
 
 
 @pytest.mark.parametrize("mode", ["closest", "any"])
@@ -289,25 +362,98 @@ def test_host_kernel_matches_plain(host_kernels, scenes, kernel, scene, mode):
     """Through the real wrapper (`ray_trace.launch`).  The kernels round
     every operation of the plane test as the plain version does, in the
     same order, and the BVH walk reaches every row the brute force accepts
-    (padded boxes), so `t` and `tri` are equal bit for bit in closest
-    mode; in any-hit mode `hit` is equal and each reported hit is a real
-    one."""
+    (padded boxes), so `t` and `tri` are equal bit for bit in closest mode; in
+    any-hit mode `hit` is equal and each reported hit is a real one."""
     tb = scenes[scene][1]
     o, d, tm = (torch.as_tensor(x) for x in _rays(5))
     tm[1::5] = 1e30
     planes, _ = ray_trace.kernel_tables(tb)
-    want_t, want_tri = ray_trace.closest_hit_plain(planes, o, d, tm)
     t, tri = _host_query(host_kernels, kernel, tb, o, d, tm, mode == "any")
-    assert (want_tri >= 0).sum() > 100
-    if mode == "closest":
-        assert torch.equal(tri, want_tri)
-        assert torch.equal(t, want_t)
-        return
-    assert torch.equal(tri >= 0, want_tri >= 0)
-    acc = _accepted_t(planes, o.numpy(), d.numpy(), tm.numpy())
-    hit = (tri >= 0).numpy()
-    rows = tri.numpy()[hit]
-    assert np.all(np.isfinite(acc[np.nonzero(hit)[0], rows]))
+    _assert_matches_plain(planes, o, d, tm, t, tri, mode == "any")
+
+
+@pytest.mark.parametrize("t_max", ["finite", "1e30"])
+@pytest.mark.parametrize("mode", ["closest", "any"])
+@pytest.mark.parametrize("scene", ["single", "multi"])
+def test_host_brute_kernel_matches_plain_on_1000_rays(host_kernels, scenes,
+                                                     scene, mode, t_max):
+    """The brute-force kernel on 1000 rays (not a multiple of its
+    256-thread block), with the whole table staged (single) or chunk by
+    chunk (multi), t_max per ray (dead rows included) or 1e30 everywhere."""
+    tb = scenes[scene][1]
+    o, d, tm = (torch.as_tensor(x[:1000]).contiguous() for x in _rays(9))
+    if t_max == "1e30":
+        tm.fill_(1e30)
+    planes, _ = ray_trace.kernel_tables(tb)
+    t, tri = _host_query(host_kernels, "brute", tb, o, d, tm, mode == "any")
+    _assert_matches_plain(planes, o, d, tm, t, tri, mode == "any")
+
+
+@pytest.mark.parametrize("mode", ["closest", "any"])
+def test_host_brute_rows_of_distinct_origins_match_plain(host_kernels, scenes,
+                                                         mode):
+    """The brute force's path for blocks whose rays do not share one origin
+    (every bounce wavefront's on the card; one-thread blocks always share
+    theirs), over the single scene's whole table, t_max per ray (dead rows
+    included) or 1e30."""
+    tb = scenes["single"][1]
+    o, d, tm = (torch.as_tensor(x) for x in _rays(11))
+    tm[1::3] = 1e30
+    planes, _ = ray_trace.kernel_tables(tb)
+    t, tri = ray_trace.launch(host_kernels.host_ray_brute_distinct, planes,
+                              None, o, d, tm, mode == "any", 64)
+    _assert_matches_plain(planes, o, d, tm, t, tri, mode == "any")
+
+
+def _edge_pairs(seed, n=4096):
+    """(num, dn, t_best) float32 pairs at the edges of the win test: t
+    within a few ulps of t_best and of 1e-4, num or dn zero, subnormal or
+    tiny, t_best 1e30 or inf, NaN and inf terms, and random pairs."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    t_best = np.exp(rng.uniform(np.log(1e-4), np.log(1e3), n)).astype(f32)
+    t_best[::7] = f32(1e30)
+    t_best[3::29] = f32(1e-4)
+    t_best[5::31] = np.inf
+    dn = (np.exp(rng.uniform(np.log(1e-44), np.log(1e3), n))
+          * rng.choice([-1, 1], n)).astype(f32)
+    dn[::13] = rng.choice([0.0, -0.0, 1e-45, -1e-45, 1e-38], n)[::13]
+    # t aimed at t_best (or at 1e-4), then moved a few ulps either way.
+    target = np.where(rng.random(n) < 0.3, f32(1e-4), t_best).astype(f32)
+    with np.errstate(all="ignore"):                  # inf * 0
+        num = (target.astype(np.float64) * dn).astype(f32)
+    steps = rng.integers(-4, 5, n)
+    for i in range(n):
+        for _ in range(abs(steps[i])):
+            num[i] = np.nextafter(num[i], f32(np.inf) if steps[i] > 0
+                                  else f32(-np.inf))
+    wild = rng.random(n) < 0.15
+    num[wild] = (rng.standard_normal(wild.sum()) * 10).astype(f32)
+    num[11::37] = rng.choice([0.0, -0.0, 1e-45, -1e-45], n)[11::37]
+    num[17::41] = np.nan
+    dn[19::43] = np.nan
+    num[23::47] = np.inf
+    return num, dn, t_best
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_brute_win_test_matches_accept_and_ray_better(host_kernels, seed):
+    """`ray_plane_wins` folds the accept term t_best - t >= 0 and
+    `ray_better` into t < t_best (ray_plane.cuh): on pairs whose t lies
+    within a few ulps of t_best, ties included, it wins exactly where the
+    plane test accepts and `ray_better` prefers the later row."""
+    num, dn, t_best = _edge_pairs(seed)
+    n = num.shape[0]
+    wins = np.zeros(n, np.int32)
+    ref = np.zeros(n, np.int32)
+    host_kernels.host_wins(num.ctypes.data, dn.ctypes.data,
+                           t_best.ctypes.data, n, wins.ctypes.data,
+                           ref.ctypes.data)
+    np.testing.assert_array_equal(wins, ref)
+    with np.errstate(all="ignore"):
+        t = num / dn
+    assert 0.1 * n < wins.sum() < 0.9 * n
+    assert np.sum(t == t_best) > 0.01 * n               # ties, which lose
 
 
 def test_host_kernels_count_their_work(host_kernels, scenes):
@@ -374,6 +520,7 @@ def test_kernel_layout_matches_the_wrapper(host_kernels):
     assert consts["RAY_NODE_COLS"] == ray_trace.NODE_COLS
     assert consts["RAY_MAX_STACK"] == ray_trace.MAX_STACK
     assert consts["RAY_ERR_STACK"] == ray_trace.ERR_STACK
+    assert consts["RAY_BRUTE_CHUNK"] == ray_trace.TRI_CHUNK
     assert host_kernels.ray_max_stack() == ray_trace.MAX_STACK
     assert host_kernels.ray_args_size() == ctypes.sizeof(ray_trace.RayArgs)
     fields = re.search(r"struct RayArgs \{(.*?)\};", src, re.S).group(1)

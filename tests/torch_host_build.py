@@ -3,9 +3,10 @@ C++ for the CPU tests: g++ with -ffp-contract=off (no FMA contraction, so
 each operation rounds as the plain PyTorch version's does), the CUDA
 qualifiers and runtime stubbed, and a harness that runs the kernel body
 once per block with one thread.  A kernel's dynamic shared memory
-(`DYNAMIC_SHARED` of csrc/solver_rows.cuh) is `host_dynamic_shared`, which
-the harness sizes; `__syncwarp` does nothing (a team is one lane); the
-solver kernels' bulk copies copy at once when not compiled for the card."""
+(`DYNAMIC_SHARED` of csrc/rn_math.cuh) is `host_dynamic_shared`, which
+the harness sizes; `__syncwarp` does nothing (a team is one lane) and a
+warp vote returns the one lane's predicate; the solver kernels' bulk
+copies copy at once when not compiled for the card."""
 
 import ctypes
 import shutil
@@ -46,8 +47,10 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 }
 inline void __syncthreads() {}
 inline int __syncthreads_or(int p) { return p; }
+inline int __syncthreads_and(int p) { return p; }
 inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
 inline void __syncwarp(unsigned = 0xffffffffu) {}
+inline bool __any_sync(unsigned, bool p) { return p; }
 static std::vector<float> host_dynamic_shared;
 #define DYNAMIC_SHARED(name) float* name = host_dynamic_shared.data()
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };

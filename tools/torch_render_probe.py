@@ -1,10 +1,19 @@
-"""Times the port's two render kernels on one GPU at the main paths' shapes:
-the tile rasterizer (`csrc/raster.cu`) on the atrium at 1920x1080 and the
-BVH ray kernel (`csrc/ray_trace.cu` `ray_closest_hit_bvh`) on the atrium's
+"""Times the port's render kernels on one GPU at the main paths' shapes:
+the tile rasterizer (`csrc/raster.cu`) on the atrium at 1920x1080; the BVH
+ray kernel (`csrc/ray_trace.cu` `ray_closest_hit_bvh`) on the atrium's
 1080p primary and bounce wavefronts (the bounces also regrouped, as the path
-tracer queries them), each held against the plain version on the card
-first; then the raster query end to end and the path-traced frame
-(`entry.pathtrace_entry`).
+tracer queries them); the brute-force ray kernel (`ray_closest_hit_brute`)
+on the 322-triangle scene's 1080p primary wavefront and on bounces off it
+(distinct origins);
+the blur (`csrc/image.cu` `gaussian_blur`) at the raster frame's seven
+shapes (CUDA events, and the kernel's device time from the profiler) beside
+the library blur (replicate pad and two depthwise `conv2d`);
+each kernel held against its plain version on the card first; then the
+raster query end to end, the path-traced frame (`entry.pathtrace_entry`)
+and the small scene's path-traced frame with its brute-force kernel time.
+It also prints ptxas's registers, shared memory and stack of each kernel,
+and the SASS instructions of one rounded division (`cuobjdump -sass` of a
+one-line kernel).
 
     python3 tools/torch_render_probe.py [--repo DIR] [--label NAME]
 
@@ -26,14 +35,248 @@ import sys
 import time
 
 REPS = 20
+BLUR_REPS = 50
 FRAMES = 5
 RAY_SUBSET = 16384
 W, H = 1920, 1080
+# chip_smoke.py's BLUR_SHAPES: the raster frame's seven blur calls.
+BLUR_SHAPES = (((540, 960, 1), 1.5), ((1080, 1920, 3), 1.5),
+               ((540, 960, 3), 1.5), ((270, 480, 3), 1.5),
+               ((135, 240, 3), 1.5), ((67, 120, 3), 1.5),
+               ((1080, 1920, 3), 1.0))
+# One rounded division and one rounded product, for their SASS.
+DIV_SOURCE = """
+extern "C" __global__ void one_div(const float* a, const float* b, float* c) {
+  c[threadIdx.x] = __fdiv_rn(a[threadIdx.x], b[threadIdx.x]);
+}
+extern "C" __global__ void one_mul(const float* a, const float* b, float* c) {
+  c[threadIdx.x] = __fmul_rn(a[threadIdx.x], b[threadIdx.x]);
+}
+"""
 
 
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def wavefront(torch, dev, cam):
+    """The camera's 1080p rays in the path tracer's tile order."""
+    from d3d12renderer_tpu_torch.render import camera as cam_mod
+    from d3d12renderer_tpu_torch.render import pathtracer as pt
+
+    o, d = cam_mod.generate_rays(cam, W, H)
+    perm = torch.as_tensor(pt._tile_perm(W, H)[0], device=dev)
+    return o[perm].contiguous(), d[perm].contiguous()
+
+
+def bounces(torch, dev, b, o, d):
+    """Rays from the hits of (o, d), cosine-distributed about the geometric
+    normal that faces the ray (chip_smoke.py's bounce wavefront): distinct
+    origins."""
+    from d3d12renderer_tpu_torch.render import bvh as bvh_mod
+
+    res = bvh_mod.closest_hit(b, o, d)
+    hit = res["hit"]
+    tri = res["tri"][hit].long()
+    gn = torch.nn.functional.normalize(torch.cross(b.tri_e1[tri], b.tri_e2[tri],
+                                                   dim=-1), dim=-1)
+    gn = torch.where((torch.sum(gn * d[hit], -1) > 0)[:, None], -gn, gn)
+    bo = (o[hit] + d[hit] * res["t"][hit][:, None] + gn * 1e-3).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    u1, u2 = torch.rand((2, bo.shape[0]), generator=gen, device=dev)
+    t1 = torch.nn.functional.normalize(torch.cross(
+        gn, torch.where(gn[:, :1].abs() > 0.9, torch.tensor(
+            [0.0, 1.0, 0.0], device=dev), torch.tensor([1.0, 0.0, 0.0],
+                                                       device=dev)), dim=-1),
+        dim=-1)
+    t2 = torch.cross(gn, t1, dim=-1)
+    bd = (t1 * (u1.sqrt() * torch.cos(2 * math.pi * u2))[:, None]
+          + t2 * (u1.sqrt() * torch.sin(2 * math.pi * u2))[:, None]
+          + gn * (1 - u1).sqrt()[:, None])
+    return bo, torch.nn.functional.normalize(bd, dim=-1).contiguous()
+
+
+def division_sass(build_dir):
+    """SASS opcodes of one `__fdiv_rn` and of one `__fmul_rn` kernel: up to
+    the first EXIT (the path every operand takes that needs no slow-path
+    fix-up) and in all (the slow path included)."""
+    from d3d12renderer_tpu_torch import cuda_build
+
+    nvcc = cuda_build._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    src = build_dir / "one_div.cu"
+    src.write_text(DIV_SOURCE)
+    cubin = build_dir / "one_div.cubin"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-cubin", str(src), "-o", str(cubin)], check=True,
+                   capture_output=True, text=True)
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split(":")[1].strip()
+            out[name] = []
+        elif name and "/*" in line and ";" in line:
+            op = line.split("*/", 1)[1].strip().split(";")[0].split()
+            if op:
+                out[name].append(op[1] if op[0].startswith("@") else op[0])
+    counts = {}
+    for fn, ops in out.items():
+        body = [x for x in ops if x not in ("NOP",)]
+        first_exit = body.index("EXIT") + 1 if "EXIT" in body else len(body)
+        counts[fn] = {"to_first_exit": first_exit, "all": len(body),
+                      "ops": body}
+    return counts
+
+
+def brute_probe(torch, dev, sync, emit, cuda_ms):
+    """The brute-force kernel on chip_smoke.py's 322-triangle scene: the
+    tile-ordered 1080p primary wavefront and a bounce wavefront off its
+    hits, each held against the plain version on a strided subset, with
+    the kernel's work counters; then the scene's path-traced frame (1080p,
+    depth 3) with the brute-force kernel's device time per frame."""
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch.ops import ray_trace as rt
+    from d3d12renderer_tpu_torch.render import bvh as bvh_mod
+    from d3d12renderer_tpu_torch.render import camera as cam_mod
+    from d3d12renderer_tpu_torch.render import mesh
+    from d3d12renderer_tpu_torch.render import pathtracer as pt
+
+    b = bvh_mod.build_bvh([(mesh.quad(5.0), 0), (mesh.ico_sphere(1.0, 2)
+                           .transformed(translate=(0, 1.0, 0)), 1)],
+                          device=dev)
+    cam = cam_mod.look_at((0.0, 2.5, 6.0), (0.0, 1.0, 0.0), device=dev,
+                          v_fov=math.radians(60), aspect=W / H)
+    o, d = wavefront(torch, dev, cam)
+    planes = rt.kernel_tables(b)[0]
+    for wf, (ro, rd) in (("primary", (o, d)),
+                         ("bounce", bounces(torch, dev, b, o, d))):
+        for mode in ("closest", "any"):
+            tm = torch.full((ro.shape[0],), 1e30, device=dev)
+            idx = torch.arange(0, ro.shape[0], ro.shape[0] // RAY_SUBSET,
+                               device=dev)[:RAY_SUBSET]
+            so, sd, stm = ro[idx].contiguous(), rd[idx].contiguous(), tm[idx]
+            wt, wtri = rt.closest_hit_plain(planes, so, sd, stm)
+            err = rt.new_error_word(dev)
+            any_hit = mode == "any"
+
+            def run(oo=ro, dd=rd, tt=tm, s=None):
+                return rt.ray_closest_hit_brute(planes, oo, dd, tt, any_hit,
+                                                stats=s, error=err)
+
+            t, tri = run(so, sd, stm)
+            sync()
+            differ = (int(((tri >= 0) != (wtri >= 0)).sum()) if any_hit
+                      else int((tri != wtri).sum()) + int((t != wt).sum()))
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            run(s=stats)
+            ms = cuda_ms(run)
+            rt.raise_on_error(err)
+            emit(kernel="ray_closest_hit_brute", wavefront=wf, mode=mode,
+                 rays=ro.shape[0], rows=planes.shape[0], ms=ms,
+                 differ_on_subset=differ, tests=stats.tolist()[0])
+            if differ:
+                fail(f"the brute-force kernel differs from the plain version "
+                     f"({wf}, {mode})")
+
+    scene = pt.Scene(
+        bvh=b, materials=pt.Materials(
+            albedo=torch.tensor([[0.5, 0.5, 0.5], [0.8, 0.2, 0.1]],
+                                device=dev),
+            emissive=torch.zeros((2, 3), device=dev),
+            roughness=torch.tensor([0.7, 0.3], device=dev),
+            metallic=torch.tensor([0.0, 0.0], device=dev)),
+        sky=pt.default_sky(device=dev)).with_shading_table()
+    settings = pt.PathTracerSettings(recursion_depth=3)
+    sampler = pt.Sampler(torch.Generator(device=dev).manual_seed(2))
+
+    def frame():
+        with torch.inference_mode():
+            return pt.render(scene, cam, W, H, settings, 1, sampler)
+
+    frame()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(FRAMES):
+        frame()
+    sync()
+    frame_ms = 1e3 * (time.perf_counter() - t0) / FRAMES
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        frame()
+        sync()
+    brute_us = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and "ray_closest_hit_brute" in e.name]
+    emit(kernel="small-scene path-traced frame", frame_ms=frame_ms,
+         brute_ms_per_frame=sum(brute_us) / 1e3, brute_launches=len(brute_us),
+         brute_ms_each=[u / 1e3 for u in brute_us])
+
+
+def blur_probe(torch, dev, sync, emit):
+    """The blur at the raster frame's seven shapes, bit-equal to its plain
+    version, beside the library blur: replicate pad and two depthwise 1-D
+    `conv2d` (TF32 off)."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch.ops import image
+
+    torch.backends.cudnn.allow_tf32 = False
+
+    def ms_of(fn):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        sync()
+        start.record()
+        for _ in range(BLUR_REPS):
+            fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / BLUR_REPS
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    total = {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0}
+    for shape, sigma in BLUR_SHAPES:
+        x = torch.rand(shape, generator=gen, device=dev) * 4.0
+        taps = image.gaussian_kernel(sigma)
+        got = image.gaussian_blur(x, taps)
+        same = torch.equal(got, image.blur_plain(x, taps.to(dev)))
+        if not same:
+            fail(f"the blur kernel differs from its plain version at {shape}")
+        r, c = taps.shape[0] // 2, shape[2]
+        tv = taps.to(dev)
+        wv = tv.view(1, 1, -1, 1).expand(c, 1, -1, 1).contiguous()
+        wh = tv.view(1, 1, 1, -1).expand(c, 1, 1, -1).contiguous()
+        y = x.permute(2, 0, 1)[None]
+
+        def library():
+            z = F.pad(y, (r, r, r, r), mode="replicate")
+            return F.conv2d(F.conv2d(z, wv, groups=c), wh, groups=c)
+
+        ms = ms_of(lambda: image.gaussian_blur(x, taps))
+        lib_ms = ms_of(library)
+        # The kernel's own device time: the events above also hold the
+        # host's time per launch where it exceeds the kernel's.
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(BLUR_REPS):
+                image.gaussian_blur(x, taps)
+            sync()
+        dev_us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "gaussian_blur" in e.name]
+        device_ms = sum(dev_us) / 1e3 / max(1, len(dev_us))
+        total["ms"] += ms
+        total["device_ms"] += device_ms
+        total["library_ms"] += lib_ms
+        emit(kernel="gaussian_blur", shape=list(shape), sigma=sigma, ms=ms,
+             device_ms=device_ms, library_ms=lib_ms, bit_equal=same)
+    emit(kernel="gaussian_blur, the frame's 7", **total)
 
 
 def main():
@@ -56,7 +299,6 @@ def main():
     from d3d12renderer_tpu_torch.render import bvh as bvh_mod
     from d3d12renderer_tpu_torch.render import camera as cam_mod
     from d3d12renderer_tpu_torch.render import mesh
-    from d3d12renderer_tpu_torch.render import pathtracer as pt
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
@@ -83,11 +325,18 @@ def main():
     lib = cuda_build.build_library()
     log = (lib.parent / "build.log").read_text().splitlines()
     for i, line in enumerate(log):
-        if "Compiling entry function" in line and (
-                "raster_tiles" in line or "ray_closest_hit_bvh" in line):
+        if "Compiling entry function" in line and any(
+                k in line for k in ("raster_tiles", "ray_closest_hit",
+                                    "gaussian_blur")):
             emit(ptxas=line.split("'")[1], props=" ".join(
                 x.strip() for x in log[i + 1:i + 4]
                 if "stack frame" in x or "registers" in x))
+    emit(division_sass=division_sass(lib.parent))
+
+    # The brute-force kernel and the blur first: their redesign is what
+    # the parent is compared with.
+    brute_probe(torch, dev, sync, emit, cuda_ms)
+    blur_probe(torch, dev, sync, emit)
 
     b = bvh_mod.build_bvh(mesh.atrium_scene(1.4), device=dev)
     cam = cam_mod.look_at((8.0, 6.0, -14.0), (0.0, 3.0, 0.0), device=dev,
@@ -127,28 +376,8 @@ def main():
 
     # The BVH kernel: the atrium's tile-ordered 1080p primary wavefront and
     # cosine bounces off its hits (chip_smoke.py's wavefronts).
-    o, d = cam_mod.generate_rays(cam, W, H)
-    perm = torch.as_tensor(pt._tile_perm(W, H)[0], device=dev)
-    o, d = o[perm].contiguous(), d[perm].contiguous()
-    res = bvh_mod.closest_hit(b, o, d)
-    hit = res["hit"]
-    tri = res["tri"][hit].long()
-    gn = torch.nn.functional.normalize(torch.cross(b.tri_e1[tri], b.tri_e2[tri],
-                                                   dim=-1), dim=-1)
-    gn = torch.where((torch.sum(gn * d[hit], -1) > 0)[:, None], -gn, gn)
-    bo = (o[hit] + d[hit] * res["t"][hit][:, None] + gn * 1e-3).contiguous()
-    gen = torch.Generator(device=dev).manual_seed(11)
-    u1, u2 = torch.rand((2, bo.shape[0]), generator=gen, device=dev)
-    t1 = torch.nn.functional.normalize(torch.cross(
-        gn, torch.where(gn[:, :1].abs() > 0.9, torch.tensor(
-            [0.0, 1.0, 0.0], device=dev), torch.tensor([1.0, 0.0, 0.0],
-                                                       device=dev)), dim=-1),
-        dim=-1)
-    t2 = torch.cross(gn, t1, dim=-1)
-    bd = (t1 * (u1.sqrt() * torch.cos(2 * math.pi * u2))[:, None]
-          + t2 * (u1.sqrt() * torch.sin(2 * math.pi * u2))[:, None]
-          + gn * (1 - u1).sqrt()[:, None])
-    bd = torch.nn.functional.normalize(bd, dim=-1).contiguous()
+    o, d = wavefront(torch, dev, cam)
+    bo, bd = bounces(torch, dev, b, o, d)
     rplanes, nodes = rt.kernel_tables(b)
     launch_bvh = cuda_build.launcher("ray_closest_hit_bvh_launch", dev)
     # The bounces as the path tracer queries them: regrouped by direction and
