@@ -17,6 +17,9 @@ the paths:
   primary visibility, sun cascades, half-res HBAO and SSR, TAA, bloom,
   tonemap, sharpen; one raster, one tonemap and seven blur launches per
   frame);
+* PPO training (`entry.train_entry`: BASELINE config 5, 4096 envs, rollout
+  32, 8 minibatches, 4 epochs; one fused launch per rollout step) and the
+  eval render of the trained pose through the BVH ray kernel;
 
 and checks what comes out.  Both solver kernels run at every team width
 (8, 16 and 32 lanes per scene) and at ragged batches against their plain
@@ -140,6 +143,14 @@ BOX_ORIGIN_FLOP = 6
 # The tonemap: exposure, the curve (8), its quotient and clamps = 14.
 RASTER_PAIR_FLOP = 22
 TONEMAP_FLOP = 14
+
+# Training: train_entry at BASELINE config 5 (BASELINE.md:163): 4096 envs,
+# rollout 32 (its defaults); the median of TRAIN_ITERS iterations after a
+# warm one; the eval render of examples/train_locomotion.py:109-121.
+TRAIN_ENVS, TRAIN_ROLLOUT = 4096, 32
+TRAIN_ITERS = 3
+EVAL_SIZE, EVAL_SPP = 256, 8
+EVAL_EYE, EVAL_TARGET = (4.0, 2.5, 5.0), (0.0, 0.9, 0.0)
 
 
 def fail(msg: str):
@@ -279,6 +290,73 @@ def chain_scene(builder):
     return builder.finalize(device="cuda")
 
 
+def bounces(b, o, d, gen):
+    """Rays from the primary hits of (o, d) in BVH `b`, cosine-distributed
+    about the geometric normal that faces the ray, drawn from `gen`."""
+    import math
+
+    import torch
+
+    from d3d12renderer_tpu_torch.core import maths as m
+    from d3d12renderer_tpu_torch.render import bvh as bvh_mod
+
+    res = bvh_mod.closest_hit(b, o, d)
+    hit = res["hit"]
+    tri = res["tri"][hit].long()
+    gn = m.noz(m.cross(b.tri_e1[tri], b.tri_e2[tri]))
+    gn = torch.where((torch.sum(gn * d[hit], -1) > 0)[:, None], -gn, gn)
+    p = o[hit] + d[hit] * res["t"][hit][:, None] + gn * 1e-3
+    u1, u2 = torch.rand((2, p.shape[0]), generator=gen, device=o.device)
+    t1, t2 = m.orthonormal_basis(gn)
+    l = (t1 * (u1.sqrt() * torch.cos(2 * math.pi * u2))[:, None]
+         + t2 * (u1.sqrt() * torch.sin(2 * math.pi * u2))[:, None]
+         + gn * (1 - u1).sqrt()[:, None])
+    return p.contiguous(), m.noz(l).contiguous()
+
+
+def at_margin(planes, o, d, tm):
+    """Rays (a few) with a row at an edge or a tie in t, from the
+    all-pairs test in float64."""
+    import torch
+
+    p = planes.double()
+    out = []
+    for i in range(0, o.shape[0], 64):
+        oo, dd = o[i:i + 64].double(), d[i:i + 64].double()
+        t = (p[:, 3] - oo @ p[:, 0:3].T) / (dd @ p[:, 0:3].T)
+        u = oo @ p[:, 4:7].T + p[:, 7] + t * (dd @ p[:, 4:7].T)
+        v = oo @ p[:, 8:11].T + p[:, 11] + t * (dd @ p[:, 8:11].T)
+        inside = torch.minimum(torch.minimum(u, v), 1 - (u + v))
+        window = ((t >= 1e-4 * (1 - TIE_EPS))
+                  & (t <= tm[i:i + 64].double()[:, None] * (1 + TIE_EPS)))
+        edge = ((inside.abs() <= EDGE_EPS) & window).any(1)
+        acc = torch.where((inside >= -EDGE_EPS) & window, t, torch.inf)
+        two = acc.topk(2, dim=1, largest=False).values
+        out.append(edge | (two[:, 1] - two[:, 0] <= TIE_EPS * two[:, 0]))
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool,
+                                                   device=o.device)
+
+
+def check_rays(name, got, want, planes, o, d, tm, any_hit):
+    """(mismatches, mismatches outside the margins, max |dt| relative,
+    max |dt|) of one kernel's (t, tri) against the plain version's."""
+    import torch
+
+    (t, tri), (wt, wtri) = got, want
+    bad = ((tri >= 0) != (wtri >= 0)) if any_hit else (tri != wtri)
+    n_bad = int(bad.sum())
+    if n_bad > 4096:
+        fail(f"{name}: {n_bad} rays disagree with the plain version")
+    idx = torch.nonzero(bad)[:, 0]
+    outside = int((~at_margin(planes, o[idx], d[idx], tm[idx])).sum())
+    same = ~bad & (wtri >= 0)
+    if any_hit or not bool(same.any()):
+        return n_bad, outside, 0.0, 0.0
+    dt = (t[same] - wt[same]).abs()
+    return (n_bad, outside, (dt / wt[same].abs()).max().item(),
+            dt.max().item())
+
+
 def path_tracing(card, cuda_ms):
     """The path-tracing phases: the BVHs, both ray kernels against the plain
     version and their times at 1080p, the atrium main path, the brute-force
@@ -290,7 +368,6 @@ def path_tracing(card, cuda_ms):
     import torch
     from torch.autograd import DeviceType
 
-    from d3d12renderer_tpu_torch.core import maths as m
     from d3d12renderer_tpu_torch.entry import pathtrace_entry
     from d3d12renderer_tpu_torch.ops import ray_trace as rt
     from d3d12renderer_tpu_torch.render import bvh as bvh_mod
@@ -341,66 +418,13 @@ def path_tracing(card, cuda_ms):
         perm = torch.as_tensor(pt._tile_perm(PT_W, PT_H)[0], device=dev)
         return o[perm].contiguous(), d[perm].contiguous()
 
-    def bounces(b, o, d):
-        """Rays from the primary hits, cosine-distributed about the
-        geometric normal that faces the ray."""
-        res = bvh_mod.closest_hit(b, o, d)
-        hit = res["hit"]
-        tri = res["tri"][hit].long()
-        gn = m.noz(m.cross(b.tri_e1[tri], b.tri_e2[tri]))
-        gn = torch.where((torch.sum(gn * d[hit], -1) > 0)[:, None], -gn, gn)
-        p = o[hit] + d[hit] * res["t"][hit][:, None] + gn * 1e-3
-        u1, u2 = torch.rand((2, p.shape[0]), generator=gen, device=dev)
-        t1, t2 = m.orthonormal_basis(gn)
-        l = (t1 * (u1.sqrt() * torch.cos(2 * math.pi * u2))[:, None]
-             + t2 * (u1.sqrt() * torch.sin(2 * math.pi * u2))[:, None]
-             + gn * (1 - u1).sqrt()[:, None])
-        return p.contiguous(), m.noz(l).contiguous()
-
-    def at_margin(planes, o, d, tm):
-        """Rays (a few) with a row at an edge or a tie in t, from the
-        all-pairs test in float64."""
-        p = planes.double()
-        out = []
-        for i in range(0, o.shape[0], 64):
-            oo, dd = o[i:i + 64].double(), d[i:i + 64].double()
-            t = (p[:, 3] - oo @ p[:, 0:3].T) / (dd @ p[:, 0:3].T)
-            u = oo @ p[:, 4:7].T + p[:, 7] + t * (dd @ p[:, 4:7].T)
-            v = oo @ p[:, 8:11].T + p[:, 11] + t * (dd @ p[:, 8:11].T)
-            inside = torch.minimum(torch.minimum(u, v), 1 - (u + v))
-            window = ((t >= 1e-4 * (1 - TIE_EPS))
-                      & (t <= tm[i:i + 64].double()[:, None] * (1 + TIE_EPS)))
-            edge = ((inside.abs() <= EDGE_EPS) & window).any(1)
-            acc = torch.where((inside >= -EDGE_EPS) & window, t, torch.inf)
-            two = acc.topk(2, dim=1, largest=False).values
-            out.append(edge | (two[:, 1] - two[:, 0] <= TIE_EPS * two[:, 0]))
-        return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool,
-                                                       device=dev)
-
-    def check(name, got, want, planes, o, d, tm, any_hit):
-        """(mismatches, mismatches outside the margins, max |dt| relative,
-        max |dt|) of one kernel's (t, tri) against the plain version's."""
-        (t, tri), (wt, wtri) = got, want
-        bad = ((tri >= 0) != (wtri >= 0)) if any_hit else (tri != wtri)
-        n_bad = int(bad.sum())
-        if n_bad > 4096:
-            fail(f"{name}: {n_bad} rays disagree with the plain version")
-        idx = torch.nonzero(bad)[:, 0]
-        outside = int((~at_margin(planes, o[idx], d[idx], tm[idx])).sum())
-        same = ~bad & (wtri >= 0)
-        if any_hit or not bool(same.any()):
-            return n_bad, outside, 0.0, 0.0
-        dt = (t[same] - wt[same]).abs()
-        return (n_bad, outside, (dt / wt[same].abs()).max().item(),
-                dt.max().item())
-
     full = {}
     for name, eye, target in (("atrium", (8.0, 6.0, -14.0), (0.0, 3.0, 0.0)),
                               ("grid", (0.0, 4.0, -10.0), (0.0, 0.5, 0.0)),
                               ("small", (0.0, 2.5, 6.0), (0.0, 1.0, 0.0))):
         o, d = wavefront(eye, target)
         full[name, "primary"] = (o, d)
-        full[name, "bounce"] = bounces(scenes[name], o, d)
+        full[name, "bounce"] = bounces(scenes[name], o, d, gen)
 
     lines, max_dt = [], {"bvh": 0.0, "brute": 0.0}
     planes, nodes = rt.kernel_tables(scenes["atrium"])
@@ -418,7 +442,7 @@ def path_tracing(card, cuda_ms):
             for kname, got in (
                     ("bvh", bvh_k(planes, nodes, o, d, tm, any_hit)),
                     ("brute", brute_k(planes, o, d, tm, any_hit))):
-                n_bad, outside, dt_rel, dt_abs = check(
+                n_bad, outside, dt_rel, dt_abs = check_rays(
                     kname, got, want, planes, o, d, tm, any_hit)
                 max_dt[kname] = max(max_dt[kname], dt_abs)
                 lines.append(f"{kname} {wf} {mode}: {n_bad} differ "
@@ -437,7 +461,7 @@ def path_tracing(card, cuda_ms):
         tm = (torch.rand(o.shape[0], generator=gen, device=dev) * 6 + 0.5
               if any_hit else torch.full((o.shape[0],), 1e30, device=dev))
         want = rt.closest_hit_plain(splanes, o, d, tm)
-        n_bad, outside, dt_rel, dt_abs = check(
+        n_bad, outside, dt_rel, dt_abs = check_rays(
             "brute", brute_k(splanes, o, d, tm, any_hit), want, splanes, o,
             d, tm, any_hit)
         max_dt["brute"] = max(max_dt["brute"], dt_abs)
@@ -529,7 +553,7 @@ def path_tracing(card, cuda_ms):
         sync()
         got = (bvh_k(planes, nodes, o, d, tm) if kname == "bvh"
                else brute_k(planes, o, d, tm))
-        n_bad, outside, dt_rel, dt_abs = check(kname, got, want, planes, o,
+        n_bad, outside, dt_rel, dt_abs = check_rays(kname, got, want, planes, o,
                                                d, tm, False)
         if outside or dt_rel > MAX_DT_REL:
             fail(f"{kname} disagrees with the plain version on all of "
@@ -975,11 +999,24 @@ def raster_frame(card, cuda_ms):
                          f"L2 {dev_ms:.4f}, warm {warm_ms:.4f}), plain "
                          f"{p_ms:.3f}, library {lib_ms:.4f} (device, cold L2 "
                          f"{lib_dev_ms:.4f}, warm {lib_warm_ms:.4f})")
-    x = torch.rand((RASTER_H, RASTER_W, 3), generator=gen, device=dev) * 20
+    # The tonemap at 1080p RGB, and on a view at offset 1 (not 16-byte
+    # aligned) and an odd length of the same floats, both encodes.
+    n = RASTER_W * RASTER_H * 3
+    flat = torch.rand(n + 8, generator=gen, device=dev) * 20
+    x = flat[:n].view(RASTER_H, RASTER_W, 3)
     settings = post.TonemapSettings()
     consts = image.tonemap_constants(settings)
     tone = {}
     for srgb in (False, True):
+        for xs in (flat[1:n + 1], flat[3:n - 2]):
+            got = tonemap_k(xs, settings, srgb)
+            want = image.tonemap_plain(xs, consts, srgb)
+            err = (got - want).abs().max().item()
+            if not (torch.equal(got, want) if not srgb else err <= SRGB_TOL):
+                fail(f"the tonemap kernel disagrees with its plain version "
+                     f"on {xs.numel()} floats at offset "
+                     f"{xs.storage_offset()} (srgb={srgb}, max |diff| "
+                     f"{err:.3e})")
         got = tonemap_k(x, settings, srgb)
         p_ms, want = once_ms(lambda: image.tonemap_plain(x, consts, srgb))
         err = (got - want).abs().max().item()
@@ -989,6 +1026,16 @@ def raster_frame(card, cuda_ms):
                  f"(srgb={srgb}, max |diff| {err:.3e})")
         tone[srgb] = (cuda_ms(lambda: tonemap_k(x, settings, srgb),
                               IMAGE_REPS), p_ms, err)
+    # The wrapper's host time per call: the host clock around calls that
+    # the card runs behind it (no synchronisation inside).
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(IMAGE_REPS):
+        tonemap_k(x, settings)
+    tone_host_ms = 1e3 * (time.perf_counter() - t0) / IMAGE_REPS
+    sync()
+    tone_dev_ms, tone_warm_ms = device_ms(lambda: tonemap_k(x, settings),
+                                          IMAGE_REPS)
     print(f"blur kernel vs plain at the frame's 7 shapes: bit-equal | "
           f"{' | '.join(blur_rows)} | the frame's 7: kernel "
           f"{blur['ms']:.4f} ms (device, cold L2 {blur['device_ms']:.4f}, "
@@ -996,7 +1043,10 @@ def raster_frame(card, cuda_ms):
           f"library {blur['library_ms']:.4f} ms (device, cold L2 "
           f"{blur['library_device_ms']:.4f}, warm "
           f"{blur['library_warm_ms']:.4f}) | tonemap kernel vs plain at "
-          f"{RASTER_W}x{RASTER_H}x3: sRGB off bit-equal, {tone[False][0]:.4f} ms "
+          f"{RASTER_W}x{RASTER_H}x3 (and at offset 1 and an odd length): "
+          f"sRGB off bit-equal, {tone[False][0]:.4f} ms by events (device, "
+          f"cold L2 {tone_dev_ms:.4f}, warm {tone_warm_ms:.4f}; the "
+          f"wrapper's host time {tone_host_ms:.4f} ms per call) "
           f"(plain {tone[False][1]:.3f}); sRGB on max |diff| "
           f"{tone[True][2]:.2e} (bound {SRGB_TOL}: CUDA's expf / logf against "
           f"PyTorch's), {tone[True][0]:.4f} ms | {card}", flush=True)
@@ -1123,7 +1173,6 @@ def raster_frame(card, cuda_ms):
                     + px * 16,
                     needed * (raster.PX // raster.BANDS) * RASTER_PAIR_FLOP)
     b_bound = bound(blur["bytes"], blur["flop"])
-    n = RASTER_W * RASTER_H * 3
     t_bound = bound(2 * 4 * n, n * TONEMAP_FLOP)
     return [{
         "name": "raster_tiles", "route": "cuda",
@@ -1137,7 +1186,8 @@ def raster_frame(card, cuda_ms):
         "source": "d3d12renderer_tpu_torch/csrc/image.cu",
         "replaces": "d3d12renderer_tpu/ops/pallas_kernels.py:57",
         "launches": launches["tonemap"], "max_abs_err": tone[False][2],
-        "ms": tone[False][0], "plain_ms": tone[False][1],
+        "ms": tone[False][0], "device_ms": tone_dev_ms,
+        "plain_ms": tone[False][1],
         "bound_ms": t_bound[0], "bound_by": t_bound[1], "library_ms": None,
     }, {
         "name": "gaussian_blur", "route": "cuda",
@@ -1150,6 +1200,183 @@ def raster_frame(card, cuda_ms):
         "library_ms": blur["library_ms"],
         "library_device_ms": blur["library_device_ms"],
     }]
+
+
+def training(card, here):
+    """The training path: `train_entry` at BASELINE config 5 (4096 envs,
+    rollout 32, 8 minibatches, 4 epochs), one warm iteration and
+    TRAIN_ITERS timed ones (each one fused launch per rollout step, no
+    colored launch), a profiled iteration, a checkpoint round trip of the
+    whole TrainState, and the eval render of env 0's final pose through the
+    BVH ray kernel, which is then held against its plain version on the
+    eval scene's wavefronts."""
+    import math
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch.entry import train_entry
+    from d3d12renderer_tpu_torch.learning.loco_env import LocoEnv
+    from d3d12renderer_tpu_torch.learning.monitor import summarize
+    from d3d12renderer_tpu_torch.ops import ray_trace
+    from d3d12renderer_tpu_torch.physics import solver_cuda, substep_cuda
+    from d3d12renderer_tpu_torch.physics.types import BodyState
+    from d3d12renderer_tpu_torch.render import bvh as bvh_mod
+    from d3d12renderer_tpu_torch.render import camera as cam_mod
+    from d3d12renderer_tpu_torch.render import pathtracer
+    from d3d12renderer_tpu_torch.render.physics_viz import (
+        physics_meshes, render_physics_state)
+    from d3d12renderer_tpu_torch.utils import checkpoint
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    fused_k, colored = (substep_cuda.fused_substep_cuda,
+                        solver_cuda.colored_solve_cuda)
+    bvh_k, brute_k = (ray_trace.ray_closest_hit_bvh,
+                      ray_trace.ray_closest_hit_brute)
+
+    # 18. train_entry at config 5: one warm iteration, then the timed ones.
+    t0 = time.perf_counter()
+    train_iteration, state = train_entry()
+    sync()
+    setup_s = time.perf_counter() - t0
+    start = {k: v.clone() for k, v in state.params.items()}
+    state, metrics = train_iteration(state)
+    sync()
+    iter_s, phases = [], []
+    for _ in range(TRAIN_ITERS):
+        fused_k.launches = colored.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = train_iteration(state, profile_phases=True)
+        iter_s.append(time.perf_counter() - t0)
+        phases.append(metrics.pop("phase_ms"))
+        if fused_k.launches != TRAIN_ROLLOUT or colored.launches:
+            fail(f"training: {fused_k.launches} fused and {colored.launches} "
+                 f"colored launches in one iteration (want {TRAIN_ROLLOUT} "
+                 "and 0)")
+    losses = {k: v.item() for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in losses.values()) or not all(
+            bool(torch.isfinite(v).all()) for v in state.params.values()):
+        fail(f"training: non-finite losses or parameters {losses}")
+    moved = sum(not torch.equal(v, start[k]) for k, v in state.params.items())
+    if moved != len(start):
+        fail(f"training moved {moved} of {len(start)} parameter tensors")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = train_iteration(state)
+        sync()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    fused_ms = sum(e.time_range.elapsed_us() for e in kernels
+                   if "fused_substep" in e.name) / 1e3
+
+    # The whole TrainState through a checkpoint: every leaf back bit for bit.
+    path = os.path.join(here, "build", "chip_smoke", "train_state.bin")
+    checkpoint.save_pytree(path, state)
+    back = checkpoint.load_pytree(path)
+    pairs = list(zip(checkpoint.tree_leaves(back),
+                     checkpoint.tree_leaves(state)))
+    for a, b in pairs:
+        same = (torch.equal(a.get_state(), b.get_state())
+                if isinstance(a, torch.Generator) else
+                (a.device == b.device and a.dtype == b.dtype
+                 and torch.equal(a, b)) if isinstance(a, torch.Tensor)
+                else a == b)
+        if not same:
+            fail("training: the checkpoint round trip changed a leaf")
+
+    # 19. The eval render of env 0's final pose (train_locomotion.py's
+    # --eval-render): 256x256, 8 spp, through the BVH kernel.  The linear
+    # image is read where `render` returns it, to check it is finite.
+    arch = LocoEnv(device=dev).arch
+    bodies0 = BodyState(*(getattr(state.env_state.bodies, f)[0]
+                          for f in BODY_FIELDS))
+    tris = sum(m.indices.shape[0] for m, _ in physics_meshes(arch, bodies0))
+    linear, render = [], pathtracer.render
+
+    def spy(*args, **kw):
+        out = render(*args, **kw)
+        linear.append(out[0])
+        return out
+
+    pathtracer.render = spy
+    bvh_k.launches = brute_k.launches = 0
+    try:
+        t0 = time.perf_counter()
+        img = render_physics_state(arch, bodies0, eye=EVAL_EYE,
+                                   target=EVAL_TARGET, size=EVAL_SIZE,
+                                   spp=EVAL_SPP)
+        render_s = time.perf_counter() - t0
+    finally:
+        pathtracer.render = render
+    eval_launches = (bvh_k.launches, brute_k.launches)
+    luma = float(img.mean())
+    if img.shape != (EVAL_SIZE, EVAL_SIZE, 3) or len(linear) != 1 \
+            or not bool(torch.isfinite(linear[0]).all()):
+        fail("the eval render is not a finite 256x256 image")
+    if eval_launches[0] == 0 or eval_launches[1] != 0 or not 5 < luma < 250:
+        fail(f"the eval render: BVH / brute launches {eval_launches}, mean "
+             f"luma {luma:.1f}")
+
+    # The BVH kernel at the eval render's shapes, against the plain version
+    # (these launches come after the counts were read): the eval scene's
+    # tables, its primary wavefront through pixel centres and one bounce
+    # wavefront from its hits, closest and any hit.
+    eval_bvh = bvh_mod.build_bvh(physics_meshes(arch, bodies0), device=dev)
+    planes, nodes = ray_trace.kernel_tables(eval_bvh)
+    cam = cam_mod.look_at(EVAL_EYE, EVAL_TARGET, device=dev, aspect=1.0,
+                          v_fov=math.radians(50))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    o, d = cam_mod.generate_rays(cam, EVAL_SIZE, EVAL_SIZE)
+    wavefronts = {"primary": (o.contiguous(), d.contiguous())}
+    wavefronts["bounce"] = bounces(eval_bvh, *wavefronts["primary"], gen)
+    ray_lines = []
+    for wf, (o, d) in wavefronts.items():
+        for any_hit in (False, True):
+            tm = (torch.rand(o.shape[0], generator=gen, device=dev) * 9.5
+                  + 0.5 if any_hit else torch.full((o.shape[0],), 1e30,
+                                                   device=dev))
+            want = ray_trace.closest_hit_plain(planes, o, d, tm)
+            n_bad, outside, dt_rel, _ = check_rays(
+                "bvh", bvh_k(planes, nodes, o, d, tm, any_hit), want, planes,
+                o, d, tm, any_hit)
+            mode = "any" if any_hit else "closest"
+            ray_lines.append(f"{wf} {mode} {o.shape[0]} rays: {n_bad} differ "
+                             f"({outside} outside margins), max |dt| rel "
+                             f"{dt_rel:.2e}")
+            if outside or dt_rel > MAX_DT_REL:
+                fail(f"bvh disagrees with the plain version on the eval "
+                     f"scene ({wf}, {mode})")
+
+    med = statistics.median(iter_s)
+    steps = TRAIN_ENVS * TRAIN_ROLLOUT
+    phase = {k: statistics.median(p[k] for p in phases) for k in phases[0]}
+    print(f"training (train_entry: {TRAIN_ENVS} envs, rollout "
+          f"{TRAIN_ROLLOUT}, 8 minibatches, 4 epochs; set-up {setup_s:.2f} "
+          f"s): {TRAIN_ITERS} iterations after a warm one, "
+          f"{' / '.join(f'{1e3 * t:.1f}' for t in iter_s)} ms, median "
+          f"{1e3 * med:.1f} ms, {steps / med:.0f} env-steps/s including "
+          f"updates | per iteration {TRAIN_ROLLOUT} fused launches, 0 "
+          f"colored | CUDA events (medians): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in phase.items())
+          + f" | profiler, one iteration: {len(kernels)} kernels, device "
+          f"busy {busy_ms:.1f} of {prof_ms:.1f} ms "
+          f"({100 * busy_ms / prof_ms:.1f}%), fused kernel {fused_ms:.2f} ms "
+          f"| last metrics "
+          + ", ".join(f"{k} {v:.4g}" for k, v in losses.items())
+          + f", episodes {summarize(state.stats)} | params finite, all "
+          f"{len(start)} tensors moved | checkpoint of the TrainState "
+          f"({len(pairs)} leaves) bit-equal | eval render of env 0 "
+          f"({tris} tris, {EVAL_SIZE}x{EVAL_SIZE}, {EVAL_SPP} spp): "
+          f"{render_s:.2f} s, BVH launches {eval_launches[0]}, brute "
+          f"{eval_launches[1]}, finite, mean luma {luma:.1f} | BVH kernel vs "
+          f"plain on the eval scene ({planes.shape[0]} rows): "
+          f"{'; '.join(ray_lines)} | {card}",
+          flush=True)
 
 
 def main():
@@ -1622,6 +1849,7 @@ def main():
 
     rays = path_tracing(card, cuda_ms)
     images = raster_frame(card, cuda_ms)
+    training(card, here)
 
     print(json.dumps({"kernels": [{
         "name": "colored_solver",

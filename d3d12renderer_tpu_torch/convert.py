@@ -10,7 +10,9 @@ import torch
 
 from .cuda_build import resolve_device
 from .learning.loco_env import EnvState
+from .learning.monitor import EpisodeStats
 from .learning.networks import ActorCritic
+from .learning.ppo import AdamState, TrainState
 from .physics.types import BodyState, SceneArchetype
 from .render import bvh as bvh_mod
 from .render.camera import Camera
@@ -23,25 +25,57 @@ _DENSE = ("pi_0", "pi_1", "action_head", "vf_0", "vf_1", "value_head")
 _BODY_FIELDS = ("pos", "rot", "vel", "omega", "force", "torque")
 
 
+def _state_dict_from_flax(params_np: Mapping) -> Dict[str, np.ndarray]:
+    """ActorCritic's state_dict names for a flax `ActorCritic` tree (or
+    any tree of its shape, such as adam's moments): flax Dense kernels are
+    (in, out), torch Linear weights (out, in)."""
+    p = params_np.get("params", params_np)
+    out = {"log_std": np.array(p["log_std"], np.float32)}
+    for name in _DENSE:
+        out[f"{name}.weight"] = np.array(p[name]["kernel"], np.float32).T
+        out[f"{name}.bias"] = np.array(p[name]["bias"], np.float32)
+    return out
+
+
 def actor_critic_from_flax(params_np: Mapping,
                           device="cuda") -> ActorCritic:
     """Build the port's ActorCritic from flax `ActorCritic` parameters as
-    numpy arrays (`{"params": {...}}` or the inner dict).  flax Dense kernels
-    are (in, out); torch Linear weights are (out, in)."""
-    p = params_np.get("params", params_np)
-    obs_dim = np.asarray(p["pi_0"]["kernel"]).shape[0]
-    action_dim = np.asarray(p["log_std"]).shape[0]
-    model = ActorCritic(obs_dim, action_dim)
-    with torch.no_grad():
-        for name in _DENSE:
-            layer = getattr(model, name)
-            layer.weight.copy_(torch.as_tensor(
-                np.asarray(p[name]["kernel"], np.float32).T))
-            layer.bias.copy_(torch.as_tensor(
-                np.asarray(p[name]["bias"], np.float32)))
-        model.log_std.copy_(torch.as_tensor(
-            np.asarray(p["log_std"], np.float32)))
+    numpy arrays (`{"params": {...}}` or the inner dict)."""
+    sd = _state_dict_from_flax(params_np)
+    model = ActorCritic(sd["pi_0.weight"].shape[1], sd["log_std"].shape[0])
+    model.load_state_dict({k: torch.as_tensor(np.ascontiguousarray(v))
+                           for k, v in sd.items()})
     return model.to(resolve_device(device))
+
+
+def train_state_from_numpy(src, device="cuda") -> TrainState:
+    """The port's `TrainState` from the JAX package's (`ppo.TrainState`, or
+    anything with its fields as numpy-convertible trees): the flax params,
+    optax's adam count and moments, the env state, `last_obs` and the `EpisodeStats`.
+    JAX's keys do not carry over: the action-noise / permutation and poke
+    generators are new ones on `device`, seeded 0."""
+    device = resolve_device(device)
+
+    def tensors(tree):
+        return {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+                for k, v in _state_dict_from_flax(tree).items()}
+
+    # chain(clip_by_global_norm, adam)'s state: (the clip's EmptyState,
+    # (ScaleByAdamState, the learning rate's EmptyState)).
+    adam = _get(src, "opt_state")[1][0]
+    env = _get(src, "env_state")
+    new_gen = lambda: torch.Generator(device=device).manual_seed(0)  # noqa: E731
+    return TrainState(
+        params=tensors(_get(src, "params")),
+        opt_state=AdamState(
+            torch.as_tensor(np.array(adam.count, np.int32), device=device),
+            tensors(adam.mu), tensors(adam.nu)),
+        env_state=env_state_from_numpy(
+            _get(env, "bodies"), _get(env, "last_action"), _get(env, "steps"),
+            new_gen(), device),
+        last_obs=_tensor(_get(src, "last_obs"), device),
+        rng=new_gen(),
+        stats=_fields(EpisodeStats, _get(src, "stats"), device))
 
 
 def _get(src, name):

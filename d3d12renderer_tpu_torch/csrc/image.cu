@@ -27,7 +27,19 @@
 //   the Uncharted-2 curve normalised by its value at the linear white, a
 //   clamp to [0, 1], and with `srgb` the encode of that kernel,
 //   1.055 exp(log(max(x, 1e-7)) / 2.4) - 0.055 above 0.0031308, else 12.92 x.
-//   Elementwise, bound by bytes (1080p RGB: 50 MB, 0.015 ms).
+//   Elementwise, bound by bytes (1080p RGB: 50 MB, 0.015 ms at 3.35 TB/s;
+//   its ~14 operations per float take ~0.01 ms at the issue rate).  The
+//   TPU kernel streamed (8, 128) tiles through VMEM; here the floats go as
+//   16-byte vectors (a warp's lanes on neighbouring vectors), with floats
+//   before the first 16-byte boundary and after the last whole vector done
+//   one at a time (all of them where src and dst sit at different offsets
+//   from a boundary).  One resident wave of blocks (the SM count times the
+//   blocks an SM holds) walks the vectors TONEMAP_VECTORS at a time per
+//   thread, every load of a round issued before its first store, so that
+//   enough bytes are in flight to cover the memory's latency; every thread
+//   then has the same work to within one vector.  Each byte is touched
+//   once, so the loads and stores are marked evict-first (__ldcs /
+//   __stcs), and `srgb` is a template parameter.
 //
 // Every operation is rounded on its own (rn_math.cuh) in the plain versions'
 // order (ops/image.py), so both kernels return the plain versions' bits;
@@ -46,6 +58,7 @@ constexpr int BLUR_MAX_TAPS = 2 * BLUR_MAX_RADIUS + 1;
 constexpr int BLUR_THREADS_X = 32;
 constexpr int BLUR_THREADS_Y = 8;
 constexpr int TONEMAP_THREADS = 256;
+constexpr int TONEMAP_VECTORS = 4;   // float4 loads in flight per thread
 // The float32 nearest 1 / 2.4 (not 1.0f / 2.4f, which rounds twice).
 constexpr float INV_GAMMA = 0.4166666666666667f;
 
@@ -63,7 +76,8 @@ struct BlurArgs {
 
 // One tonemap launch over n floats.  The constants are float32 values
 // computed by the wrapper: scale = 2^exposure, cb = C B, de = D E,
-// df = D F, ef = E / F, white = the curve at the linear white.
+// df = D F, ef = E / F, white = the curve at the linear white; srgb picks
+// the kernel's instance.
 struct TonemapArgs {
   const float* src;
   float* dst;
@@ -181,23 +195,104 @@ BlurKernel blur_kernel(int r, int c, int group) {
   }
 }
 
-__global__ void __launch_bounds__(TONEMAP_THREADS) tonemap(const TonemapArgs A) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < A.n;
-       i += stride) {
-    float v = rn_mul(A.src[i], A.scale);
-    v = v < 0.0f ? 0.0f : v;                  // NaN stays NaN, as torch.clamp
-    const float num = rn_add(rn_mul(v, rn_add(rn_mul(A.a, v), A.cb)), A.de);
-    const float den = rn_add(rn_mul(v, rn_add(rn_mul(A.a, v), A.b)), A.df);
-    float y = rn_div(rn_sub(rn_div(num, den), A.ef), A.white);
-    y = y < 0.0f ? 0.0f : (y > 1.0f ? 1.0f : y);
-    if (A.srgb) {
-      const float g = logf(y < 1e-7f ? 1e-7f : y);
-      y = y <= 0.0031308f ? rn_mul(y, 12.92f)
-                          : rn_sub(rn_mul(1.055f, expf(rn_mul(g, INV_GAMMA))), 0.055f);
-    }
-    A.dst[i] = y;
+// One float in the plain version's operation order.
+template <bool SRGB>
+__device__ __forceinline__ float tonemap_one(const TonemapArgs& A, float x) {
+  float v = rn_mul(x, A.scale);
+  v = v < 0.0f ? 0.0f : v;                    // NaN stays NaN, as torch.clamp
+  const float num = rn_add(rn_mul(v, rn_add(rn_mul(A.a, v), A.cb)), A.de);
+  const float den = rn_add(rn_mul(v, rn_add(rn_mul(A.a, v), A.b)), A.df);
+  float y = rn_div(rn_sub(rn_div(num, den), A.ef), A.white);
+  y = y < 0.0f ? 0.0f : (y > 1.0f ? 1.0f : y);
+  if (SRGB) {
+    const float g = logf(y < 1e-7f ? 1e-7f : y);
+    y = y <= 0.0031308f ? rn_mul(y, 12.92f)
+                        : rn_sub(rn_mul(1.055f, expf(rn_mul(g, INV_GAMMA))), 0.055f);
   }
+  return y;
+}
+
+// How a launch splits its n floats: `head` floats before src's first
+// 16-byte boundary (all n where dst sits at another offset from one), then
+// `vectors` float4, then `tail` floats.
+struct TonemapSplit {
+  long long head, vectors, tail;
+};
+
+__device__ __host__ __forceinline__ TonemapSplit tonemap_split(const TonemapArgs& A) {
+  const unsigned long long s = reinterpret_cast<unsigned long long>(A.src);
+  const unsigned long long d = reinterpret_cast<unsigned long long>(A.dst);
+  long long head = ((s ^ d) & 15) ? A.n : (long long)((16 - (s & 15)) & 15) / 4;
+  if (head > A.n) head = A.n;
+  const long long vectors = (A.n - head) / 4;
+  return {head, vectors, A.n - head - 4 * vectors};
+}
+
+template <bool SRGB>
+__global__ void __launch_bounds__(TONEMAP_THREADS) tonemap(const TonemapArgs A) {
+  const TonemapSplit split = tonemap_split(A);
+  const long long thread = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long threads = (long long)gridDim.x * blockDim.x;
+  const float4* src = reinterpret_cast<const float4*>(A.src + split.head);
+  float4* dst = reinterpret_cast<float4*>(A.dst + split.head);
+  for (long long base = thread; base < split.vectors; base += TONEMAP_VECTORS * threads) {
+    float4 v[TONEMAP_VECTORS];
+#pragma unroll
+    for (int k = 0; k < TONEMAP_VECTORS; ++k)
+      if (base + k * threads < split.vectors) v[k] = __ldcs(src + base + k * threads);
+#pragma unroll
+    for (int k = 0; k < TONEMAP_VECTORS; ++k) {
+      if (base + k * threads >= split.vectors) break;
+      float4 y;
+      y.x = tonemap_one<SRGB>(A, v[k].x);
+      y.y = tonemap_one<SRGB>(A, v[k].y);
+      y.z = tonemap_one<SRGB>(A, v[k].z);
+      y.w = tonemap_one<SRGB>(A, v[k].w);
+      __stcs(dst + base + k * threads, y);
+    }
+  }
+  // The head and tail floats, one per thread.
+  const long long tail0 = split.head + 4 * split.vectors;
+  for (long long j = thread; j < split.head + split.tail; j += threads) {
+    const long long i = j < split.head ? j : tail0 + (j - split.head);
+    A.dst[i] = tonemap_one<SRGB>(A, A.src[i]);
+  }
+}
+
+using TonemapKernel = void (*)(const TonemapArgs);
+
+TonemapKernel tonemap_kernel(int srgb) { return srgb ? tonemap<true> : tonemap<false>; }
+
+// The blocks of a tonemap launch: enough for one vector round of every
+// thread (or one float each where all go one at a time), at most
+// `resident` (the blocks the card holds at once).
+long long tonemap_blocks(const TonemapArgs& a, long long resident) {
+  const TonemapSplit split = tonemap_split(a);
+  long long work = (split.vectors + TONEMAP_VECTORS - 1) / TONEMAP_VECTORS;
+  if (work < split.head + split.tail) work = split.head + split.tail;
+  const long long blocks = (work + TONEMAP_THREADS - 1) / TONEMAP_THREADS;
+  return blocks < resident ? blocks : resident;
+}
+
+// The blocks of a tonemap instance that `device` holds at once: its SM
+// count times the blocks an SM holds, queried once per device and instance.
+cudaError_t tonemap_resident(int device, int srgb, long long* resident) {
+  static int cache[2][64] = {};   // 0: not queried yet
+  int* slot = device >= 0 && device < 64 ? &cache[srgb != 0][device] : nullptr;
+  if (slot != nullptr && *slot > 0) {
+    *resident = *slot;
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)tonemap_kernel(srgb),
+                                                        TONEMAP_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  *resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (slot != nullptr) *slot = (int)*resident;
+  return cudaSuccess;
 }
 
 // The plan of a blur on a card whose blocks may have `shared_limit` bytes
@@ -257,9 +352,10 @@ extern "C" int gaussian_blur_launch(const BlurArgs* args, int device, void* stre
 extern "C" int tonemap_launch(const TonemapArgs* args, int device, void* stream) {
   if (args->n == 0) return 0;
   const TonemapArgs a = *args;
-  long long blocks = (a.n + TONEMAP_THREADS - 1) / TONEMAP_THREADS;
-  if (blocks > 65535) blocks = 65535;
+  long long resident = 0;
+  const cudaError_t err = tonemap_resident(device, a.srgb, &resident);
+  if (err != cudaSuccess) return (int)err;
   void* params[] = {(void*)&a};
-  return (int)launch((const void*)tonemap, dim3((unsigned)blocks), dim3(TONEMAP_THREADS), params,
-                     0, device, stream);
+  return (int)launch((const void*)tonemap_kernel(a.srgb), dim3((unsigned)tonemap_blocks(a, resident)),
+                     dim3(TONEMAP_THREADS), params, 0, device, stream);
 }

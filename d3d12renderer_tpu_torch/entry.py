@@ -39,6 +39,24 @@ def entry(device="cuda", batch: int = 8, seed: int = 0,
     return fn, (model, env_state, obs)
 
 
+def train_entry(device="cuda", envs: int = 4096, rollout: int = 32,
+                minibatches: int = 8, epochs: int = 4, seed: int = 0):
+    """PPO training on the locomotion env (counterpart of
+    `examples/train_locomotion.py:49-70`; BASELINE config 5 at the
+    defaults: 4096 envs, rollout 32, 8 minibatches, 4 epochs).  Returns
+    `(train_iteration, state)`: `train_iteration(state) -> (state,
+    metrics)` runs one rollout and update cycle (`ppo.make_ppo`); the
+    state comes from `init(seed)`.  The env takes the JAX env's settings,
+    so on a CUDA device every rollout step is one fused-kernel launch."""
+    from .learning.ppo import PPOConfig, make_ppo
+
+    env = LocoEnv(device=resolve_device(device))
+    config = PPOConfig(num_envs=envs, rollout_steps=rollout,
+                       minibatches=minibatches, epochs=epochs)
+    init, train_iteration, _ = make_ppo(env, config)
+    return train_iteration, init(seed)
+
+
 # bench.py:358-365: floor, column stone, trim, balustrade, fountain metal,
 # cloth banners.
 ATRIUM_ALBEDO = [[0.55, 0.5, 0.45], [0.7, 0.66, 0.6], [0.75, 0.72, 0.65],

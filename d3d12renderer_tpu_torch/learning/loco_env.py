@@ -78,6 +78,9 @@ class LocoEnv:
         self.local_points = torch.as_tensor(info.local_points,
                                             device=self.device)
         self.obs_part_slots = i64([rd.BODY_PARTS.index(n) for n in OBS_PARTS])
+        # Built once: a tensor made from a Python list on the card is a
+        # pageable copy that waits for the card's queue, once per step.
+        self._poke_offset = torch.tensor([0.0, 0.2, 0.0], device=self.device)
         self._head = rd.BODY_PARTS.index("head")
 
         # Imitation targets from the initial standing pose.
@@ -186,7 +189,7 @@ class LocoEnv:
         body = self.part_idx[part]
         envs = torch.arange(batch, device=self.device)
         bpos = bodies.pos[envs, body]
-        point = bpos + torch.tensor([0.0, 0.2, 0.0], device=self.device)
+        point = bpos + self._poke_offset
         force = direction * POKE_STRENGTH * do[:, None]
         torque = m.cross(point - bpos, force)
         f, t = bodies.force.clone(), bodies.torque.clone()

@@ -55,6 +55,18 @@ class ActorCritic(nn.Module):
         return mean, self.log_std, value
 
 
+def sample_action(mean, log_std, generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None):
+    """(action, logp): mean + exp(log_std) * noise, with `noise` standard
+    normal of mean's shape, drawn from `generator` unless given."""
+    std = torch.exp(log_std)
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+    action = mean + std * noise
+    return action, gaussian_logp(action, mean, log_std)
+
+
 def gaussian_logp(action, mean, log_std):
     std = torch.exp(log_std)
     z = (action - mean) / std

@@ -139,6 +139,9 @@ gaussian_blur.launches = 0
 # Tonemap (kernel #6)
 # --------------------------------------------------------------------------
 
+_TONEMAP_CONSTANTS = ("scale", "a", "b", "cb", "de", "df", "ef", "white")
+
+
 def _f32(x) -> float:
     return float(np.float32(x))
 
@@ -177,14 +180,26 @@ def tonemap_plain(x, k: dict, srgb: bool):
     return y
 
 
-def tonemap_launch(launch_fn, x, k: dict, srgb: bool):
-    """As `blur_launch`, for the tonemap kernel."""
+def tonemap_args(k: dict, srgb: bool) -> TonemapArgs:
+    """A launch's arguments with the constants `k`; the wrapper fills in
+    the tensors."""
+    return TonemapArgs(None, None, 0, *(k[n] for n in _TONEMAP_CONSTANTS),
+                       int(srgb), 0)
+
+
+@functools.lru_cache(maxsize=16)
+def _settings_args(settings, srgb: bool) -> TonemapArgs:
+    return tonemap_args(tonemap_constants(settings), srgb)
+
+
+def tonemap_launch(launch_fn, x, args: TonemapArgs):
+    """As `blur_launch`, for the tonemap kernel: `args` from
+    `tonemap_args`, its tensors left out (it is not changed)."""
     _contiguous_f32("x", x)
     out = torch.empty_like(x)
-    args = TonemapArgs(x.data_ptr(), out.data_ptr(), x.numel(),
-                       *(k[n] for n in ("scale", "a", "b", "cb", "de", "df",
-                                        "ef", "white")), int(srgb), 0)
-    err = launch_fn(ctypes.byref(args))
+    a = TonemapArgs.from_buffer_copy(args)
+    a.src, a.dst, a.n = x.data_ptr(), out.data_ptr(), x.numel()
+    err = launch_fn(ctypes.byref(a))
     if err != 0:
         raise RuntimeError(f"tonemap kernel launch failed: error {err}")
     return out
@@ -195,11 +210,11 @@ def tonemap(x, settings, srgb: bool = False):
     exposure, the Uncharted-2 curve over its value at the linear white,
     clamped to [0, 1]; with `srgb` the Pallas kernel's sRGB encode.
     Counts its launches in `tonemap.launches`."""
-    k = tonemap_constants(settings)
     if not x.is_cuda:
-        return tonemap_plain(x, k, srgb)
+        return tonemap_plain(x, tonemap_constants(settings), srgb)
     out = tonemap_launch(launcher("tonemap_launch", x.device),
-                         x.contiguous(), k, srgb)
+                         x.contiguous(),
+                         _settings_args(settings, srgb))
     tonemap.launches += 1
     return out
 

@@ -20,6 +20,7 @@ import torch
 
 from ..cuda_build import resolve_device
 from .types import (
+    MAX_HULL_VERTS,
     SHAPE_BOX,
     SHAPE_CAPSULE,
     SHAPE_CYLINDER,
@@ -564,6 +565,10 @@ class SceneBuilder:
             col_friction=f32([cl.friction for cl in self.colliders]),
             col_restitution=f32([cl.restitution for cl in self.colliders]),
             col_bound_radius=f32(bound_radius),
+            # Hull colliders are not ported: every row empty.
+            col_hull_verts=f32(np.zeros((c, MAX_HULL_VERTS, 3))),
+            col_hull_mask=torch.zeros((c, MAX_HULL_VERTS), dtype=torch.bool,
+                                      device=device),
             plane_normal=f32(stack([p[0] for p in self.planes], 3)),
             plane_offset=f32([p[1] for p in self.planes]),
             plane_friction=f32([p[2] for p in self.planes]),

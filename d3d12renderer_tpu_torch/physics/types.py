@@ -18,6 +18,8 @@ SHAPE_CAPSULE = 1
 SHAPE_BOX = 2
 SHAPE_CYLINDER = 3
 SHAPE_HULL = 4
+# Vertices of a hull collider's table row (the JAX package's).
+MAX_HULL_VERTS = 32
 
 SHAPE_NAMES = {
     SHAPE_SPHERE: "sphere",
@@ -83,6 +85,8 @@ class SceneArchetype:
     col_friction: torch.Tensor      # (C,)
     col_restitution: torch.Tensor   # (C,)
     col_bound_radius: torch.Tensor  # (C,)
+    col_hull_verts: torch.Tensor    # (C, MAX_HULL_VERTS, 3)
+    col_hull_mask: torch.Tensor     # (C, MAX_HULL_VERTS) bool
 
     plane_normal: torch.Tensor      # (G, 3)
     plane_offset: torch.Tensor      # (G,)

@@ -236,6 +236,8 @@ def _entry_points():
         "entry": (entry.entry, lambda f: f()),
         "pathtrace_entry": (entry.pathtrace_entry, lambda f: f()),
         "raster_entry": (entry.raster_entry, lambda f: f()),
+        "train_entry": (entry.train_entry, lambda f: f()),
+        "train_state_from_numpy": (convert.train_state_from_numpy, None),
         "initial_frame_state": (pipeline.initial_frame_state,
                                 lambda f: f(8, 8)),
         "frame_state_from_numpy": (convert.frame_state_from_numpy, None),
@@ -454,18 +456,24 @@ def test_blur_kernel_matches_plain_on_cuda(shape, sigma):
 @pytest.mark.cuda
 @pytest.mark.parametrize("srgb", [False, True])
 def test_tonemap_kernel_matches_plain_on_cuda(srgb):
-    """1080p: equal bit for bit without the sRGB encode; with it within
-    2 ulps (CUDA's expf / logf against PyTorch's exp / log)."""
+    """1080p, and views of the same floats at offset 1 (not 16-byte
+    aligned) and of an odd length: equal bit for bit without the sRGB
+    encode; with it within 2 ulps (CUDA's expf / logf against PyTorch's exp
+    / log).  One launch each."""
     _need_cuda()
     from d3d12renderer_tpu_torch.ops import image
     from d3d12renderer_tpu_torch.render import post
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.rand((1080, 1920, 3), generator=g, device="cuda") * 20
+    n = 1080 * 1920 * 3
+    flat = torch.rand(n + 8, generator=g, device="cuda") * 20
     s = post.TonemapSettings()
-    got = image.tonemap(x, s, srgb)
-    want = image.tonemap_plain(x, image.tonemap_constants(s), srgb)
-    if srgb:
-        torch.testing.assert_close(got, want, rtol=2.5e-7, atol=1e-7)
-    else:
-        assert torch.equal(got, want)
+    for x in (flat[:n].view(1080, 1920, 3), flat[1:n + 1], flat[3:n - 2]):
+        before = image.tonemap.launches
+        got = image.tonemap(x, s, srgb)
+        assert image.tonemap.launches == before + 1
+        want = image.tonemap_plain(x, image.tonemap_constants(s), srgb)
+        if srgb:
+            torch.testing.assert_close(got, want, rtol=2.5e-7, atol=1e-7)
+        else:
+            assert torch.equal(got, want)

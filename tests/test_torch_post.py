@@ -226,12 +226,19 @@ extern "C" int host_blur_slices(const BlurArgs* a, int shared_limit) {
   BlurPlan plan;
   return blur_plan(*a, shared_limit, &plan) == 0 ? plan.grid_z : -1;
 }
-extern "C" int host_tonemap(const TonemapArgs* a) {
-  blockDim = dim3(1);
-  gridDim = dim3(1);
-  blockIdx = dim3(0);
-  threadIdx = dim3(0);
-  tonemap(*a);
+// Every thread of the launch's grid, one after another, with at most
+// `resident` blocks (the card's launch holds its SM count times the blocks
+// an SM holds).
+extern "C" int host_tonemap_grid(const TonemapArgs* a, int resident) {
+  if (a->n == 0) return 0;
+  blockDim = dim3(TONEMAP_THREADS);
+  gridDim = dim3((unsigned)tonemap_blocks(*a, resident));
+  for (unsigned b = 0; b < gridDim.x; ++b)
+    for (unsigned t = 0; t < blockDim.x; ++t) {
+      blockIdx = dim3(b);
+      threadIdx = dim3(t);
+      tonemap_kernel(a->srgb)(*a);
+    }
   return 0;
 }
 """
@@ -240,12 +247,12 @@ extern "C" int host_tonemap(const TonemapArgs* a) {
 @pytest.fixture(scope="module")
 def host_image(tmp_path_factory):
     host = build_host(tmp_path_factory, "host_image", HARNESS,
-                      ("host_blur", "host_blur_slices", "host_tonemap",
+                      ("host_blur", "host_blur_slices", "host_tonemap_grid",
                        "blur_args_size", "tonemap_args_size",
                        "blur_max_radius"))
     host.host_blur.argtypes = host.host_blur_slices.argtypes = [
         ctypes.c_void_p, ctypes.c_int]
-    host.host_tonemap.argtypes = [ctypes.c_void_p]
+    host.host_tonemap_grid.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return host
 
 
@@ -297,19 +304,58 @@ def test_host_blur_matches_plain_at_radius(host_image, radius, shape, limit,
     assert torch.equal(got, image.blur_plain(x, taps))
 
 
-@pytest.mark.parametrize("srgb", [False, True])
-def test_host_tonemap_matches_plain(host_image, srgb):
-    """Bit for bit without the sRGB encode; with it, within 2 ulps (the
-    host's libm expf/logf against PyTorch's vectorised exp/log)."""
+def _host_tonemap(host, resident=3):
+    return lambda args: host.host_tonemap_grid(args, resident)
+
+
+def _tonemap_inputs():
+    """A 30 x 41 RGB image (3,690 floats: not a multiple of 4) with a zero,
+    a negative and a tiny value, and two views of a flat copy: at offset 1
+    (not 16-byte aligned) and of an odd length."""
     x = torch.as_tensor(_img(15, (30, 41, 3), 25.0))
     x[0, 0] = torch.tensor([0.0, -1.0, 1e-6])
-    k = image.tonemap_constants(post.TonemapSettings())
-    got = image.tonemap_launch(host_image.host_tonemap, x, k, srgb)
-    want = image.tonemap_plain(x, k, srgb)
+    flat = torch.cat([torch.zeros(1), x.reshape(-1), torch.ones(4)])
+    return {"image": x, "offset 1": flat[1:], "odd length": flat[2:3691]}
+
+
+def _assert_tonemap_equal(got, want, srgb):
     if srgb:
         torch.testing.assert_close(got, want, rtol=2.5e-7, atol=1e-7)
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("srgb", [False, True])
+def test_host_tonemap_matches_plain(host_image, srgb):
+    """Bit for bit without the sRGB encode; with it, within 2 ulps (the
+    host's libm expf/logf against PyTorch's vectorised exp/log): on the
+    image, a view at offset 1 and an odd length, through the real wrapper
+    and every thread of a launch of three blocks."""
+    k = image.tonemap_constants(post.TonemapSettings())
+    for name, x in _tonemap_inputs().items():
+        if name != "image":
+            assert x.data_ptr() % 16 != 0 or x.numel() % 4 != 0, name
+        got = image.tonemap_launch(_host_tonemap(host_image), x,
+                                   image.tonemap_args(k, srgb))
+        _assert_tonemap_equal(got, image.tonemap_plain(x, k, srgb), srgb)
+
+
+@pytest.mark.parametrize("shift,n,resident", [
+    (0, 3690, 3), (1, 3690, 3), (3, 3689, 3), (2, 7, 3), (0, 4, 1),
+    (1, 2, 1), (0, 40000, 5)])
+def test_host_tonemap_covers_every_float(host_image, shift, n, resident):
+    """Every float written once, in the right place, where the input sits
+    at `shift` floats past a 16-byte boundary: as vectors with a scalar
+    head and tail where the output sits at the same offset, one at a time
+    where it does not; grids of one to five blocks."""
+    k = image.tonemap_constants(post.TonemapSettings())
+    src = torch.as_tensor(_img(19, (n + 8,), 25.0))[shift:shift + n]
+    for out_shift in sorted({shift, (shift + 1) % 4}):
+        out = torch.full((n + 8,), float("nan"))[out_shift:out_shift + n]
+        args = image.tonemap_args(k, False)
+        args.src, args.dst, args.n = src.data_ptr(), out.data_ptr(), n
+        assert host_image.host_tonemap_grid(ctypes.byref(args), resident) == 0
+        assert torch.equal(out, image.tonemap_plain(src, k, False))
 
 
 def test_image_layout_matches_the_wrapper(host_image):

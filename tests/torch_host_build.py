@@ -4,7 +4,8 @@ each operation rounds as the plain PyTorch version's does), the CUDA
 qualifiers and runtime stubbed, and a harness that runs the kernel body
 once per block with one thread.  A kernel's dynamic shared memory
 (`DYNAMIC_SHARED` of csrc/rn_math.cuh) is `host_dynamic_shared`, which
-the harness sizes; `__syncwarp` does nothing (a team is one lane) and a
+the harness sizes; the streaming loads and stores (`__ldcs` / `__stcs`)
+are plain ones; `__syncwarp` does nothing (a team is one lane) and a
 warp vote returns the one lane's predicate; the solver kernels' bulk
 copies copy at once when not compiled for the card."""
 
@@ -39,6 +40,8 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0 };
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcs(const T* p) { return *p; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline int atomicOr(int* p, int v) { int o = *p; *p |= v; return o; }
 inline unsigned long long atomicAdd(unsigned long long* p,
@@ -54,7 +57,10 @@ inline bool __any_sync(unsigned, bool p) { return p; }
 static std::vector<float> host_dynamic_shared;
 #define DYNAMIC_SHARED(name) float* name = host_dynamic_shared.data()
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
+};
 inline cudaError_t cudaSetDevice(int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t,
@@ -62,8 +68,8 @@ inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t,
 inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) {
   return 0;
 }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 232448;
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? 132 : 232448;
   return 0;
 }
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(

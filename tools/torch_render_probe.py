@@ -8,6 +8,11 @@ on the 322-triangle scene's 1080p primary wavefront and on bounces off it
 the blur (`csrc/image.cu` `gaussian_blur`) at the raster frame's seven
 shapes (CUDA events, and the kernel's device time from the profiler) beside
 the library blur (replicate pad and two depthwise `conv2d`);
+the tonemap (`csrc/image.cu` `tonemap`) at 1080p RGB: its device time from
+the profiler with a cold L2 (a 100 MB write before each call) and a warm
+one, the wrapper's host time per call and CUDA events over back-to-back
+calls, after checking it on a 16-byte-aligned input, a view at offset 1
+and an odd length;
 each kernel held against its plain version on the card first; then the
 raster query end to end, the path-traced frame (`entry.pathtrace_entry`)
 and the small scene's path-traced frame with its brute-force kernel time.
@@ -16,6 +21,7 @@ and the SASS instructions of one rounded division (`cuobjdump -sass` of a
 one-line kernel).
 
     python3 tools/torch_render_probe.py [--repo DIR] [--label NAME]
+        [--only tonemap]
 
 `--repo` imports `d3d12renderer_tpu_torch` from another checkout (an older
 commit unpacked with `git archive`), so that two versions are timed in one
@@ -36,6 +42,10 @@ import time
 
 REPS = 20
 BLUR_REPS = 50
+TONEMAP_REPS = 100
+# CUDA's expf / logf against PyTorch's exp / log: 2 ulps of 1.0
+# (chip_smoke.py's SRGB_TOL).
+SRGB_TOL = 2.4e-7
 FRAMES = 5
 RAY_SUBSET = 16384
 W, H = 1920, 1080
@@ -279,11 +289,84 @@ def blur_probe(torch, dev, sync, emit):
     emit(kernel="gaussian_blur, the frame's 7", **total)
 
 
+def tonemap_probe(torch, dev, sync, emit):
+    """The tonemap at 1080p RGB (the raster frame's call): against its plain
+    version on an aligned input, a view at offset 1 and an odd length, both
+    encodes; then its times with the sRGB encode off."""
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch.ops import image
+    from d3d12renderer_tpu_torch.render import post
+
+    settings = post.TonemapSettings()
+    k = image.tonemap_constants(settings)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    base = torch.rand(H * W * 3 + 8, generator=gen, device=dev) * 20.0
+    x = base[:H * W * 3].view(H, W, 3)
+    for name, xs in (("aligned", x), ("offset 1", base[1:H * W * 3 + 1]),
+                     ("odd length", base[3:H * W * 3 - 2])):
+        for srgb in (False, True):
+            got = image.tonemap(xs, settings, srgb)
+            want = image.tonemap_plain(xs, k, srgb)
+            err = (got - want).abs().max().item()
+            if not (torch.equal(got, want) if not srgb else err <= SRGB_TOL):
+                fail(f"the tonemap kernel differs from its plain version "
+                     f"({name}, srgb={srgb}, max |diff| {err:.3e})")
+
+    def tone():
+        return image.tonemap(x, settings)
+
+    tone()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(TONEMAP_REPS):
+        tone()
+    host_ms = 1e3 * (time.perf_counter() - t0) / TONEMAP_REPS
+    end.record()
+    sync()
+    events_ms = start.elapsed_time(end) / TONEMAP_REPS
+    flush = torch.empty(100 * 2 ** 20 // 4, device=dev)
+    marker = torch.zeros(1, device=dev)
+    out = {}
+    # "cold": the 100 MB write before each call (chip_smoke.py's), which
+    # leaves the L2 full of dirty lines that the call's traffic writes
+    # back; "cold read": a 100 MB read instead, which leaves clean ones.
+    for kind, sep in (("cold", flush.zero_), ("cold read", flush.sum),
+                      ("warm", lambda: marker.add_(1.0))):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(TONEMAP_REPS):
+                sep()
+                tone()
+            sep()
+            sync()
+        # The tonemap launches seen between two separators (a session may
+        # miss its first kernels).
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        whole = [ev[i].time_range.elapsed_us() for i in range(1, len(ev) - 1)
+                 if "tonemap" in ev[i].name and "tonemap" not in
+                 ev[i - 1].name and "tonemap" not in ev[i + 1].name]
+        if len(whole) < TONEMAP_REPS // 2:
+            fail(f"the profiler saw {len(whole)} tonemap calls whole ({kind})")
+        out[kind] = sum(whole) / len(whole) / 1e3
+    emit(kernel="tonemap", shape=[H, W, 3], device_ms_cold_l2=out["cold"],
+         device_ms_cold_l2_read=out["cold read"],
+         device_ms_warm_l2=out["warm"], host_ms_per_call=host_ms,
+         events_ms=events_ms, calls=TONEMAP_REPS)
+
+
 def main():
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=here)
     ap.add_argument("--label", default="change")
+    ap.add_argument("--only", choices=["tonemap"], default=None,
+                    help="time only this kernel")
     opts = ap.parse_args()
     sys.path.insert(0, os.path.abspath(opts.repo))
     import torch
@@ -327,10 +410,13 @@ def main():
     for i, line in enumerate(log):
         if "Compiling entry function" in line and any(
                 k in line for k in ("raster_tiles", "ray_closest_hit",
-                                    "gaussian_blur")):
+                                    "gaussian_blur", "tonemap")):
             emit(ptxas=line.split("'")[1], props=" ".join(
                 x.strip() for x in log[i + 1:i + 4]
                 if "stack frame" in x or "registers" in x))
+    tonemap_probe(torch, dev, sync, emit)
+    if opts.only == "tonemap":
+        return
     emit(division_sass=division_sass(lib.parent))
 
     # The brute-force kernel and the blur first: their redesign is what
