@@ -20,6 +20,11 @@ the paths:
 * PPO training (`entry.train_entry`: BASELINE config 5, 4096 envs, rollout
   32, 8 minibatches, 4 epochs; one fused launch per rollout step) and the
   eval render of the trained pose through the BVH ray kernel;
+* self-colliding locomotion (`entry(self_collision=True)`: the ragdoll's
+  collider pairs through the pair narrowphase, one colored-solver launch per
+  step, no fused launch) at 4096 envs, the slider zoo (every joint kind and
+  all six pair functions) at 4096 scenes, and examples/stack_drop.py's
+  scene at 4096 scenes for 400 steps;
 
 and checks what comes out.  Both solver kernels run at every team width
 (8, 16 and 32 lanes per scene) and at ragged batches against their plain
@@ -125,9 +130,14 @@ FP32_FLOP_PER_S = 67e12
 # distance 62, fixed 174 (rotation 60 + ball), hinge 250 (motor, limit and
 # rotation parts + ball), cone-twist 255 (four 1-D parts + ball); a contact
 # point against the static world 85 (friction then normal).
+# A slider row 275 (motor 32, limit 57, rotation 57, position 129).  A
+# contact table whose A side is dynamic somewhere (collider-pair rows) runs
+# the A side for every point: 48 more (the A lever arm's cross product and
+# add, and the A velocity updates, for friction and normal).
 ROW_FLOP = {"ball": 114, "distance": 62, "fixed": 174, "hinge": 250,
-            "cone_twist": 255}
+            "cone_twist": 255, "slider": 275}
 CONTACT_POINT_FLOP = 85
+CONTACT_POINT_A_FLOP = 48
 # The ray plane test (csrc/ray_plane.cuh): 6 three-term dots (5 each), the
 # quotient, u, v and the accept terms = 42; a slab test of a node box: 6
 # subtractions, 6 products and 12 min/max = 24.  Of these, o.n, n_off - o.n
@@ -143,6 +153,20 @@ BOX_ORIGIN_FLOP = 6
 # The tonemap: exposure, the curve (8), its quotient and clamps = 14.
 RASTER_PAIR_FLOP = 22
 TONEMAP_FLOP = 14
+
+# Collider pairs and sliders: the self-colliding ragdoll through entry, the
+# slider zoo and the stack drop, each at BATCH scenes.
+SC_STEPS = 60
+ZOO_STEPS = 120
+STACK_STEPS = 400
+# The zoo's carriage is driven into its upper limit; after ZOO_STEPS its
+# travel along the axis stays within the limits by this much (the limit row
+# is a Baumgarte-stabilised inequality, so it rests a little past them).
+ZOO_LIMIT_TOL = 0.02
+# examples/stack_drop.py's pass criterion (the heights it prints as
+# expected): boxes at ~0.5 / 1.5 / 2.5 m, the sphere at ~0.4 m, within this.
+STACK_HEIGHTS = (0.5, 1.5, 2.5, 0.4)
+STACK_TOL = 0.05
 
 # Training: train_entry at BASELINE config 5 (BASELINE.md:163): 4096 envs,
 # rollout 32 (its defaults); the median of TRAIN_ITERS iterations after a
@@ -168,10 +192,14 @@ def bound(bytes_moved, flop):
 
 def solve_flop(tables, batch, points, iterations):
     """Operations of one `iterations`-long solve: every joint row of every
-    scene, and the active contact points (`points`, summed over scenes)."""
+    scene, and the active contact points (`points`, summed over scenes),
+    with their A side where the contact table has one."""
     rows = sum(m.perm.shape[0] * ROW_FLOP[m.kind] for m in tables
                if m.kind != "contact")
-    return iterations * (batch * rows + points * CONTACT_POINT_FLOP)
+    point_flop = CONTACT_POINT_FLOP + sum(
+        CONTACT_POINT_A_FLOP for m in tables
+        if m.kind == "contact" and not m.a_static)
+    return iterations * (batch * rows + points * point_flop)
 
 
 def ptxas_entries(log: str, name: str) -> list:
@@ -261,32 +289,13 @@ class ReplaySampler:
 
 
 def chain_scene(builder):
-    """A kinematic anchor and four bodies (sphere, box, sphere, box) on the
-    ground plane, jointed distance -> ball -> fixed -> hinge: the colored
-    solver's row kinds 3-5 and the fused kernel's distance, ball and fixed
-    preps."""
-    builder.add_static_plane((0.0, 1.0, 0.0), 0.0, friction=0.9,
-                             restitution=0.2)
-    group = builder.new_no_collide_group()
-    anchor = builder.add_body((0.0, 1.2, 0.0), kinematic=True)
-    builder.set_no_collide_group(anchor, group)
-    bodies = []
-    for i in range(4):
-        body = builder.add_body((0.5 * (i + 1), 0.45 if i % 2 == 0 else 0.28,
-                                 0.0))
-        if i % 2 == 0:
-            builder.add_sphere_collider(body, radius=0.5, friction=0.7)
-        else:
-            builder.add_box_collider(body, (0.3, 0.3, 0.2), restitution=0.3)
-        builder.set_no_collide_group(body, group)
-        bodies.append(body)
-    builder.add_distance_joint(anchor, bodies[0], (0.0, 1.2, 0.0),
-                               (0.5, 0.45, 0.0))
-    builder.add_ball_joint(bodies[0], bodies[1], (0.75, 0.4, 0.0))
-    builder.add_fixed_joint(bodies[1], bodies[2], (1.25, 0.35, 0.0))
-    builder.add_hinge_joint(bodies[2], bodies[3], (1.75, 0.35, 0.0),
-                            (0.0, 0.0, 1.0), min_limit=-0.5, max_limit=0.5,
-                            motor_type=1.0, motor_target=0.3, max_torque=50.0)
+    """`models/scenes.add_chain`: a kinematic anchor and four bodies
+    (sphere, box, sphere, box) on the ground plane, jointed distance ->
+    ball -> fixed -> hinge: the colored solver's row kinds 3-5 and the fused
+    kernel's distance, ball and fixed preps."""
+    from d3d12renderer_tpu_torch.models import scenes
+
+    scenes.add_chain(builder)
     return builder.finalize(device="cuda")
 
 
@@ -1202,6 +1211,312 @@ def raster_frame(card, cuda_ms):
     }]
 
 
+def collision_physics(card, cuda_ms, max_err):
+    """Collider pairs and sliders through the colored-solver kernel: the
+    self-colliding locomotion path (`entry(self_collision=True)` at BATCH
+    envs, SC_STEPS steps), the slider zoo and the stack drop.  Each holds
+    the kernel against its plain version on one substep's preps with active
+    pair rows, at the width the wrapper picks and at every width whose block
+    fits (a width that does not fit must be refused).  Returns the kernel's
+    JSON fields for the self-colliding path."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch.entry import entry
+    from d3d12renderer_tpu_torch.learning.loco_env import (FRAME_RATE,
+                                                           STATE_SIZE, LocoEnv)
+    from d3d12renderer_tpu_torch.models import ragdoll as rd
+    from d3d12renderer_tpu_torch.models import scenes
+    from d3d12renderer_tpu_torch.physics import (collide, solver_cuda, step,
+                                                 substep_cuda)
+    from d3d12renderer_tpu_torch.physics.builder import SceneBuilder
+    from d3d12renderer_tpu_torch.physics.types import BodyState, PhysicsSettings
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    fused_k, colored = (substep_cuda.fused_substep_cuda,
+                        solver_cuda.colored_solve_cuda)
+    dt = 1.0 / FRAME_RATE
+
+    def profiled(fn, reps):
+        with torch.inference_mode(), torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def pair_rows_active(arch, contacts):
+        q = arch.vs_plane_collider.shape[0]
+        return int(contacts.active[:, q:].sum())
+
+    def check_kernel(arch, sp, what):
+        """Kernel vs plain on one substep's preps.  Returns the solver, the
+        kernel-only call, the plain args and a summary dict."""
+        batch = sp.vel1.shape[0]
+        solver = solver_cuda.ColoredSolver(arch, sp.contacts.body_a.shape[0],
+                                           ITERATIONS, "kernel")
+        args = (sp.joint_preps, sp.contact_prep, sp.vel1, sp.omega1)
+        prep = solver.pack_prep(sp.joint_preps, sp.contact_prep, batch, dev)
+        arrays = solver.kernel_arrays(dev)
+        slots = sp.vel1.shape[1]
+
+        def kernel_only(width=None):
+            return colored(sp.vel1, sp.omega1, prep, arrays,
+                           len(solver.tables), solver.num_impulses,
+                           ITERATIONS, width)
+
+        def floats_of(width):
+            return solver_cuda.colored_team_floats(
+                slots, prep.shape[1], solver.num_impulses, width)
+
+        limit = solver_cuda.shared_limit(dev)
+        picked = solver_cuda.pick_team_width(floats_of, limit)
+        with torch.inference_mode():
+            pv, pw = solver.plain(*args)
+            before = colored.launches
+            rv, rw = solver(*args)            # the route: pack + kernel
+            sync()
+            if colored.launches != before + 1:
+                fail(f"{what}: the route did not launch the kernel once")
+            errs = {"route": (max_err(rv, pv), max_err(rw, pw))}
+            for width in solver_cuda.TEAM_WIDTHS:
+                fits = solver_cuda.block_shared_bytes(floats_of(width),
+                                                      width) <= limit
+                try:
+                    kv, kw = kernel_only(width)
+                    sync()
+                except ValueError:
+                    if fits:
+                        fail(f"{what}: width {width} fits but was refused")
+                    errs[width] = "refused"
+                    continue
+                if not fits:
+                    fail(f"{what}: width {width} does not fit but launched")
+                if not (torch.isfinite(kv).all() and torch.isfinite(kw).all()):
+                    fail(f"{what}: kernel output is not finite at width "
+                         f"{width}")
+                errs[width] = (max_err(kv, pv), max_err(kw, pw))
+        for key, e in errs.items():
+            if e != "refused" and not (e[0] <= VEL_TOL and e[1] <= OMEGA_TOL):
+                fail(f"{what}: the colored kernel disagrees with its plain "
+                     f"version ({key}): {e}")
+        worst = max(max(e) for e in errs.values() if e != "refused")
+        return solver, kernel_only, args, prep, dict(
+            picked=picked, errs=errs, worst=worst,
+            block=solver_cuda.block_shared_bytes(floats_of(picked), picked))
+
+    # Self-colliding locomotion through entry: policy forward + env step.
+    fn, (model, est, obs) = entry(device=dev, batch=BATCH, seed=0,
+                                  self_collision=True)
+    env = LocoEnv(self_collision=True, device=dev)
+    if env._fused_step is not None:
+        fail("the self-colliding env built a fused route")
+    fn(model, est, obs)
+    sync()
+    fused_k.launches = colored.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        fell = torch.zeros(BATCH, dtype=torch.bool, device=dev)
+        for _ in range(SC_STEPS):
+            obs, est, reward, done = fn(model, est, obs)
+            finite &= torch.isfinite(obs).all() & torch.isfinite(reward).all()
+            fell |= done
+    sync()
+    secs = time.perf_counter() - t0
+    sc_launches = (fused_k.launches, colored.launches)
+    if sc_launches != (0, SC_STEPS):
+        fail(f"self-colliding path: {sc_launches[0]} fused and "
+             f"{sc_launches[1]} colored launches in {SC_STEPS} steps (want 0 "
+             f"and {SC_STEPS})")
+    b = est.bodies
+    if not (bool(finite) and all(bool(torch.isfinite(x).all())
+                                 for x in (b.pos, b.rot, b.vel, b.omega))):
+        fail("self-colliding path: non-finite outputs")
+    if obs.shape != (BATCH, STATE_SIZE) or reward.shape != (BATCH,):
+        fail(f"self-colliding path: bad shapes {tuple(obs.shape)}")
+    sps = BATCH * SC_STEPS / secs
+
+    holder = [est, obs]
+
+    def one_step():
+        o, e, _, _ = fn(model, holder[0], holder[1])
+        holder[0], holder[1] = e, o
+
+    kernels = profiled(one_step, PROFILE_STEPS)
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 \
+        / PROFILE_STEPS
+    step_ms = 1e3 * BATCH / sps
+    col_dev = [e for e in kernels if "colored_solver" in e.name]
+    col_prof_ms = (sum(e.time_range.elapsed_us() for e in col_dev) / 1e3
+                   / max(1, len(col_dev)))
+    narrow_launches = len(profiled(
+        lambda: collide.generate_contacts(env.arch, holder[0].bodies), 1))
+
+    # Kernel vs plain after one solve from the state the run reached, with
+    # the policy's action.  The policy's standing ragdolls seldom touch
+    # themselves, so every other env is posed into contact: each part's
+    # horizontal offset from the torso drawn in to 60% (the feet and toes
+    # to 30%), as the CPU tests pose them.
+    est, obs = holder
+    with torch.inference_mode():
+        mean, _, _ = model(obs)
+        smoothed = est.last_action + 0.1 * (mean - est.last_action)
+        bodies = est.bodies
+        shrink = torch.full((bodies.pos.shape[1], 1), 0.6, device=dev)
+        shrink[env.part_idx[[rd.BODY_PARTS.index(n) for n in (
+            "left_foot", "right_foot", "left_toes", "right_toes")]]] = 0.3
+        torso = bodies.pos[:, env.part_idx[0]][:, None, :]
+        posed = bodies.pos.clone()
+        posed[..., [0, 2]] = (torso[..., [0, 2]] + shrink
+                              * (posed[..., [0, 2]] - torso[..., [0, 2]]))
+        every_other = (torch.arange(BATCH, device=dev) % 2 == 0)[:, None, None]
+        bodies = bodies.replace(pos=torch.where(every_other, posed,
+                                                bodies.pos))
+        sp = step.substep_prep(env.arch, bodies, dt, env.settings,
+                               env._motor_overrides(smoothed))
+    active = pair_rows_active(env.arch, sp.contacts)
+    run_active = pair_rows_active(
+        env.arch, collide.generate_contacts(env.arch, est.bodies))
+    if active == 0:
+        fail("self-colliding check: no pair row is active")
+    solver, kernel_only, args, prep, sc = check_kernel(env.arch, sp,
+                                                       "self-colliding")
+    points = int(sp.contact_prep.pmask.sum().item())
+    # The plain solve takes seconds here (42 color steps x 30 iterations of
+    # eager gathers and scatters): one timed call after a warm one.
+    with torch.inference_mode():
+        kernel_ms = [cuda_ms(kernel_only, 20)]
+        plain_ms = [cuda_ms(lambda: solver.plain(*args), 1)]
+        kernel_ms.append(cuda_ms(kernel_only, 20))
+        width_ms = {w: cuda_ms(lambda: kernel_only(w), 20)
+                    for w, e in sc["errs"].items()
+                    if isinstance(w, int) and e != "refused"}
+    sc_bound = bound(4 * (prep.numel() + 4 * sp.vel1.numel()),
+                     solve_flop(solver.tables, BATCH, points, ITERATIONS))
+    print(f"self-colliding locomotion (entry(self_collision=True), {BATCH} "
+          f"envs, {SC_STEPS} steps): colored launches {sc_launches[1]}, "
+          f"fused {sc_launches[0]}, finite, {int(fell.sum())} envs fell | "
+          f"env-steps/s {sps:.0f} | profiler over {PROFILE_STEPS} steps: "
+          f"{len(kernels) / PROFILE_STEPS:.1f} kernels per step, narrowphase "
+          f"{narrow_launches} launches per step, device busy {dev_ms:.3f} ms "
+          f"of {step_ms:.3f} ms per step ({100 * dev_ms / step_ms:.1f}%), "
+          f"colored kernel {col_prof_ms:.3f} ms per launch | kernel vs plain "
+          f"after one solve (half the envs posed into contact; {active} "
+          f"active pair rows, {run_active} in the run's own state, "
+          f"{points} active points, width picked {sc['picked']}, "
+          f"{sc['block']} B per block):"
+          f" max err {json.dumps(sc['errs'])} (bounds {VEL_TOL} / "
+          f"{OMEGA_TOL}) | ms per solve: kernel {kernel_ms}, by width "
+          f"{json.dumps(width_ms)}, plain {plain_ms}, bound "
+          f"{sc_bound[0]:.4f} ({sc_bound[1]}) | {card}",
+          flush=True)
+
+    # Slider zoo: BATCH jittered scenes, kernel vs plain at the first
+    # substep (the cluster's pairs touch), then ZOO_STEPS steps.
+    zb = SceneBuilder()
+    info = scenes.add_slider_zoo(zb)
+    zarch, z0 = zb.finalize(device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    moving = (zarch.inv_mass[:-1] > 0)[None, :, None]
+
+    def noise(shape, scale):
+        return (torch.rand(shape, generator=g, device=dev) - 0.5) * scale
+
+    zs = BodyState(*(getattr(z0, f).expand((BATCH,) + getattr(z0, f).shape[1:])
+                     .contiguous() for f in BODY_FIELDS))
+    zs = zs.replace(pos=zs.pos + noise(zs.pos.shape, 0.006) * moving,
+                    vel=noise(zs.vel.shape, 0.6) * moving,
+                    omega=noise(zs.omega.shape, 1.0) * moving)
+    zset = PhysicsSettings(frame_rate=FRAME_RATE)
+    with torch.inference_mode():
+        zsp = step.substep_prep(zarch, zs, dt, zset)
+    z_active = pair_rows_active(zarch, zsp.contacts)
+    if z_active == 0:
+        fail("zoo check: no pair row is active")
+    _, _, _, _, zoo = check_kernel(zarch, zsp, "slider zoo")
+    fused_k.launches = colored.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(ZOO_STEPS):
+            zs, _ = step.physics_step(zarch, zs, zset, dt)
+        sync()
+        zsecs = time.perf_counter() - t0
+        k = [t.kind for t in zarch.joints].index("slider")
+        dist = step.substep_prep(zarch, zs, dt, zset).joint_preps[k]["dist"]
+    if (fused_k.launches, colored.launches) != (0, ZOO_STEPS):
+        fail(f"slider zoo: {fused_k.launches} fused and {colored.launches} "
+             f"colored launches in {ZOO_STEPS} steps")
+    if not all(bool(torch.isfinite(getattr(zs, f)).all())
+               for f in ("pos", "rot", "vel", "omega")):
+        fail("slider zoo: non-finite state")
+    lo, hi = scenes.SLIDER_LIMITS
+    d_min, d_mean, d_max = (dist.min().item(), dist.mean().item(),
+                            dist.max().item())
+    print(f"slider zoo ({BATCH} jittered scenes, {ZOO_STEPS} steps, "
+          f"{zarch.num_contact_rows} contact rows, joints "
+          f"{[t.kind for t in zarch.joints]}): colored launches "
+          f"{colored.launches}, fused {fused_k.launches}, finite | kernel vs "
+          f"plain at the first substep ({z_active} active pair rows, width "
+          f"picked {zoo['picked']}): max err {json.dumps(zoo['errs'])} | "
+          f"slider travel min/mean/max {d_min:.4f} / {d_mean:.4f} / "
+          f"{d_max:.4f} (limits {lo} / {hi}, tolerance {ZOO_LIMIT_TOL}) | "
+          f"{1e3 * zsecs / ZOO_STEPS:.2f} ms per step | {card}", flush=True)
+    if not (d_min >= lo - ZOO_LIMIT_TOL and d_max <= hi + ZOO_LIMIT_TOL):
+        fail("slider zoo: the slider left its limits")
+
+    # Stack drop: examples/stack_drop.py's scene, its settings (120 Hz, one
+    # substep per step), BATCH scenes with their x / z jittered by 1 mm.
+    sb = SceneBuilder()
+    scenes.add_stack_drop(sb)
+    sarch, s0 = sb.finalize(device=dev)
+    ss = BodyState(*(getattr(s0, f).expand((BATCH,) + getattr(s0, f).shape[1:])
+                     .contiguous() for f in BODY_FIELDS))
+    jitter = noise(ss.pos.shape, 0.002)
+    jitter[..., 1] = 0.0
+    ss = ss.replace(pos=ss.pos + jitter)
+    sset = PhysicsSettings()
+    h = 1.0 / sset.frame_rate
+    fused_k.launches = colored.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(STACK_STEPS):
+            ss, contacts = step.physics_step(sarch, ss, sset, h, 1)
+        sync()
+    ssecs = time.perf_counter() - t0
+    if (fused_k.launches, colored.launches) != (0, STACK_STEPS):
+        fail(f"stack drop: {fused_k.launches} fused and {colored.launches} "
+             f"colored launches in {STACK_STEPS} steps")
+    y = ss.pos[..., 1]
+    want = torch.tensor(STACK_HEIGHTS, device=dev)
+    height_err = (y - want).abs().max().item()
+    resting = pair_rows_active(sarch, contacts)
+    with torch.inference_mode():
+        ssp = step.substep_prep(sarch, ss, h, sset)
+    _, _, _, _, stack = check_kernel(sarch, ssp, "stack drop")
+    print(f"stack drop ({BATCH} scenes, {STACK_STEPS} steps at "
+          f"{sset.frame_rate} Hz): colored launches {STACK_STEPS}, fused 0 | "
+          f"heights of scene 0 {[round(v, 4) for v in y[0].tolist()]}, max "
+          f"|height - {list(STACK_HEIGHTS)}| over all scenes {height_err:.4f} "
+          f"(bound {STACK_TOL}), lowest {y.min().item():.4f}, {resting} "
+          f"resting pair rows | kernel vs plain at rest: max err "
+          f"{json.dumps(stack['errs'])} | {1e3 * ssecs / STACK_STEPS:.2f} ms "
+          f"per step | {card}", flush=True)
+    if not (bool(torch.isfinite(ss.pos).all()) and height_err <= STACK_TOL):
+        fail("stack drop: the bodies did not come to rest at their heights")
+
+    return {
+        "launches": sc_launches[1],
+        "max_abs_err": max(sc["worst"], zoo["worst"], stack["worst"]),
+        "ms": min(kernel_ms),
+        "plain_ms": min(plain_ms),
+        "bound_ms": sc_bound[0],
+        "bound_by": sc_bound[1],
+    }
+
+
 def training(card, here):
     """The training path: `train_entry` at BASELINE config 5 (4096 envs,
     rollout 32, 8 minibatches, 4 epochs), one warm iteration and
@@ -1530,7 +1845,6 @@ def main():
                     cuda_ms(lambda: kernel_only(width), 20))
         route_ms = [cuda_ms(lambda: solver(*args), 20) for _ in range(2)]
         plain_ms.append(cuda_ms(lambda: solver.plain(*args), 2))
-        kernel_ms = width_ms[solver_cuda.TEAM_WIDTH]
 
         # Ragged batches: every width against the plain version.
         ragged_err = {}
@@ -1546,6 +1860,11 @@ def main():
                                      rsp.omega1.contiguous(), rprep)
                 ragged_err[(n, width)] = (max_err(rv, rpv), max_err(rw, rpw))
         sync()
+    # Bound: the packed prep read once, vel/omega in and out; the solve's
+    # operations at this batch's active contact points.
+    colored_bound = bound(
+        4 * (prep.numel() + 4 * sp.vel1.numel()),
+        solve_flop(solver.tables, BATCH, points, ITERATIONS))
     print(f"colored kernel vs plain (B={BATCH}, {ITERATIONS} iterations, "
           f"{points} active contact points, {limits} active limit rows, team "
           f"width {solver_cuda.TEAM_WIDTH}): max |dvel| {err_v:.3e} (bound "
@@ -1554,7 +1873,8 @@ def main():
           f"{json.dumps({f'{n}/{w}': e for (n, w), e in ragged_err.items()})}"
           f" | ms per solve: kernel by width "
           f"{json.dumps(width_ms)}, pack + kernel {route_ms}, plain "
-          f"{plain_ms} | " + occupancy(
+          f"{plain_ms}, bound {colored_bound[0]:.4f} ({colored_bound[1]}) | "
+          + occupancy(
               lib.colored_solver_blocks_per_sm,
               lambda width: solver_cuda.colored_team_floats(
                   sp.vel1.shape[1], prep.shape[1], solver.num_impulses,
@@ -1567,11 +1887,6 @@ def main():
                    for ev, ew in errs.values()):
             fail(f"the colored kernel disagrees with its plain version at "
                  f"{what}: {errs}")
-    # Bound: the packed prep read once, vel/omega in and out; the solve's
-    # operations at this batch's active contact points.
-    colored_bound = bound(
-        4 * (prep.numel() + 4 * sp.vel1.numel()),
-        solve_flop(solver.tables, BATCH, points, ITERATIONS))
 
     # 4. Fused kernel vs its plain version: one whole env step from the state
     # after the warm steps, with the same smoothed action and poke.
@@ -1847,21 +2162,24 @@ def main():
     if bool(fell.any()) or not mean_reward > 0.5:
         fail("the ragdolls did not stand")
 
+    pairs = collision_physics(card, cuda_ms, max_err)
     rays = path_tracing(card, cuda_ms)
     images = raster_frame(card, cuda_ms)
     training(card, here)
 
+    # Kernel #1's line: this slice's path, the self-colliding locomotion;
+    # the plane-only ragdoll's numbers are on phase 3's line.
     print(json.dumps({"kernels": [{
         "name": "colored_solver",
         "route": "cuda",
         "source": "d3d12renderer_tpu_torch/csrc/colored_solver.cu",
         "replaces": "d3d12renderer_tpu/physics/solver_pallas.py:619",
-        "launches": u_launch,
-        "max_abs_err": colored_err,
-        "ms": min(kernel_ms),
-        "plain_ms": min(plain_ms),
-        "bound_ms": colored_bound[0],
-        "bound_by": colored_bound[1],
+        "launches": pairs["launches"],
+        "max_abs_err": max(colored_err, pairs["max_abs_err"]),
+        "ms": pairs["ms"],
+        "plain_ms": pairs["plain_ms"],
+        "bound_ms": pairs["bound_ms"],
+        "bound_by": pairs["bound_by"],
         "library_ms": None,
     }, {
         "name": "fused_substep",

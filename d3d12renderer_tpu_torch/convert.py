@@ -183,13 +183,19 @@ def archetype_to_numpy(arch) -> Dict[str, np.ndarray]:
         out[name] = x.astype(np.int64) if x.dtype.kind in "iu" else x
 
     for f in SceneArchetype.__dataclass_fields__:
-        if f in ("joints", "contact_color_indices", "joint_color_indices",
-                 "cache", "vs_plane_segments") or f.startswith("num_") \
-                or f == "vs_plane_num_colors":
+        if f in ("joints", "contact_buckets", "contact_color_indices",
+                 "joint_color_indices", "cache", "vs_plane_segments") \
+                or f.startswith("num_") or f == "vs_plane_num_colors":
             continue
         put(f, getattr(arch, f))
     for i, idx in enumerate(arch.contact_color_indices):
         put(f"contact_color_{i}", idx)
+    for bucket in arch.contact_buckets:
+        key = f"bucket_{bucket.type_a}_{bucket.type_b}"
+        for f in ("collider_a", "collider_b", "body_a", "body_b", "color",
+                  "valid"):
+            put(f"{key}_{f}", getattr(bucket, f))
+        put(f"{key}_num_colors", bucket.num_colors)
     for k, table in enumerate(arch.joints):
         for f in ("body_a", "body_b", "color", "valid"):
             put(f"joint_{table.kind}_{f}", getattr(table, f))

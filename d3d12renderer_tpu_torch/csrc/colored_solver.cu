@@ -3,9 +3,11 @@
 // Replaces the TPU kernel `_build_kernel` of
 // d3d12renderer_tpu/physics/solver_pallas.py (reached through
 // `make_colored_solver`): `iterations` Gauss-Seidel sweeps over the joint
-// tables in JOINT_SOLVE_ORDER (distance, ball, fixed, hinge, cone-twist),
-// then over the contact rows color by color, with accumulated impulses kept
-// across the sweeps and zero at the start.  Output: the solved (vel1,
+// tables in JOINT_SOLVE_ORDER (distance, ball, fixed, hinge, cone-twist,
+// slider), then over the contact rows color by color, with accumulated
+// impulses kept across the sweeps and zero at the start.  The contact rows
+// are one table in the builder's global color order: plane rows, then
+// collider-pair rows, whose A body is dynamic.  Output: the solved (vel1,
 // omega1), (B, S, 3) float32.
 //
 // Design:
@@ -35,7 +37,10 @@
 // scenes per SM (PERF.md).  There is no tile math, so wgmma does not
 // apply; the prep is read from device memory once (34 MB at B = 4096,
 // ~10 us at 3.35 TB/s).  The team width 8 (solver_cuda.TEAM_WIDTH) was the
-// fastest of 8, 16 and 32 on the card.
+// fastest of 8, 16 and 32 on the card.  The self-colliding ragdoll has 42
+// color steps per iteration and 59 KB of shared memory per scene: four
+// teams do not fit one block, so the wrapper takes the narrowest wider
+// width that fits (16: two scenes per block).
 //
 // nvcc contracts a*b+c into FMA; the plain PyTorch version rounds each
 // product, so the two agree to float rounding, not bit for bit.

@@ -837,8 +837,8 @@ __global__ void __launch_bounds__(WARP) fused_substep_kernel(const FusedArgs A) 
   team.sync();
 
   // 4. The solve.
-  solve_scene<W>(team, S.v, S.w, imp, prep, A.tables, A.num_tables, A.colors, A.body_a, A.body_b,
-                 A.dynamic, A.iterations);
+  solve_scene<W, false>(team, S.v, S.w, imp, prep, A.tables, A.num_tables, A.colors, A.body_a, A.body_b,
+                        A.dynamic, A.iterations);
 
   // 5. Semi-implicit Euler: pos += v dt, rot = normalize(rot + dt (w/2, 0) rot).
   if (team.active) {

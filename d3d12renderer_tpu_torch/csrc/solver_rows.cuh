@@ -27,6 +27,7 @@ constexpr int KIND_CONTACT = 2;
 constexpr int KIND_DISTANCE = 3;
 constexpr int KIND_BALL = 4;
 constexpr int KIND_FIXED = 5;
+constexpr int KIND_SLIDER = 6;
 constexpr int T_KIND = 0;
 constexpr int T_ROWS = 1;
 constexpr int T_ROW_BASE = 2;
@@ -103,6 +104,33 @@ constexpr int D_NUM_FIELDS = 19;
 constexpr int F_INV_K_ROT = 38;
 constexpr int F_R_BIAS = 47;
 constexpr int F_NUM_FIELDS = 50;
+// Slider.
+constexpr int S_AXIS = 0;
+constexpr int S_MOTOR_VEL = 3;
+constexpr int S_EFF_MOTOR = 4;
+constexpr int S_MAX_IMP = 5;
+constexpr int S_IM_A = 6;
+constexpr int S_IM_B = 7;
+constexpr int S_LIMIT_SIGN = 8;
+constexpr int S_EFF_LIMIT = 9;
+constexpr int S_LIMIT_BIAS = 10;
+constexpr int S_RBXS = 11;
+constexpr int S_RAUXS = 14;
+constexpr int S_LIM_TO_WA = 17;
+constexpr int S_LIM_TO_WB = 20;
+constexpr int S_INV_K_ROT = 23;
+constexpr int S_R_BIAS = 32;
+constexpr int S_II_A = 35;
+constexpr int S_II_B = 44;
+constexpr int S_T = 53;
+constexpr int S_B = 56;
+constexpr int S_RBXT = 59;
+constexpr int S_RBXB = 62;
+constexpr int S_RAUXT = 65;
+constexpr int S_RAUXB = 68;
+constexpr int S_T_BIAS = 71;
+constexpr int S_I2 = 73;
+constexpr int S_NUM_FIELDS = 77;
 // Contact: 4 manifold points; per-point vectors are [point][xyz].
 constexpr int C_NORMAL = 0;
 constexpr int C_FRICTION = 3;
@@ -267,9 +295,59 @@ __device__ __forceinline__ void solve_cone_twist(const Row& R, V3& va, V3& wa, V
   solve_ball_part(R, va, wa, vb, wb);
 }
 
+// Slider: motor -> limit -> rotation (three locked angular dof) -> position
+// (the two dof across the axis).  imp: [motor, limit].
+__device__ __forceinline__ void solve_slider(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, float* imp) {
+  const V3 ax = R.vec(S_AXIS);
+  const float im_a = R(S_IM_A), im_b = R(S_IM_B);
+
+  // Motor: linear, no angular arms.
+  float cdot = dot(vb, ax) - dot(va, ax) - R(S_MOTOR_VEL);
+  float lam = -R(S_EFF_MOTOR) * cdot;
+  const float max_imp = R(S_MAX_IMP);
+  float nw = clip(imp[0] + lam, -max_imp, max_imp);
+  lam = nw - imp[0];
+  imp[0] = nw;
+  V3 P = scale(ax, lam);
+  va = sub(va, scale(P, im_a));
+  vb = add(vb, scale(P, im_b));
+
+  const float sgn = R(S_LIMIT_SIGN);
+  cdot = dot(vb, ax) + dot(wb, R.vec(S_RBXS)) - dot(va, ax) - dot(wa, R.vec(S_RAUXS));
+  lam = -R(S_EFF_LIMIT) * (sgn * cdot + R(S_LIMIT_BIAS));
+  nw = fmaxf(imp[1] + lam, 0.0f);
+  lam = (nw - imp[1]) * sgn;
+  imp[1] = nw;
+  P = scale(ax, lam);
+  va = sub(va, scale(P, im_a));
+  wa = sub(wa, scale(R.vec(S_LIM_TO_WA), lam));
+  vb = add(vb, scale(P, im_b));
+  wb = add(wb, scale(R.vec(S_LIM_TO_WB), lam));
+
+  const V3 lam3 = neg(R.mv(S_INV_K_ROT, add(sub(wb, wa), R.vec(S_R_BIAS))));
+  wa = sub(wa, R.mv(S_II_A, lam3));
+  wb = add(wb, R.mv(S_II_B, lam3));
+
+  const V3 t = R.vec(S_T), b = R.vec(S_B);
+  const V3 rbxt = R.vec(S_RBXT), rbxb = R.vec(S_RBXB);
+  const V3 rauxt = R.vec(S_RAUXT), rauxb = R.vec(S_RAUXB);
+  const float c0 = dot(t, vb) + dot(rbxt, wb) - dot(t, va) - dot(rauxt, wa) + R(S_T_BIAS);
+  const float c1 = dot(b, vb) + dot(rbxb, wb) - dot(b, va) - dot(rauxb, wa) + R(S_T_BIAS + 1);
+  const float l0 = -(R(S_I2) * c0 + R(S_I2 + 1) * c1);
+  const float l1 = -(R(S_I2 + 2) * c0 + R(S_I2 + 3) * c1);
+  P = add(scale(t, l0), scale(b, l1));
+  va = sub(va, scale(P, im_a));
+  wa = sub(wa, R.mv(S_II_A, add(scale(rauxt, l0), scale(rauxb, l1))));
+  vb = add(vb, scale(P, im_b));
+  wb = add(wb, R.mv(S_II_B, add(scale(rbxt, l0), scale(rbxb, l1))));
+}
+
 // Contact row: 4 manifold points in order, friction then normal each.
-// imp: [normal x4, tangent x4].  A static side keeps zero velocity and takes
-// no update, as in the reference kernel.
+// imp: [normal x4, tangent x4].  A side that is static for the whole table
+// keeps zero velocity and takes no update, as in the reference kernel.  In a
+// table whose A side is dynamic somewhere (collider-pair rows), a plane row
+// names the world slot as A: its inverse mass and inertia arms are zero, so
+// its velocity stays zero, and the caller never writes that slot back.
 __device__ __forceinline__ void solve_contact(const Row& R, V3& va, V3& wa, V3& vb, V3& wb, float* imp,
                               bool a_static, bool b_static) {
   const V3 zero = {0.0f, 0.0f, 0.0f};
@@ -371,7 +449,8 @@ __device__ __forceinline__ void solve_table(const Team& team, V3* v, V3* w, floa
                                             const int* T, const int* __restrict__ colors,
                                             const int* __restrict__ body_a, const int* __restrict__ body_b,
                                             const int* __restrict__ dynamic) {
-  constexpr int IMPS = K == KIND_HINGE ? 2 : (K == KIND_CONE_TWIST ? 4 : (K == KIND_CONTACT ? 8 : 0));
+  constexpr int IMPS = (K == KIND_HINGE || K == KIND_SLIDER) ? 2
+                       : (K == KIND_CONE_TWIST ? 4 : (K == KIND_CONTACT ? 8 : 0));
   const int rows = __ldg(T + T_ROWS);
   const int row_base = __ldg(T + T_ROW_BASE);
   const int row_stride = __ldg(T + T_ROW_STRIDE);
@@ -397,6 +476,7 @@ __device__ __forceinline__ void solve_table(const Team& team, V3* v, V3* w, floa
           case KIND_CONTACT: solve_contact(R, va, wa, vb, wb, acc, a_static, b_static); break;
           case KIND_DISTANCE: solve_distance(R, va, wa, vb, wb); break;
           case KIND_BALL: solve_ball_part(R, va, wa, vb, wb); break;
+          case KIND_SLIDER: solve_slider(R, va, wa, vb, wb, acc); break;
           default: solve_fixed(R, va, wa, vb, wb); break;
         }
 #pragma unroll
@@ -422,7 +502,10 @@ __device__ __forceinline__ void solve_table(const Team& team, V3* v, V3* w, floa
 // bodies are written back; the world slot is never written.  v, w, imp and
 // prep are the team's shared memory; `imp` must hold zeros on entry.  A
 // lane's writes reach the other lanes at the barrier after each color.
-template <int W>
+// `Sliders` false compiles no slider row solve, for a kernel whose
+// archetypes never have sliders (the fused kernel refuses them): the unused
+// code would only add register pressure (it spilled there).
+template <int W, bool Sliders = true>
 __device__ void solve_scene(const Team& team, V3* v, V3* w, float* imp, const float* prep,
                             const int* __restrict__ tables, int num_tables,
                             const int* __restrict__ colors, const int* __restrict__ body_a,
@@ -446,6 +529,10 @@ __device__ void solve_scene(const Team& team, V3* v, V3* w, float* imp, const fl
           break;
         case KIND_BALL:
           solve_table<W, KIND_BALL>(team, v, w, imp, prep, T, colors, body_a, body_b, dynamic);
+          break;
+        case KIND_SLIDER:
+          if constexpr (Sliders)
+            solve_table<W, KIND_SLIDER>(team, v, w, imp, prep, T, colors, body_a, body_b, dynamic);
           break;
         default:
           solve_table<W, KIND_FIXED>(team, v, w, imp, prep, T, colors, body_a, body_b, dynamic);

@@ -12,7 +12,8 @@ from .physics.types import PhysicsSettings
 
 
 def entry(device="cuda", batch: int = 8, seed: int = 0,
-          fused_substep: str = "auto", solver_backend: str = "auto"):
+          fused_substep: str = "auto", solver_backend: str = "auto",
+          self_collision: bool = False):
     """Returns `(fn, (model, env_state, obs))` on `device`, where
     `fn(model, env_state, obs) -> (obs, env_state, reward, done)` runs the
     policy and steps every env with its mean action.  Weights and pokes come
@@ -20,11 +21,14 @@ def entry(device="cuda", batch: int = 8, seed: int = 0,
     defaults (the JAX env's settings) the env step on a CUDA device is one
     fused-kernel launch; `fused_substep="off"` takes the unfused step with
     the colored-solver kernel, and `solver_backend="plain"` its plain
-    PyTorch version."""
+    PyTorch version.  `self_collision=True` (the JAX env's option) adds the
+    ragdoll's collider pairs; the fused kernel refuses those, so every env
+    step takes the unfused step with the colored-solver kernel."""
     device = resolve_device(device)
     env = LocoEnv(settings=PhysicsSettings(
         frame_rate=FRAME_RATE, fused_substep=fused_substep,
-        solver_backend=solver_backend), device=device)
+        solver_backend=solver_backend), self_collision=self_collision,
+        device=device)
     obs, env_state = env.reset(
         batch, torch.Generator(device=device).manual_seed(seed))
     model = ActorCritic(STATE_SIZE, ACTION_SIZE,

@@ -11,7 +11,10 @@ comes from the `torch.Generator` held in the `EnvState`.
 On CUDA tensors with the default settings the whole env step after the
 poke (physics substep, fall check, reward, obs, auto-reset) is one launch of
 the fused kernel (`physics/substep_cuda.py`); `_step_core` is its plain
-version and the route everywhere else.
+version and the route everywhere else.  `self_collision=True` (the JAX env's
+option) lets the ragdoll's parts collide with each other: the fused kernel
+refuses the pair buckets, so every step takes `_step_core`, whose solve on
+CUDA tensors is the colored-solver kernel.
 """
 
 from __future__ import annotations

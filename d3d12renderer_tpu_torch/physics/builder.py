@@ -3,15 +3,17 @@
 
 The authoring API and the compilation to structure-of-arrays tables run in
 numpy, exactly as in the JAX builder; torch tensors are made at the end on
-the requested device.  This slice compiles plane-contact scenes jointed by
-distance, ball, fixed, hinge and cone-twist joints: slider joints,
-collider-collider pairs, terrains, force fields, triggers and the runtime
-broadphase raise `NotImplementedError`.
+the requested device.  Scenes of sphere, capsule and box colliders on static
+planes compile, with their collider pairs enumerated into static buckets
+(tether-pruned) and every joint kind (distance, ball, fixed, hinge,
+cone-twist, slider); cylinders, hulls, terrains, force fields, triggers and
+the runtime broadphase raise `NotImplementedError`.
 """
 
 from __future__ import annotations
 
 import math
+from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -26,11 +28,13 @@ from .types import (
     SHAPE_CYLINDER,
     SHAPE_SPHERE,
     BodyState,
+    ContactBucket,
     JointTable,
     SceneArchetype,
 )
 
 _IDENTITY_QUAT = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+JOINT_KINDS = ("distance", "ball", "fixed", "hinge", "cone_twist", "slider")
 
 
 def _not_ported(what: str, item: str):
@@ -319,8 +323,9 @@ class SceneBuilder:
 
     def add_joint(self, kind: str, body_a: int, body_b: int,
                   collide_connected: bool = False, **params):
-        if kind not in ("distance", "ball", "fixed", "hinge", "cone_twist"):
-            _not_ported(f"{kind} joints", "slider rows and preps")
+        if kind not in JOINT_KINDS:
+            raise ValueError(f"unknown joint kind {kind!r}; the kinds are "
+                             f"{JOINT_KINDS}")
         self.joints.append(_Joint(
             kind=kind, body_a=body_a, body_b=body_b,
             params={k: np.asarray(v, np.float32) for k, v in params.items()},
@@ -426,8 +431,25 @@ class SceneBuilder:
             init_inv_rot=self._init_inv_rot(body_a, body_b),
         )
 
-    def add_slider_joint(self, *args, **kwargs):
-        _not_ported("slider joints", "slider rows and preps")
+    def add_slider_joint(self, body_a, body_b, global_anchor, global_axis,
+                         neg_limit=None, pos_limit=None,
+                         motor_type=0.0, motor_target=0.0, max_force=None):
+        """Translation along `global_axis` only.  neg_limit <= 0 /
+        pos_limit >= 0 enable the limits, None disables; the motor runs only
+        with max_force > 0 (motor_type 0 = velocity, 1 = position)."""
+        axis_a = self._to_local_dir(body_a, global_axis)
+        axis_a /= np.linalg.norm(axis_a)
+        return self.add_joint(
+            "slider", body_a, body_b,
+            anchor_a=self._to_local_point(body_a, global_anchor),
+            anchor_b=self._to_local_point(body_b, global_anchor),
+            axis_a=axis_a,
+            init_inv_rot=self._init_inv_rot(body_a, body_b),
+            neg_limit=(neg_limit if neg_limit is not None else 1.0),
+            pos_limit=(pos_limit if pos_limit is not None else -1.0),
+            motor_type=motor_type, motor_target=motor_target,
+            max_force=(max_force if max_force is not None else -1.0),
+        )
 
     # -- compilation -------------------------------------------------------
 
@@ -484,6 +506,112 @@ class SceneBuilder:
                 return False
         return True
 
+    def _compute_tethers(self):
+        """Per body, points in other bodies' frames (reached through at most
+        three joints) that its colliders can never stray far from: a joint
+        holds a body at its anchor, a hinge on a circle about its axis.
+        `_tether_pruned` drops the pairs these bounds keep apart."""
+        edges: Dict[int, List] = defaultdict(list)
+        for j in self.joints:
+            aa, ab = j.params.get("anchor_a"), j.params.get("anchor_b")
+            if aa is None or ab is None:
+                continue
+            ax_a = j.params.get("axis_a") if j.kind == "hinge" else None
+            ax_b = j.params.get("axis_b") if j.kind == "hinge" else None
+            edges[j.body_a].append((j.body_b, np.asarray(aa, np.float64),
+                                    np.asarray(ab, np.float64), ax_a, ax_b))
+            edges[j.body_b].append((j.body_a, np.asarray(ab, np.float64),
+                                    np.asarray(aa, np.float64), ax_b, ax_a))
+
+        # Per body: {frame: [(point in frame, chain slack, own anchor,
+        # own axis, frame's axis)]}.
+        tethers: List[Dict[int, List]] = []
+        for b in range(len(self.bodies)):
+            res: Dict[int, List] = {}
+            frontier = [(nb, a_other, 0.0, a_self, ax_s, ax_o)
+                        for (nb, a_self, a_other, ax_s, ax_o)
+                        in edges.get(b, [])]
+            for _ in range(3):
+                next_frontier = []
+                for (frame, point, slack, anchor0, ax_s, ax_o) in frontier:
+                    entries = res.setdefault(frame, [])
+                    if len(entries) >= 4:
+                        continue
+                    entries.append((point, slack, anchor0, ax_s, ax_o))
+                    for (nb, a_self, a_other, _, _) in edges.get(frame, []):
+                        if nb == b:
+                            continue
+                        # Chains fall back to the ball bound.
+                        next_frontier.append(
+                            (nb, a_other,
+                             slack + float(np.linalg.norm(point - a_self)),
+                             anchor0, None, None))
+                frontier = next_frontier
+            tethers.append(res)
+        return tethers
+
+    _TETHER_MARGIN = 0.3  # joint drift allowance (m)
+
+    def _tether_pruned(self, i: int, j: int, tethers, bound_radius) -> bool:
+        """True if colliders i and j can never touch: in a frame both are
+        tethered to, their bounds stay apart."""
+        ci, cj = self.colliders[i], self.colliders[j]
+        if ci.body < 0 or cj.body < 0:
+            return False
+
+        def frames(ci_idx, cl):
+            shape_r = (float(bound_radius[ci_idx])
+                       - float(np.linalg.norm(cl.local_pos)))
+            center = cl.local_pos.astype(np.float64)
+            f: Dict[int, List[Tuple[np.ndarray, float]]] = {
+                cl.body: [(center, shape_r)]}
+            for frame, entries in tethers[cl.body].items():
+                for (p, slack, anchor0, ax_s, ax_o) in entries:
+                    if ax_s is not None:
+                        ax_s64 = np.asarray(ax_s, np.float64)
+                        h = float((center - anchor0) @ ax_s64)
+                        radial = float(np.linalg.norm(
+                            center - anchor0 - ax_s64 * h))
+                        pt = p + np.asarray(ax_o, np.float64) * h
+                        f.setdefault(frame, []).append(
+                            (pt, radial + shape_r + slack))
+                    else:
+                        r = (float(np.linalg.norm(center - anchor0))
+                             + shape_r + slack)
+                        f.setdefault(frame, []).append((p, r))
+            return f
+
+        fi = frames(i, ci)
+        fj = frames(j, cj)
+        for frame, ents_i in fi.items():
+            if frame in fj:
+                for (pi, ri) in ents_i:
+                    for (pj, rj) in fj[frame]:
+                        if (float(np.linalg.norm(pi - pj))
+                                > ri + rj + self._TETHER_MARGIN):
+                            return True
+        return False
+
+    def _pair_rows(self, bound_radius):
+        """Static collider pairs that may touch, by (type_a, type_b) with
+        type_a <= type_b: rows (collider a, collider b, body a, body b)."""
+        tethers = self._compute_tethers()
+        by_type: Dict[Tuple[int, int], List[Tuple[int, int, int, int]]] = {}
+        c = len(self.colliders)
+        for i in range(c):
+            for j in range(i + 1, c):
+                ci, cj = self.colliders[i], self.colliders[j]
+                if not self._collides(ci.body, cj.body):
+                    continue
+                if self._tether_pruned(i, j, tethers, bound_radius):
+                    continue
+                a, b, ta, tb = i, j, ci.shape, cj.shape
+                if ta > tb:
+                    a, b, ta, tb = b, a, tb, ta
+                by_type.setdefault((ta, tb), []).append(
+                    (a, b, self.colliders[a].body, self.colliders[b].body))
+        return by_type
+
     def finalize(self, dtype=np.float32, broadphase: str = "static",
                  device="cuda"):
         """Compile into (SceneArchetype, BodyState) on `device`; the state
@@ -491,12 +619,6 @@ class SceneBuilder:
         device = resolve_device(device)
         if broadphase != "static":
             _not_ported("the runtime broadphase", "slice 2, physics/broadphase.py")
-        for i in range(len(self.colliders)):
-            for j in range(i + 1, len(self.colliders)):
-                if self._collides(self.colliders[i].body, self.colliders[j].body):
-                    _not_ported(
-                        f"collider-collider contacts (colliders {i} and {j} "
-                        "may touch)", "collider-collider narrowphase")
 
         n = len(self.bodies)
         c = len(self.colliders)
@@ -530,7 +652,15 @@ class SceneBuilder:
                 start = segs[-1][2] if segs else 0
                 segs.append((st, start, start + 1))
 
-        colors = _greedy_color([(n, r[2]) for r in vs_plane_rows], static_body=n)
+        pair_rows = self._pair_rows(bound_radius)
+        bucket_keys = sorted(pair_rows)
+
+        # One greedy coloring over the whole contact table: plane rows, then
+        # the buckets in order, as generate_contacts concatenates them.
+        all_rows = [(n, r[2]) for r in vs_plane_rows]
+        for key in bucket_keys:
+            all_rows += [(r[2], r[3]) for r in pair_rows[key]]
+        colors = _greedy_color(all_rows, static_body=n)
         contact_idx = _color_index_lists(colors)
         q = len(vs_plane_rows)
 
@@ -546,6 +676,20 @@ class SceneBuilder:
 
         def stack(rows, width):
             return np.stack(rows) if rows else np.zeros((0, width), np.float32)
+
+        buckets, offset = [], q
+        for key in bucket_keys:
+            rows = pair_rows[key]
+            k = len(rows)
+            buckets.append(ContactBucket(
+                collider_a=i64([r[0] for r in rows]),
+                collider_b=i64([r[1] for r in rows]),
+                body_a=i64([r[2] for r in rows]),
+                body_b=i64([r[3] for r in rows]),
+                color=i64(colors[offset:offset + k]),
+                valid=torch.ones(k, dtype=torch.bool, device=device),
+                type_a=key[0], type_b=key[1], num_colors=len(contact_idx)))
+            offset += k
 
         arch = SceneArchetype(
             inv_mass=f32(inv_mass),
@@ -576,8 +720,9 @@ class SceneBuilder:
             vs_plane_collider=i64([r[0] for r in vs_plane_rows]),
             vs_plane_plane=i64([r[1] for r in vs_plane_rows]),
             vs_plane_body=i64([r[2] for r in vs_plane_rows]),
-            vs_plane_color=i64(colors),
+            vs_plane_color=i64(colors[:q]),
             vs_plane_valid=torch.ones(q, dtype=torch.bool, device=device),
+            contact_buckets=tuple(buckets),
             joints=joint_tables,
             contact_color_indices=tuple(i64(i) for i in contact_idx),
             joint_color_indices=joint_color_indices,

@@ -1,8 +1,10 @@
-"""Contact generation for plane rows (counterpart of
-``d3d12renderer_tpu/physics/collide.py``).
+"""Contact generation (counterpart of
+``d3d12renderer_tpu/physics/collide.py``): plane rows and the static
+collider-pair buckets.
 
-The row order is the builder's: plane rows sorted by collider type.  The
-solver's color lists index that order, so it must not change.
+The row order is the builder's: plane rows sorted by collider type, then the
+buckets in sorted (type_a, type_b) order.  The solver's color lists index
+that order, so it must not change.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ import torch
 from ..core import maths as m
 from . import narrow
 from .narrow import ContactTable
-from .types import SHAPE_BOX, SHAPE_CAPSULE, SHAPE_SPHERE, BodyState, SceneArchetype
+from .types import (SHAPE_BOX, SHAPE_CAPSULE, SHAPE_SPHERE, BodyState,
+                    ContactBucket, SceneArchetype)
 
 
 def collider_world_poses(arch: SceneArchetype, state: BodyState):
@@ -97,11 +100,89 @@ def _vs_plane_manifolds(arch: SceneArchetype, wpos, wrot):
     )
 
 
+def pair_narrow_dispatch(arch: SceneArchetype, ia, ib, ta: int, tb: int,
+                         pa, ra, pb, rb):
+    """Narrowphase of the pair rows of one static (type_a, type_b) combo,
+    ta <= tb, colliders `ia`, `ib` (P,) at world poses (B, P, 3 / 4).
+    Returns 4-point manifolds (normal, points, depths, masks).  Hull and
+    cylinder pairs (JAX's GJK / EPA branch) are not ported."""
+    sa = arch.col_size[ia].expand(pa.shape)
+    sb = arch.col_size[ib].expand(pb.shape)
+    if (ta, tb) == (SHAPE_SPHERE, SHAPE_SPHERE):
+        out = narrow.sphere_vs_sphere(pa, sa[..., 0], pb, sb[..., 0])
+    elif (ta, tb) == (SHAPE_SPHERE, SHAPE_CAPSULE):
+        b0, b1 = _capsule_endpoints(pb, rb, sb[..., 1])
+        out = narrow.sphere_vs_capsule(pa, sa[..., 0], b0, b1, sb[..., 0])
+    elif (ta, tb) == (SHAPE_CAPSULE, SHAPE_CAPSULE):
+        a0, a1 = _capsule_endpoints(pa, ra, sa[..., 1])
+        b0, b1 = _capsule_endpoints(pb, rb, sb[..., 1])
+        out = narrow.capsule_vs_capsule(a0, a1, sa[..., 0], b0, b1,
+                                        sb[..., 0])
+    elif (ta, tb) == (SHAPE_SPHERE, SHAPE_BOX):
+        out = narrow.sphere_vs_box(pa, sa[..., 0], pb, rb, sb)
+    elif (ta, tb) == (SHAPE_CAPSULE, SHAPE_BOX):
+        a0, a1 = _capsule_endpoints(pa, ra, sa[..., 1])
+        out = narrow.capsule_vs_box(a0, a1, sa[..., 0], pb, rb, sb)
+    elif (ta, tb) == (SHAPE_BOX, SHAPE_BOX):
+        out = narrow.box_vs_box(pa, ra, sa, pb, rb, sb)
+    else:
+        raise NotImplementedError(
+            f"narrowphase pair ({ta}, {tb}) is not ported yet (ROADMAP.md "
+            "Queue 1: slice 2, physics/gjk.py)")
+    normal, pts, dep, msk = out
+    return (normal,) + _pad4(pts, dep, msk)
+
+
+def _bucket_manifolds(arch: SceneArchetype, bucket: ContactBucket, wpos,
+                      wrot):
+    ia, ib = bucket.collider_a, bucket.collider_b
+    normal, pts, dep, msk = pair_narrow_dispatch(
+        arch, ia, ib, bucket.type_a, bucket.type_b, wpos[:, ia], wrot[:, ia],
+        wpos[:, ib], wrot[:, ib])
+    msk = msk & bucket.valid[:, None]
+    friction, restitution = narrow.combine_materials(
+        arch.col_friction[ia], arch.col_friction[ib],
+        arch.col_restitution[ia], arch.col_restitution[ib])
+    return ContactTable(
+        body_a=bucket.body_a,
+        body_b=bucket.body_b,
+        normal=normal,
+        point=pts,
+        depth=dep,
+        pmask=msk,
+        friction=friction.expand(dep.shape[:-1]),
+        restitution=restitution.expand(dep.shape[:-1]),
+        active=torch.any(msk, dim=-1),
+    )
+
+
+def _concat_tables(tables) -> ContactTable:
+    def cat(attr, dim):
+        return torch.cat([getattr(t, attr) for t in tables], dim=dim)
+
+    return ContactTable(
+        body_a=cat("body_a", -1),
+        body_b=cat("body_b", -1),
+        normal=cat("normal", -2),
+        point=cat("point", -3),
+        depth=cat("depth", -2),
+        pmask=cat("pmask", -2),
+        friction=cat("friction", -1),
+        restitution=cat("restitution", -1),
+        active=cat("active", -1),
+    )
+
+
 def generate_contacts(arch: SceneArchetype, state: BodyState):
-    """Contact table of the plane rows, or None for a scene without any.
-    The builder refuses collider-collider pairs and terrains, so plane rows
-    are the whole table."""
-    if arch.vs_plane_collider.shape[0] == 0:
+    """The whole contact table, plane rows first, then each pair bucket, in
+    the order the builder colored; None for a scene without any row.  The
+    builder refuses terrains and the runtime broadphase."""
+    if arch.num_contact_rows == 0:
         return None
     wpos, wrot = collider_world_poses(arch, state)
-    return _vs_plane_manifolds(arch, wpos, wrot)
+    tables = []
+    if arch.vs_plane_collider.shape[0] > 0:
+        tables.append(_vs_plane_manifolds(arch, wpos, wrot))
+    for bucket in arch.contact_buckets:
+        tables.append(_bucket_manifolds(arch, bucket, wpos, wrot))
+    return tables[0] if len(tables) == 1 else _concat_tables(tables)

@@ -1,10 +1,11 @@
-"""Joint constraints: distance, ball, fixed, and hinge and cone-twist with
-limits and motors (counterpart of ``d3d12renderer_tpu/physics/joints.py``).
+"""Joint constraints: distance, ball, fixed, and hinge, cone-twist and
+slider with limits and motors (counterpart of
+``d3d12renderer_tpu/physics/joints.py``).
 
 Prep runs once per substep; the solve runs once per solver iteration, color
 by color, in the reference's type order.  Runtime motor targets (the RL
-action) come in through `motor_overrides`.  Slider joints are not ported yet
-and raise.  Tensors carry a leading scene axis B.
+action) come in through `motor_overrides`.  Tensors carry a leading scene
+axis B.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ SLIDER_BETA = 0.1
 HINGE_ROTATION_BETA = 0.3
 HINGE_LIMIT_BETA = 0.1
 TWIST_LIMIT_BETA = 0.1
+SLIDER_LIMIT_BETA = 0.1
 DT_THRESHOLD = 1e-5
 
 MOTOR_POSITION = 1.0   # motor_type 0 is a velocity motor
@@ -39,7 +41,7 @@ IMPULSE_DIMS = {
     "fixed": 0,
     "hinge": 2,       # motor, limit
     "cone_twist": 4,  # twist motor, swing motor, twist limit, swing limit
-    "slider": 2,
+    "slider": 2,      # motor, limit
 }
 
 # Prep fields the row solves do not read (prep-time diagnostics).
@@ -477,14 +479,133 @@ def _solve_cone_twist(prep, va, wa, vb, wb, imp):
 
 
 # --------------------------------------------------------------------------
-# Registry + orchestration
+# Slider
 # --------------------------------------------------------------------------
 
-def _not_ported(table, ctx, p):
-    raise NotImplementedError(
-        "slider joints are not ported yet (ROADMAP.md Queue 1: slider rows "
-        "and preps)")
+def _prep_slider(table, ctx, p):
+    ia, ib, qa, qb, ra, rb, ga, gb, im_a, im_b, ii_a, ii_b, active = _common(
+        table, ctx, p)
+    dt = ctx.dt
+    axis_w = m.quat_rotate(qa, p["axis_a"])
+    t, b = m.orthonormal_basis(axis_w)
+    u = gb - ga
+    r_au = ra + u
 
+    rbxt, rbxb = m.cross(rb, t), m.cross(rb, b)
+    rauxt, rauxb = m.cross(r_au, t), m.cross(r_au, b)
+    ia_rauxt, ia_rauxb = _mv(ii_a, rauxt), _mv(ii_a, rauxb)
+    ib_rbxt, ib_rbxb = _mv(ii_b, rbxt), _mv(ii_b, rbxb)
+    im_sum = im_a + im_b
+    k00 = _rdot(rauxt, ia_rauxt) + _rdot(rbxt, ib_rbxt) + im_sum
+    k01 = _rdot(rauxt, ia_rauxb) + _rdot(rbxt, ib_rbxb)
+    k10 = _rdot(rauxb, ia_rauxt) + _rdot(rbxb, ib_rbxt)
+    k11 = _rdot(rauxb, ia_rauxb) + _rdot(rbxb, ib_rbxb) + im_sum
+    i2 = _inv22(k00, k01, k10, k11, active)
+
+    inv_K_rot = _safe_inv3(ii_a + ii_b, active)
+    bscale = _bias_scale(dt, SLIDER_BETA)
+    t_bias = torch.stack([_rdot(u, t), _rdot(u, b)], -1) * bscale
+    rot_err = m.quat_mul(qb, m.quat_mul(p["init_inv_rot"], m.quat_conj(qa)))
+    r_bias = rot_err[..., :3] * (2.0 * bscale)
+
+    dist = _rdot(u, axis_w)
+    neg_l, pos_l = p["neg_limit"], p["pos_limit"]
+    min_violated = (neg_l <= 0.0) & (dist < neg_l)
+    max_violated = (pos_l >= 0.0) & (dist > pos_l)
+    solve_limit = (min_violated | max_violated) & active
+    limit_sign = _where(min_violated, 1.0, -1.0)
+    rauxs = m.cross(r_au, axis_w)
+    rbxs = m.cross(rb, axis_w)
+    inv_ax = im_sum + _rdot(rauxs, _mv(ii_a, rauxs)) + _rdot(rbxs,
+                                                            _mv(ii_b, rbxs))
+    eff_limit = _safe_div(torch.ones_like(inv_ax), inv_ax, inv_ax != 0) \
+        * solve_limit
+    err = torch.where(min_violated, dist - neg_l, pos_l - dist)
+    limit_bias = err * _bias_scale(dt, SLIDER_LIMIT_BETA)
+    lim_to_wa, lim_to_wb = _mv(ii_a, rauxs), _mv(ii_b, rbxs)
+
+    motor_active = (p["max_force"] > 0.0) & active
+    max_imp = torch.clamp(p["max_force"], min=0.0) * dt
+    tgt = _clip(p["motor_target"],
+                torch.where(neg_l <= 0.0, neg_l, torch.full_like(neg_l,
+                                                                 -math.inf)),
+                torch.where(pos_l >= 0.0, pos_l, torch.full_like(pos_l,
+                                                                 math.inf)))
+    pos_vel = ((tgt - dist) / dt if dt > DT_THRESHOLD
+               else torch.zeros_like(dist))
+    motor_vel = torch.where(p["motor_type"] == MOTOR_POSITION, pos_vel,
+                            p["motor_target"])
+    eff_motor = _safe_div(torch.ones_like(im_sum), im_sum, im_sum != 0) \
+        * motor_active
+
+    return dict(
+        ia=ia, ib=ib, ra=ra, rb=rb, im_a=im_a, im_b=im_b, ii_a=ii_a, ii_b=ii_b,
+        axis=axis_w, t=t, b=b, rbxt=rbxt, rbxb=rbxb, rauxt=rauxt, rauxb=rauxb,
+        i2=i2, inv_K_rot=inv_K_rot, t_bias=t_bias, r_bias=r_bias,
+        eff_limit=eff_limit, limit_sign=limit_sign, limit_bias=limit_bias,
+        rauxs=rauxs, rbxs=rbxs, lim_to_wa=lim_to_wa, lim_to_wb=lim_to_wb,
+        eff_motor=eff_motor, motor_vel=motor_vel, max_imp=max_imp, dist=dist,
+    )
+
+
+def _solve_slider(prep, va, wa, vb, wb, imp):
+    """Motor -> limit -> rotation (3 locked dof) -> position (the 2 dof
+    across the axis).  `imp` (B, R, 2) is the color's own copy and is
+    updated in place."""
+    ax = prep["axis"]
+    im_a, im_b = prep["im_a"][..., None], prep["im_b"][..., None]
+
+    # Motor: linear, no angular arms.
+    cdot = _rdot(vb, ax) - _rdot(va, ax) - prep["motor_vel"]
+    lam = -prep["eff_motor"] * cdot
+    new = _clip(imp[..., 0] + lam, -prep["max_imp"], prep["max_imp"])
+    lam = new - imp[..., 0]
+    imp[..., 0] = new
+    P = lam[..., None] * ax
+    va = va - im_a * P
+    vb = vb + im_b * P
+
+    # Limit.
+    s = prep["limit_sign"]
+    cdot = (_rdot(vb, ax) + _rdot(wb, prep["rbxs"])
+            - _rdot(va, ax) - _rdot(wa, prep["rauxs"]))
+    lam = -prep["eff_limit"] * (s * cdot + prep["limit_bias"])
+    new = torch.clamp(imp[..., 1] + lam, min=0.0)
+    lam = (new - imp[..., 1]) * s
+    imp[..., 1] = new
+    P = lam[..., None] * ax
+    va = va - im_a * P
+    wa = wa - prep["lim_to_wa"] * lam[..., None]
+    vb = vb + im_b * P
+    wb = wb + prep["lim_to_wb"] * lam[..., None]
+
+    # Rotation: all three angular dof locked.
+    lam3 = -_mv(prep["inv_K_rot"], (wb - wa) + prep["r_bias"])
+    wa = wa - _mv(prep["ii_a"], lam3)
+    wb = wb + _mv(prep["ii_b"], lam3)
+
+    # Position: the two dof across the axis.
+    t, b = prep["t"], prep["b"]
+    c0 = (_rdot(t, vb) + _rdot(prep["rbxt"], wb)
+          - _rdot(t, va) - _rdot(prep["rauxt"], wa) + prep["t_bias"][..., 0])
+    c1 = (_rdot(b, vb) + _rdot(prep["rbxb"], wb)
+          - _rdot(b, va) - _rdot(prep["rauxb"], wa) + prep["t_bias"][..., 1])
+    i00, i01, i10, i11 = prep["i2"]
+    l0 = -(i00 * c0 + i01 * c1)
+    l1 = -(i10 * c0 + i11 * c1)
+    P = t * l0[..., None] + b * l1[..., None]
+    va = va - im_a * P
+    wa = wa - _mv(prep["ii_a"], prep["rauxt"] * l0[..., None]
+                  + prep["rauxb"] * l1[..., None])
+    vb = vb + im_b * P
+    wb = wb + _mv(prep["ii_b"], prep["rbxt"] * l0[..., None]
+                  + prep["rbxb"] * l1[..., None])
+    return va, wa, vb, wb
+
+
+# --------------------------------------------------------------------------
+# Registry + orchestration
+# --------------------------------------------------------------------------
 
 _PREP_FNS = {
     "distance": _prep_distance,
@@ -492,7 +613,7 @@ _PREP_FNS = {
     "fixed": _prep_fixed,
     "hinge": _prep_hinge,
     "cone_twist": _prep_cone_twist,
-    "slider": _not_ported,
+    "slider": _prep_slider,
 }
 
 _SOLVE_FNS = {
@@ -501,6 +622,7 @@ _SOLVE_FNS = {
     "fixed": _solve_fixed,
     "hinge": _solve_hinge,
     "cone_twist": _solve_cone_twist,
+    "slider": _solve_slider,
 }
 
 

@@ -4,6 +4,11 @@ one CUDA kernel, `csrc/colored_solver.cu` (the team solve and row solves in
 `csrc/solver_rows.cuh`, shared with the fused kernel of `substep_cuda.py`).
 A team of `TEAM_WIDTH` lanes solves one scene from shared memory.
 
+The contact rows are one table in the builder's global color order: plane
+rows, then the collider-pair buckets.  Where some row's A body is dynamic
+(a pair row), the table carries the A fields and its plane rows name the
+world slot as A, which the kernel never writes (`dynamic` is 0 there).
+
 Counterpart of ``d3d12renderer_tpu/physics/solver_pallas.py``
 (`make_colored_solver` and its kernel `_build_kernel`).  Beside the kernel
 sits its plain PyTorch version, the per-color gather / solve / scatter loop
@@ -65,6 +70,13 @@ CONE_TWIST_FIELDS = BALL_FIELDS + (
     ("twist_sign", 1), ("eff_twist_limit", 1), ("twist_bias", 1),
     ("swing_axis", 3), ("eff_swing", 1), ("swing_bias", 1), ("sw_to_wa", 3),
     ("sw_to_wb", 3))
+SLIDER_FIELDS = (
+    ("axis", 3), ("motor_vel", 1), ("eff_motor", 1), ("max_imp", 1),
+    ("im_a", 1), ("im_b", 1), ("limit_sign", 1), ("eff_limit", 1),
+    ("limit_bias", 1), ("rbxs", 3), ("rauxs", 3), ("lim_to_wa", 3),
+    ("lim_to_wb", 3), ("inv_K_rot", 9), ("r_bias", 3), ("ii_a", 9),
+    ("ii_b", 9), ("t", 3), ("b", 3), ("rbxt", 3), ("rbxb", 3), ("rauxt", 3),
+    ("rauxb", 3), ("t_bias", 2), ("i2", 4))
 # Contact rows: B side always; the A side only when A is dynamic somewhere.
 CONTACT_FIELDS = (
     ("normal", 3), ("friction", 1), ("inv_mass_b", 1), ("r_b", 12),
@@ -74,10 +86,10 @@ CONTACT_A_FIELDS = (("inv_mass_a", 1), ("r_a", 12), ("n_to_wa", 12),
                     ("t_to_wa", 12))
 
 KIND_IDS = {"hinge": 0, "cone_twist": 1, "contact": 2, "distance": 3,
-            "ball": 4, "fixed": 5}
+            "ball": 4, "fixed": 5, "slider": 6}
 JOINT_FIELDS = {"distance": DISTANCE_FIELDS, "ball": BALL_FIELDS,
                 "fixed": FIXED_FIELDS, "hinge": HINGE_FIELDS,
-                "cone_twist": CONE_TWIST_FIELDS}
+                "cone_twist": CONE_TWIST_FIELDS, "slider": SLIDER_FIELDS}
 # Per-table record of the kernel's `tables` array.
 (T_KIND, T_ROWS, T_ROW_BASE, T_COLOR_BASE, T_NUM_COLORS, T_PLANE_BASE,
  T_IMP_BASE, T_A_STATIC, T_B_STATIC, T_ROW_STRIDE, TABLE_INTS) = range(11)
@@ -87,6 +99,8 @@ JOINT_FIELDS = {"distance": DISTANCE_FIELDS, "ball": BALL_FIELDS,
 # team of TEAM_WIDTH lanes per scene, one warp per block of WARP // width
 # teams, each team's scene in its own slice of the block's dynamic shared
 # memory.  TEAM_WIDTH is the fastest of TEAM_WIDTHS on the card (PERF.md).
+# A scene too large for WARP // TEAM_WIDTH teams in one block runs at the
+# narrowest wider width whose block fits (`pick_team_width`).
 # --------------------------------------------------------------------------
 
 WARP = 32
@@ -117,6 +131,22 @@ def colored_team_floats(slots: int, prep_stride: int, num_impulses: int,
                        width)
 
 
+def pick_team_width(team_floats_of, limit: int) -> int:
+    """The team width of a launch: the narrowest of TEAM_WIDTHS from
+    TEAM_WIDTH up whose block of WARP // width teams fits in `limit` bytes
+    of shared memory.  `team_floats_of(width)` gives one team's floats.
+    Raises if not even one team of WARP lanes fits."""
+    for width in TEAM_WIDTHS:
+        if width < TEAM_WIDTH:
+            continue
+        if block_shared_bytes(team_floats_of(width), width) <= limit:
+            return width
+    raise ValueError(
+        f"the scene needs {block_shared_bytes(team_floats_of(WARP), WARP)} "
+        f"bytes of shared memory for one team of {WARP} lanes; the device "
+        f"allows {limit}")
+
+
 def layout_offsets() -> Dict[str, int]:
     """Scalar-plane offset of every field, under the kernel's names."""
     out = {}
@@ -136,6 +166,7 @@ def layout_offsets() -> Dict[str, int]:
                               sum(n for _, n in BALL_FIELDS))
     out["CT_NUM_FIELDS"] = put("CT", CONE_TWIST_FIELDS[len(BALL_FIELDS):],
                                sum(n for _, n in BALL_FIELDS))
+    out["S_NUM_FIELDS"] = put("S", SLIDER_FIELDS, 0)
     out["C_B_FIELDS"] = put("C", CONTACT_FIELDS, 0)
     put("C", CONTACT_A_FIELDS, out["C_B_FIELDS"])
     return out
@@ -217,20 +248,15 @@ class ColoredSolver:
         self.tables: List[_TableMeta] = []
         for k in table_order:
             t = arch.joints[k]
-            if t.kind not in JOINT_FIELDS:
-                raise NotImplementedError(
-                    f"{t.kind} rows are not ported yet (ROADMAP.md Queue 1: "
-                    "slider rows and preps)")
             self.tables.append(_table_meta(
                 t.kind, k, arch.joint_color_indices[k],
                 t.body_a.cpu().numpy(), t.body_b.cpu().numpy(),
                 joints_mod.IMPULSE_DIMS[t.kind], JOINT_FIELDS[t.kind]))
         if num_pairs > 0:
-            ib = arch.vs_plane_body.cpu().numpy()
-            ia = np.full_like(ib, arch.world_body)
+            ia, ib = contact_bodies(arch)
             if ia.shape[0] != num_pairs:
                 raise ValueError(f"{num_pairs} contact rows, archetype has "
-                                 f"{ia.shape[0]} plane rows")
+                                 f"{ia.shape[0]}")
             a_static = bool(np.all(~self.dynamic[ia]))
             meta = _table_meta(
                 "contact", -1, arch.contact_color_indices, ia, ib, 8,
@@ -265,10 +291,10 @@ class ColoredSolver:
                 for k, t in enumerate(arch.joints))
             contact_plans = []
             if self.num_pairs > 0:
-                ib = arch.vs_plane_body.to(device)
+                ia, ib = (torch.as_tensor(x, device=device)
+                          for x in contact_bodies(arch))
                 contact_plans = solver_mod.color_plans(
-                    arch.contact_color_indices,
-                    torch.full_like(ib, arch.world_body), ib, self.dynamic)
+                    arch.contact_color_indices, ia, ib, self.dynamic)
             self._plans[device] = (joint_plans, contact_plans)
         return self._plans[device]
 
@@ -373,6 +399,18 @@ class ColoredSolver:
                                   self.iterations)
 
 
+def contact_bodies(arch: SceneArchetype):
+    """(body_a, body_b) numpy arrays of every contact row, in the order of
+    `collide.generate_contacts`: plane rows (A the world slot), then the
+    buckets."""
+    ib = [arch.vs_plane_body.cpu().numpy()]
+    ia = [np.full_like(ib[0], arch.world_body)]
+    for bucket in arch.contact_buckets:
+        ia.append(bucket.body_a.cpu().numpy())
+        ib.append(bucket.body_b.cpu().numpy())
+    return np.concatenate(ia), np.concatenate(ib)
+
+
 def _contact_fields(cp: solver_mod.ContactPrep) -> dict:
     return {name: getattr(cp, name)
             for name, _ in CONTACT_FIELDS + CONTACT_A_FIELDS}
@@ -403,11 +441,12 @@ def _shared_limit(index: int) -> int:
 
 def colored_solve_cuda(vel1, omega1, prep, arrays: KernelArrays,
                        num_tables: int, num_impulses: int, iterations: int,
-                       team_width: int = TEAM_WIDTH):
+                       team_width=None):
     """Launch the kernel on the current stream.  vel1/omega1 (B, S, 3) and
     prep (B, prep_stride) float32, contiguous, on one CUDA device;
-    prep_stride a multiple of 4.  Counts its launches in
-    `colored_solve_cuda.launches`."""
+    prep_stride a multiple of 4.  `team_width` None takes
+    `pick_team_width`'s; a given width whose block does not fit raises.
+    Counts its launches in `colored_solve_cuda.launches`."""
     lib = load_library()
     batch, slots = vel1.shape[0], vel1.shape[1]
     for name, x in (("vel1", vel1), ("omega1", omega1), ("prep", prep)):
@@ -423,13 +462,16 @@ def colored_solve_cuda(vel1, omega1, prep, arrays: KernelArrays,
             or prep.data_ptr() % 16):
         raise ValueError(f"prep must be ({batch}, planes padded to a multiple "
                          f"of 4), 16-byte aligned: {tuple(prep.shape)}")
+    def team_floats_of(width):
+        return colored_team_floats(slots, prep.shape[1], num_impulses, width)
+
+    limit = shared_limit(vel1.device)
+    if team_width is None:
+        team_width = pick_team_width(team_floats_of, limit)
     if team_width not in TEAM_WIDTHS:
         raise ValueError(f"team_width must be one of {TEAM_WIDTHS}, not "
                          f"{team_width}")
-    need = block_shared_bytes(
-        colored_team_floats(slots, prep.shape[1], num_impulses, team_width),
-        team_width)
-    limit = shared_limit(vel1.device)
+    need = block_shared_bytes(team_floats_of(team_width), team_width)
     if need > limit:
         raise ValueError(f"the scene needs {need} bytes of shared memory per "
                          f"block at team width {team_width}; the device "

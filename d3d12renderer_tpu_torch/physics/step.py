@@ -2,10 +2,11 @@
 
 Per substep, unless the fused whole-substep kernel takes it
 (`substep_cuda.make_fused_substep`, for supported archetypes on CUDA
-tensors): collider poses -> plane narrowphase -> gravity, damping and force
-integration -> contact and joint prep -> the colored solve (the CUDA kernel
-for CUDA tensors) -> semi-implicit Euler.  The scene batch is the leading
-axis of every state tensor.
+tensors): collider poses -> narrowphase (plane rows, then the
+collider-pair buckets) -> gravity, damping and force integration -> contact
+and joint prep -> the colored solve (the CUDA kernel for CUDA tensors) ->
+semi-implicit Euler.  The scene batch is the leading axis of every state
+tensor.
 """
 
 from __future__ import annotations

@@ -52,6 +52,23 @@ class BodyState:
 
 
 @dataclass
+class ContactBucket:
+    """Static candidate-pair table of one (type_a, type_b) narrowphase, with
+    type_a <= type_b.  Pairs are enumerated when the scene is compiled; at
+    run time the manifolds' masks say which of them touch."""
+
+    collider_a: torch.Tensor  # (P,) int64
+    collider_b: torch.Tensor  # (P,) int64
+    body_a: torch.Tensor      # (P,) int64
+    body_b: torch.Tensor      # (P,) int64
+    color: torch.Tensor       # (P,) int64 solver color
+    valid: torch.Tensor       # (P,) bool
+    type_a: int
+    type_b: int
+    num_colors: int
+
+
+@dataclass
 class JointTable:
     """Static per-kind joint table; `params` entries are (J, ...) tensors."""
 
@@ -67,8 +84,8 @@ class JointTable:
 @dataclass
 class SceneArchetype:
     """Compiled static scene: the fields of the JAX archetype that the
-    plane-contact, colored-solver path reads.  Body tables have N+1 rows; the
-    last one is the static world body."""
+    colored-solver path reads (plane rows and static pair buckets).  Body
+    tables have N+1 rows; the last one is the static world body."""
 
     inv_mass: torch.Tensor          # (N+1,)
     inv_inertia: torch.Tensor       # (N+1, 3, 3) local inverse inertia
@@ -99,14 +116,17 @@ class SceneArchetype:
     vs_plane_color: torch.Tensor    # (Q,) int64
     vs_plane_valid: torch.Tensor    # (Q,) bool
 
+    contact_buckets: Tuple[ContactBucket, ...]
     joints: Tuple[JointTable, ...]
-    # Per-color row indices into the contact table (plane rows only here).
+    # Per-color row indices into the contact table: plane rows first, then
+    # the buckets in order.  Rows of one color share no dynamic body.
     contact_color_indices: Tuple[torch.Tensor, ...]
     joint_color_indices: Tuple[Tuple[torch.Tensor, ...], ...]
 
     num_bodies: int
     num_colliders: int
     num_planes: int
+    # Colors of the whole contact table (plane and bucket rows).
     vs_plane_num_colors: int
     # Static (shape_type, start, end) runs of the type-sorted plane rows.
     vs_plane_segments: Tuple[Tuple[int, int, int], ...] = ()
@@ -117,6 +137,12 @@ class SceneArchetype:
     @property
     def world_body(self) -> int:
         return self.num_bodies
+
+    @property
+    def num_contact_rows(self) -> int:
+        """Rows of the contact table: plane rows, then bucket rows."""
+        return int(self.vs_plane_collider.shape[0]) + sum(
+            int(b.collider_a.shape[0]) for b in self.contact_buckets)
 
 
 @dataclass(frozen=True)

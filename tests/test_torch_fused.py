@@ -110,8 +110,7 @@ def loco():
 # --------------------------------------------------------------------------
 
 def _port_slider(arch):
-    """The archetype with its hinge table relabelled as a slider: the port's
-    builder does not build sliders yet."""
+    """The archetype with its hinge table relabelled as a slider."""
     tables = tuple(dataclasses.replace(t, kind="slider") if t.kind == "hinge"
                    else t for t in arch.joints)
     return dataclasses.replace(arch, joints=tables, cache={})
@@ -124,9 +123,10 @@ def _jax_slider(arch):
 
 
 @pytest.mark.parametrize("case", ["loco", "chain", "contact_mode", "backend",
-                                  "slider"])
+                                  "slider", "self_collision"])
 def test_support_reason_matches_jax(loco, chains, case):
-    """The port's `solver_backend="plain"` stands where JAX has "xla"."""
+    """The port's `solver_backend="plain"` stands where JAX has "xla".  The
+    self-colliding ragdoll's pair buckets are refused ("pair buckets")."""
     jenv, tenv = loco
     jarch, _, tarch, _ = chains
     jset, tset = JaxSettings(frame_rate=60), PhysicsSettings(frame_rate=60)
@@ -140,8 +140,13 @@ def test_support_reason_matches_jax(loco, chains, case):
         tset = PhysicsSettings(solver_backend="plain")
     elif case == "slider":
         jarch, tarch = _jax_slider(jarch), _port_slider(tarch)
+    elif case == "self_collision":
+        jarch = JaxLocoEnv(self_collision=True).arch
+        tarch = LocoEnv(self_collision=True, device="cpu").arch
     want = substep_pallas.support_reason(jarch, jset)
     got = substep_cuda.support_reason(tarch, tset)
+    if case == "self_collision":
+        assert got == "pair buckets"
     if case == "backend":
         assert want == "solver_backend xla" and got == "solver_backend plain"
     else:
@@ -702,4 +707,8 @@ def test_host_kernel_generic_overrides_match_plain(host_kernel,
 
 
 def test_joint_solve_fns_cover_the_fused_family():
-    assert set(joints._SOLVE_FNS) == set(substep_cuda._SUPPORTED_JOINTS)
+    """Every joint kind has a row solve; all but the slider are the fused
+    kernel's family (JAX's fused kernel refuses sliders too)."""
+    assert set(joints._SOLVE_FNS) == set(substep_cuda._SUPPORTED_JOINTS) | {
+        "slider"}
+    assert "slider" not in substep_cuda._SUPPORTED_JOINTS

@@ -106,7 +106,7 @@ def test_kernel_layout_constants_match_the_wrapper():
         assert consts.get(name) == offset, name
     kinds = {k.lower(): consts[f"KIND_{k.upper()}"]
              for k in ("hinge", "cone_twist", "contact", "distance", "ball",
-                       "fixed")}
+                       "fixed", "slider")}
     assert kinds == solver_cuda.KIND_IDS
     for i, name in enumerate(("T_KIND", "T_ROWS", "T_ROW_BASE", "T_COLOR_BASE",
                               "T_NUM_COLORS", "T_PLANE_BASE", "T_IMP_BASE",

@@ -1,22 +1,31 @@
 """The schedule of the team solve (csrc/solver_rows.cuh) on the CPU: the
 colors of every table touch disjoint dynamic bodies, which lets the lanes of
 a team solve a color's rows at the same time; the team's lane -> row map
-takes every row of every color once; and csrc/colored_solver.cu, compiled as
-host C++ (tests/torch_host_build.py), against the plain solve.
+takes every row of every color once; the team width a launch takes; and
+csrc/colored_solver.cu, compiled as host C++ (tests/torch_host_build.py),
+against the plain solve.  The archetypes: the plane-only ragdoll, the
+jointed chain, the self-colliding ragdoll (plane and collider-pair rows in
+one contact table, pair rows with a dynamic A) and the slider zoo (every
+joint kind and all six pair functions).
 """
 
 import ctypes
+import functools
+import types
 
 import pytest
 import torch
-from hypothesis import HealthCheck, given, settings
+from hypothesis import HealthCheck, example, given, settings
 from hypothesis import strategies as st
 
+from d3d12renderer_tpu_torch.convert import body_state_from_numpy
 from d3d12renderer_tpu_torch.learning.loco_env import ACTION_SIZE, LocoEnv
+from d3d12renderer_tpu_torch.models import scenes as zoo_scenes
 from d3d12renderer_tpu_torch.physics import solver_cuda, step
 from d3d12renderer_tpu_torch.physics.builder import SceneBuilder
 from d3d12renderer_tpu_torch.physics.types import PhysicsSettings
 
+from tests.test_torch_collision import _posed_inputs, _zoo_inputs
 from tests.test_torch_fused import _build_chain, _chain_state
 from tests.torch_host_build import build_host
 
@@ -27,8 +36,8 @@ WIDTHS = (1,) + solver_cuda.TEAM_WIDTHS
 
 
 def _solver(arch, iterations=4, backend="plain"):
-    return solver_cuda.ColoredSolver(arch, arch.vs_plane_collider.shape[0],
-                                     iterations, backend)
+    return solver_cuda.ColoredSolver(arch, arch.num_contact_rows, iterations,
+                                     backend)
 
 
 def color_conflicts(solver):
@@ -48,6 +57,11 @@ def color_conflicts(solver):
     return out
 
 
+WHICH = ("ragdoll", "chain", "self_collision", "zoo")
+PLAIN = PhysicsSettings(frame_rate=60, fused_substep="off",
+                        solver_backend="plain")
+
+
 @pytest.fixture(scope="module")
 def ragdoll():
     return LocoEnv(device="cpu")
@@ -58,15 +72,30 @@ def chain():
     return _build_chain(SceneBuilder)
 
 
+@functools.lru_cache(maxsize=None)
+def _self_colliding():
+    return LocoEnv(self_collision=True, device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _zoo():
+    b = SceneBuilder()
+    info = zoo_scenes.add_slider_zoo(b)
+    arch, state0 = b.finalize(device="cpu")
+    return arch, state0, info
+
+
 def _arch(which, ragdoll, chain):
-    return ragdoll.arch if which == "ragdoll" else chain[0]
+    return {"ragdoll": lambda: ragdoll.arch, "chain": lambda: chain[0],
+            "self_collision": lambda: _self_colliding().arch,
+            "zoo": lambda: _zoo()[0]}[which]()
 
 
 # --------------------------------------------------------------------------
 # Colors touch disjoint dynamic bodies
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("which", ["ragdoll", "chain"])
+@pytest.mark.parametrize("which", WHICH)
 def test_colors_write_disjoint_dynamic_bodies(ragdoll, chain, which):
     solver = _solver(_arch(which, ragdoll, chain))
     assert color_conflicts(solver) == []
@@ -76,6 +105,10 @@ def test_colors_write_disjoint_dynamic_bodies(ragdoll, chain, which):
         assert [[hi - lo for lo, hi in m.color_bounds]
                 for m in solver.tables] == [[6], [3, 1, 1, 1, 1],
                                             [14, 1, 1, 1]]
+    if which in ("self_collision", "zoo"):
+        # Pair rows write both of their bodies.
+        contact = solver.tables[-1]
+        assert not contact.a_static and not contact.b_static
 
 
 def test_color_conflicts_finds_a_shared_body(ragdoll):
@@ -89,15 +122,26 @@ def test_color_conflicts_finds_a_shared_body(ragdoll):
         ("contact", torso)}
 
 
-_KINDS = ("hinge", "cone_twist", "distance", "ball", "fixed")
+def test_color_conflicts_finds_a_pair_row_on_body_a():
+    """The check sees body A of a pair row: merging the self-colliding
+    ragdoll's first two contact colors puts two rows that write one body
+    into one color."""
+    solver = _solver(_self_colliding().arch)
+    contact = solver.tables[-1]
+    (lo, _), (_, hi) = contact.color_bounds[:2]
+    contact.color_bounds = [(lo, hi)] + contact.color_bounds[2:]
+    assert color_conflicts(solver)
+
+
+_KINDS = ("hinge", "cone_twist", "distance", "ball", "fixed", "slider")
 
 
 @st.composite
 def scenes(draw):
     """A random scene of 2-6 bodies (some kinematic) on a ground plane, each
-    with up to three colliders, and up to 8 joints of the five kinds between
-    random pairs of bodies and the world (-1).  The bodies share a
-    no-collide group: the port builds plane contacts only."""
+    with up to three colliders, and up to 8 joints of the six kinds between
+    random pairs of bodies and the world (-1).  Each body joins a shared
+    no-collide group or not, so collider pairs come and go."""
     n = draw(st.integers(2, 6))
     b = SceneBuilder()
     b.add_static_plane((0.0, 1.0, 0.0), 0.0)
@@ -105,7 +149,8 @@ def scenes(draw):
     for i in range(n):
         body = b.add_body((0.7 * i, 0.6, 0.1 * i),
                           kinematic=draw(st.booleans()) and i > 0)
-        b.set_no_collide_group(body, group)
+        if draw(st.booleans()):
+            b.set_no_collide_group(body, group)
         for shape in draw(st.lists(st.sampled_from(["sphere", "box",
                                                     "capsule"]),
                                    max_size=3)):
@@ -132,6 +177,9 @@ def scenes(draw):
             b.add_distance_joint(a, c, anchor, (anchor[0], 0.9, 0.0))
         elif kind == "ball":
             b.add_ball_joint(a, c, anchor)
+        elif kind == "slider":
+            b.add_slider_joint(a, c, anchor, (1.0, 0.0, 0.0), neg_limit=-0.2,
+                               pos_limit=0.2)
         else:
             b.add_fixed_joint(a, c, anchor)
     return b.finalize(device="cpu")[0]
@@ -139,8 +187,12 @@ def scenes(draw):
 
 @settings(max_examples=25, deadline=None,
           suppress_health_check=[HealthCheck.too_slow])
-@given(arch=scenes())
-def test_builder_colors_write_disjoint_dynamic_bodies(arch):
+@given(scene=st.one_of(scenes(), st.sampled_from(["self_collision", "zoo"])))
+@example(scene="self_collision")
+@example(scene="zoo")
+def test_builder_colors_write_disjoint_dynamic_bodies(scene):
+    """Random scenes, and the self-colliding ragdoll and the zoo by name."""
+    arch = _arch(scene, None, None) if isinstance(scene, str) else scene
     assert color_conflicts(_solver(arch)) == []
 
 
@@ -226,7 +278,7 @@ def host(tmp_path_factory):
 
 
 @pytest.mark.parametrize("width", WIDTHS)
-@pytest.mark.parametrize("which", ["ragdoll", "chain"])
+@pytest.mark.parametrize("which", WHICH)
 def test_team_takes_every_row_once(host, ragdoll, chain, which, width):
     """For W in 1, 8, 16 and 32, the lanes of a team take every row of every
     color exactly once per iteration, and only rows of that color."""
@@ -263,24 +315,50 @@ def _ragdoll_prep(env):
 
 
 def _chain_prep(chain):
-    from d3d12renderer_tpu_torch.convert import body_state_from_numpy
-
     arch, state0 = chain
     state = body_state_from_numpy(_chain_state(state0), device="cpu")
-    settings = PhysicsSettings(frame_rate=60, fused_substep="off",
-                               solver_backend="plain")
     with torch.no_grad():
-        return step.substep_prep(arch, state, DT, settings)
+        return step.substep_prep(arch, state, DT, PLAIN)
 
 
-@pytest.mark.parametrize("which", ["ragdoll", "chain"])
+def _self_colliding_prep():
+    """Preps of the self-colliding ragdolls posed into contact
+    (tests/test_torch_collision.py), with their motor overrides."""
+    env = _self_colliding()
+    state0 = types.SimpleNamespace(**{f: getattr(env._state0, f)[0].numpy()
+                                      for f in ("pos", "rot", "vel", "omega",
+                                                "force", "torque")})
+    state_np, action = _posed_inputs(state0, env.part_idx.numpy())
+    state = body_state_from_numpy(state_np, device="cpu")
+    with torch.no_grad():
+        return step.substep_prep(env.arch, state, DT, env.settings,
+                                 env._motor_overrides(torch.as_tensor(action)))
+
+
+def _zoo_prep():
+    """Preps of 3 zoo scenes, the carriage past its limits."""
+    arch, state0, info = _zoo()
+    state = body_state_from_numpy(_zoo_inputs(state0, info, batch=3),
+                                  device="cpu")
+    with torch.no_grad():
+        return step.substep_prep(arch, state, DT, PLAIN)
+
+
+@pytest.mark.parametrize("which", WHICH)
 def test_host_colored_kernel_matches_plain(host, ragdoll, chain, which):
     """30 iterations through the kernel source, on the wrapper's packed
     buffer, against the plain solve: equal bit for bit.  g++
     -ffp-contract=off rounds every operation as PyTorch's CPU ops do, and
-    the row solves take the plain version's operation order."""
+    the row solves take the plain version's operation order.  The
+    self-colliding and zoo scenes have active pair rows."""
     arch = _arch(which, ragdoll, chain)
-    sp = _ragdoll_prep(ragdoll) if which == "ragdoll" else _chain_prep(chain)
+    sp = {"ragdoll": lambda: _ragdoll_prep(ragdoll),
+          "chain": lambda: _chain_prep(chain),
+          "self_collision": _self_colliding_prep,
+          "zoo": _zoo_prep}[which]()
+    if which in ("self_collision", "zoo"):
+        q = arch.vs_plane_collider.shape[0]
+        assert sp.contacts.active[:, q:].any()
     solver = _solver(arch, iterations=30)
     batch, slots = sp.vel1.shape[0], sp.vel1.shape[1]
     args = (sp.joint_preps, sp.contact_prep, sp.vel1, sp.omega1)
@@ -299,3 +377,29 @@ def test_host_colored_kernel_matches_plain(host, ragdoll, chain, which):
         30) == 0
     assert not torch.equal(got_v, vel)
     assert torch.equal(got_v, want_v) and torch.equal(got_w, want_w)
+
+
+def test_team_width_rule(ragdoll):
+    """A launch takes the narrowest width from TEAM_WIDTH up whose block of
+    WARP // width teams fits: 8 for the plane-only ragdoll (38,528 B), 16
+    for the self-colliding one (59,040 B a team, four teams 236,160 B over
+    the 232,448 B limit); it raises where one team of 32 lanes does not
+    fit.  Never the plain solve."""
+    limit = solver_cuda.SHARED_LIMIT
+
+    def floats_of(arch):
+        solver = _solver(arch)
+        return lambda width: solver_cuda.colored_team_floats(
+            arch.num_bodies + 1, solver.prep_stride, solver.num_impulses,
+            width)
+
+    plain = floats_of(ragdoll.arch)
+    colliding = floats_of(_self_colliding().arch)
+    assert solver_cuda.block_shared_bytes(plain(8), 8) == 38528
+    assert colliding(8) * 4 == 59040
+    assert solver_cuda.block_shared_bytes(colliding(8), 8) == 236160 > limit
+    assert solver_cuda.pick_team_width(plain, limit) == 8
+    assert solver_cuda.pick_team_width(colliding, limit) == 16
+    assert solver_cuda.block_shared_bytes(colliding(16), 16) == 118144
+    with pytest.raises(ValueError, match="shared memory"):
+        solver_cuda.pick_team_width(lambda width: limit, limit)
