@@ -25,6 +25,11 @@ the paths:
   step, no fused launch) at 4096 envs, the slider zoo (every joint kind and
   all six pair functions) at 4096 scenes, and examples/stack_drop.py's
   scene at 4096 scenes for 400 steps;
+* runtime physics, plain PyTorch with no kernel of its own: BASELINE
+  config 1 (`entry.stack_drop_entry`: 1,000 boxes and spheres x 8 scenes,
+  sweep-and-prune broadphase, split-Jacobi, 300 frames, then runtime
+  Gauss-Seidel on the settled piles) and config 4 (`entry.vehicle_entry`:
+  the gear-train vehicle x 8, cylinders through GJK, split-Jacobi);
 
 and checks what comes out.  Both solver kernels run at every team width
 (8, 16 and 32 lanes per scene) and at ragged batches against their plain
@@ -37,6 +42,7 @@ last line `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -167,6 +173,37 @@ ZOO_LIMIT_TOL = 0.02
 # expected): boxes at ~0.5 / 1.5 / 2.5 m, the sphere at ~0.4 m, within this.
 STACK_HEIGHTS = (0.5, 1.5, 2.5, 0.4)
 STACK_TOL = 0.05
+
+# Runtime physics (no kernel of its own: plain PyTorch on the card, as the
+# JAX package runs it in XLA).  BASELINE config 1 through stack_drop_entry:
+# 1,000 bodies x 8 scenes for 300 frames of 1/60 s, checked every
+# PHYS_CHECK_EVERY frames (the clock paused): heights above STACK_1K_FLOOR
+# and |pos| under STACK_1K_BOUND (examples/stack_drop_1k.py's asserts),
+# active rows within the 3,072 budget, and no sweep overflow at rest.  Then
+# the settled piles go on for STACK_GS_STEPS frames in runtime_gs mode (128
+# colors x 30 iterations x 2 substeps of eager row solves a frame, 30-50 s
+# on the card), as tools/jax_stack_drop_reference.py runs them on the CPU
+# (GS_FRAMES): there the port's mean height stays within 2.8e-4 m of the
+# split-Jacobi rest and its lowest body rises by at most 4.4e-3 m in three
+# frames (at 32 colors the piles fly apart: +4.9 m in one frame).  After
+# each frame the mean must stay within GS_MEAN_DRIFT and the lowest height
+# within GS_MIN_DRIFT of split-Jacobi's.
+# BASELINE config 4 through vehicle_entry: 8 scenes in one launch stream,
+# one throttle per scene (VEHICLE_THROTTLES); the rate and the distance
+# driven over the first VEHICLE_STEPS frames (every scene intact then), and
+# tests/test_vehicle.py's checks: the scenes at throttle 0 after
+# VEHICLE_REST_STEPS frames (intact, the chassis within 1 m of the origin
+# in x-z), those at throttle 8 after VEHICLE_DRIVE_STEPS (intact, motor gear
+# above 2 rad/s, drive axis above 0.3).
+STACK_1K_BODIES, STACK_1K_BATCH, STACK_1K_STEPS = 1000, 8, 300
+STACK_GS_STEPS = 3
+GS_MEAN_DRIFT, GS_MIN_DRIFT = 5e-3, 2e-2
+PHYS_CHECK_EVERY = 25
+PHYS_PROFILE_STEPS = 1
+STACK_1K_FLOOR, STACK_1K_BOUND = -0.2, 100.0
+VEHICLE_BATCH = 8
+VEHICLE_STEPS, VEHICLE_REST_STEPS, VEHICLE_DRIVE_STEPS = 100, 120, 180
+VEHICLE_THROTTLES = (10.0,) * 4 + (8.0,) * 2 + (0.0,) * 2
 
 # Training: train_entry at BASELINE config 5 (BASELINE.md:163): 4096 envs,
 # rollout 32 (its defaults); the median of TRAIN_ITERS iterations after a
@@ -1517,6 +1554,225 @@ def collision_physics(card, cuda_ms, max_err):
     }
 
 
+def runtime_physics(card):
+    """BASELINE configs 1 and 4 on the card: the 1k-body stack drop
+    (runtime sweep-and-prune broadphase, split-Jacobi contacts, then
+    runtime Gauss-Seidel on the settled piles) and the gear-train vehicle
+    (cylinders and GJK, split-Jacobi).  Each prints its rates on the host
+    clock (synchronised), launches per frame and the device's busy share
+    from the profiler, and fails on any check."""
+    stack_drop_1k(card)
+    vehicle(card)
+
+
+def _profiled(fn, frames=PHYS_PROFILE_STEPS):
+    """(kernels per frame, device ms per frame) of `fn(frames)` over
+    `frames` frames."""
+    import torch
+    from torch.autograd import DeviceType
+
+    with torch.inference_mode(), torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(frames)
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (len(ks) / frames,
+            sum(e.time_range.elapsed_us() for e in ks) / 1e3 / frames)
+
+
+def _contact_kernels(arch, st):
+    """Kernels of one `collide.generate_contacts` (poses, broadphase,
+    narrowphase) at state `st`: the contact layer of a substep."""
+    from d3d12renderer_tpu_torch.physics import collide
+
+    return _profiled(lambda n: collide.generate_contacts(arch, st), 1)[0]
+
+
+def _finite(st):
+    import torch
+
+    return all(bool(torch.isfinite(getattr(st, f)).all())
+               for f in ("pos", "rot", "vel", "omega"))
+
+
+def stack_drop_1k(card):
+    """BASELINE config 1 through `stack_drop_entry`, then the settled piles
+    in runtime_gs mode."""
+    import torch
+
+    from d3d12renderer_tpu_torch.entry import STACK_GS_COLORS, stack_drop_entry
+    from d3d12renderer_tpu_torch.physics import broadphase, collide
+
+    sync = torch.cuda.synchronize
+    profiled, finite = _profiled, _finite
+
+    fn, (arch, st0) = stack_drop_entry(
+        device="cuda", bodies=STACK_1K_BODIES, batch=STACK_1K_BATCH)
+    fn(st0, 1)   # warm-up (allocator, first launches)
+    sync()
+    # The sweep's own overflow (a window that ended while the sweep still
+    # overlapped) apart from the row cap's (more than sap_row_cap partners).
+    no_cap = dataclasses.replace(arch, sap_row_cap=0)
+    st, secs = st0, 0.0
+    worst = dict(ymin=1e9, pos=0.0, overflow=0, capped=0, active=0)
+    with torch.inference_mode():
+        for done in range(0, STACK_1K_STEPS, PHYS_CHECK_EVERY):
+            t0 = time.perf_counter()
+            st, _ = fn(st, min(PHYS_CHECK_EVERY, STACK_1K_STEPS - done))
+            sync()
+            secs += time.perf_counter() - t0
+            worst["ymin"] = min(worst["ymin"], st.pos[..., 1].min().item())
+            worst["pos"] = max(worst["pos"], st.pos.abs().max().item())
+            spill = broadphase.overflow_count(no_cap, st)
+            worst["overflow"] = max(worst["overflow"], int(spill.max()))
+            worst["capped"] = max(worst["capped"], int(
+                (broadphase.overflow_count(arch, st) - spill).max()))
+            worst["active"] = max(worst["active"], int(
+                collide.generate_contacts(arch, st).active.sum(-1).max()))
+    if not finite(st):
+        fail("stack drop 1k: non-finite state")
+    ys = st.pos[..., 1]
+    heights = (ys.min().item(), ys.mean().item(), ys.max().item())
+    sps = STACK_1K_BATCH * STACK_1K_STEPS / secs
+    kpf, dev_ms = profiled(lambda n: fn(st, n))
+    contact_k = _contact_kernels(arch, st)
+    frame_ms = 1e3 * STACK_1K_BATCH / sps
+    print(f"stack drop 1k: {STACK_1K_BODIES} bodies x {STACK_1K_BATCH} "
+          f"scenes, {STACK_1K_STEPS} frames of 1/60 s (120 Hz, 30 "
+          f"iterations, split_jacobi) in {secs:.2f} s: {sps:.1f} "
+          f"scene-steps/s, {sps * STACK_1K_BODIES:.0f} body-steps/s | "
+          f"heights min {heights[0]:.4f} mean {heights[1]:.4f} max "
+          f"{heights[2]:.4f}; over the run (every {PHYS_CHECK_EVERY} frames) "
+          f"min height {worst['ymin']:.4f}, max |pos| {worst['pos']:.3f}, "
+          f"sweep overflow {worst['overflow']} (at rest "
+          f"{int(spill.max())}), colliders past the row cap "
+          f"of {arch.sap_row_cap} at most {worst['capped']}, active rows at most "
+          f"{worst['active']} of {arch.sap_active_budget} | profiler over "
+          f"{PHYS_PROFILE_STEPS} frames: {kpf:.0f} kernels per frame (one "
+          f"generate_contacts: {contact_k:.0f}; two per frame), device "
+          f"busy {dev_ms:.3f} ms per frame of {frame_ms:.3f} ms wall "
+          f"({100 * dev_ms / frame_ms:.1f}%) | {card}", flush=True)
+    if not worst["ymin"] > STACK_1K_FLOOR:
+        fail(f"stack drop 1k: a body sank to {worst['ymin']:.3f}")
+    if not worst["pos"] < STACK_1K_BOUND:
+        fail(f"stack drop 1k: |pos| reached {worst['pos']:.1f}")
+    # The JAX package's own run spills the window while the pile collapses
+    # (up to 14 colliders at frames 50-100, tools/jax_stack_drop_reference.py)
+    # and at rest not at all: the piles at rest must not.
+    if int(spill.max()) != 0:
+        fail(f"stack drop 1k: sweep overflow {int(spill.max())} at rest")
+    if worst["active"] > arch.sap_active_budget:
+        fail(f"stack drop 1k: {worst['active']} active rows, budget "
+             f"{arch.sap_active_budget}")
+
+    # The settled piles go on in runtime Gauss-Seidel mode, frame by frame.
+    gs_fn, _ = stack_drop_entry(
+        device="cuda", bodies=STACK_1K_BODIES, batch=STACK_1K_BATCH,
+        contact_mode="runtime_gs")
+    gs_st, gs_secs, drift = st, 0.0, []
+    for _ in range(STACK_GS_STEPS):
+        t0 = time.perf_counter()
+        gs_st, _ = gs_fn(gs_st, 1)
+        sync()
+        gs_secs += time.perf_counter() - t0
+        if not finite(gs_st):
+            fail("stack drop 1k, runtime_gs: non-finite state")
+        gys = gs_st.pos[..., 1]
+        drift.append((gys.min().item(), gys.mean().item()))
+    print(f"stack drop 1k, runtime_gs ({STACK_GS_COLORS} colors): the "
+          f"settled piles {STACK_GS_STEPS} frames more in "
+          f"{gs_secs:.2f} s, {1e3 * gs_secs / STACK_GS_STEPS:.0f} ms per frame "
+          f"| heights after each frame (min, mean) "
+          f"{[(round(a, 4), round(b, 4)) for a, b in drift]} against "
+          f"split_jacobi's ({heights[0]:.4f}, {heights[1]:.4f}): drift at "
+          f"most {max(abs(b - heights[1]) for _, b in drift):.2e} m in the "
+          f"mean (bound {GS_MEAN_DRIFT}), "
+          f"{max(abs(a - heights[0]) for a, _ in drift):.2e} m in the lowest "
+          f"(bound {GS_MIN_DRIFT}) | {card}", flush=True)
+    if any(abs(b - heights[1]) > GS_MEAN_DRIFT
+           or abs(a - heights[0]) > GS_MIN_DRIFT for a, b in drift):
+        fail("stack drop 1k, runtime_gs: the settled piles moved")
+
+
+def vehicle(card):
+    """BASELINE config 4 through `vehicle_entry`, one throttle per scene in
+    one launch stream, and tests/test_vehicle.py's checks on the card."""
+    import torch
+
+    from d3d12renderer_tpu_torch.entry import vehicle_entry
+
+    sync = torch.cuda.synchronize
+    profiled, finite = _profiled, _finite
+
+    fn, (varch, info, vst0) = vehicle_entry(
+        device="cuda", batch=VEHICLE_BATCH, throttle=VEHICLE_THROTTLES)
+    throttle = torch.tensor(VEHICLE_THROTTLES, device=vst0.pos.device)
+    fast, drive, rest = throttle == 10.0, throttle == 8.0, throttle == 0.0
+    fn(vst0, 1)   # warm-up (allocator, first launches)
+    sync()
+
+    def run(vst, steps):
+        vst, _ = fn(vst, steps)
+        if not finite(vst):
+            fail("vehicle: non-finite state")
+        return vst
+
+    def intact(vst, scenes, what):
+        """tests/test_vehicle.py's assembly checks: the chassis between 0.03
+        and 2 m high, every wheel within 3.5 m of it."""
+        motor = vst.pos[scenes, info.bodies["motor"]]
+        if not bool(((motor[:, 1] > 0.03) & (motor[:, 1] < 2.0)).all()):
+            fail(f"vehicle ({what}): chassis height {motor[:, 1].tolist()}")
+        for w in ("left_front_wheel", "right_front_wheel", "left_rear_wheel",
+                  "right_rear_wheel"):
+            gap = (vst.pos[scenes, info.bodies[w]] - motor).norm(dim=-1)
+            if not bool((gap < 3.5).all()):
+                fail(f"vehicle ({what}): {w} {gap.max().item():.2f} m off")
+        return motor
+
+    t0 = time.perf_counter()
+    vst = run(vst0, VEHICLE_STEPS)
+    sync()
+    vsecs = time.perf_counter() - t0
+    motor = intact(vst, slice(None), f"{VEHICLE_STEPS} frames")
+    m0 = vst0.pos[:, info.bodies["motor"]]
+    drove = (motor - m0)[fast][:, [0, 2]].norm(dim=-1)
+    v_kpf, v_dev_ms = profiled(lambda n: fn(vst, n))
+    v_contact_k = _contact_kernels(varch, vst)
+    vsps = VEHICLE_BATCH * VEHICLE_STEPS / vsecs
+    v_frame_ms = 1e3 * VEHICLE_BATCH / vsps
+    print(f"vehicle: {VEHICLE_BATCH} scenes (throttle {VEHICLE_THROTTLES}), "
+          f"{VEHICLE_STEPS} frames of 1/60 s (60 Hz, split_jacobi) in "
+          f"{vsecs:.2f} s: {vsps:.1f} scene-steps/s | at throttle 10 drove "
+          f"{drove.min().item():.3f}-{drove.max().item():.3f} m, chassis "
+          f"height {motor[fast, 1].mean().item():.4f} | profiler over "
+          f"{PHYS_PROFILE_STEPS} frames: {v_kpf:.0f} kernels per frame (one "
+          f"generate_contacts: {v_contact_k:.0f}), device "
+          f"busy {v_dev_ms:.3f} ms per frame of {v_frame_ms:.3f} ms wall "
+          f"({100 * v_dev_ms / v_frame_ms:.1f}%) | {card}", flush=True)
+
+    vst = run(vst, VEHICLE_REST_STEPS - VEHICLE_STEPS)
+    rmotor = intact(vst, rest, "throttle 0")
+    off = rmotor[:, [0, 2]].norm(dim=-1)
+    vst = run(vst, VEHICLE_DRIVE_STEPS - VEHICLE_REST_STEPS)
+    dmotor = intact(vst, drive, "throttle 8")
+    w_gear = vst.omega[drive, info.bodies["motor_gear"]].norm(dim=-1)
+    w_drive = vst.omega[drive, info.bodies["drive_axis"]].norm(dim=-1)
+    print(f"vehicle checks: at throttle 0 after {VEHICLE_REST_STEPS} frames "
+          f"chassis height {rmotor[:, 1].mean().item():.4f}, x-z distance "
+          f"from the origin {off.max().item():.4f} m (< 1); at throttle 8 "
+          f"after {VEHICLE_DRIVE_STEPS} frames chassis height "
+          f"{dmotor[:, 1].mean().item():.4f}, |omega| motor gear "
+          f"{w_gear.min().item():.3f} (> 2), drive axis "
+          f"{w_drive.min().item():.3f} (> 0.3) in every such scene",
+          flush=True)
+    if not bool((off < 1.0).all()):
+        fail("vehicle: the chassis at rest drifted 1 m or more")
+    if not (bool((w_gear > 2.0).all()) and bool((w_drive > 0.3).all())):
+        fail("vehicle: the motor does not drive the gear train")
+
+
 def training(card, here):
     """The training path: `train_entry` at BASELINE config 5 (4096 envs,
     rollout 32, 8 minibatches, 4 epochs), one warm iteration and
@@ -2166,6 +2422,10 @@ def main():
     rays = path_tracing(card, cuda_ms)
     images = raster_frame(card, cuda_ms)
     training(card, here)
+    # Last: run before the blur's profile, its profiles of ~27,000- and
+    # ~97,000-kernel frames left that profile seeing 23 of its 50 calls
+    # whole.
+    runtime_physics(card)
 
     # Kernel #1's line: this slice's path, the self-colliding locomotion;
     # the plane-only ragdoll's numbers are on phase 3's line.

@@ -172,10 +172,14 @@ def env_state_from_numpy(bodies, last_action, steps,
         steps=torch.as_tensor(np.array(steps, np.int32), device=device))
 
 
+SAP_MODES = ("sweep", "dense")
+
+
 def archetype_to_numpy(arch) -> Dict[str, np.ndarray]:
     """Flatten an archetype (the port's, or the JAX package's) into named
     numpy arrays over the fields the port has, for field-by-field
-    comparison.  Ints come out as int64."""
+    comparison.  Ints come out as int64; `sap_mode` as its index in
+    SAP_MODES."""
     out: Dict[str, np.ndarray] = {}
 
     def put(name, x):
@@ -184,10 +188,12 @@ def archetype_to_numpy(arch) -> Dict[str, np.ndarray]:
 
     for f in SceneArchetype.__dataclass_fields__:
         if f in ("joints", "contact_buckets", "contact_color_indices",
-                 "joint_color_indices", "cache", "vs_plane_segments") \
+                 "joint_color_indices", "cache", "vs_plane_segments",
+                 "sap_mode") \
                 or f.startswith("num_") or f == "vs_plane_num_colors":
             continue
         put(f, getattr(arch, f))
+    put("sap_mode", SAP_MODES.index(arch.sap_mode))
     for i, idx in enumerate(arch.contact_color_indices):
         put(f"contact_color_{i}", idx)
     for bucket in arch.contact_buckets:

@@ -1,5 +1,8 @@
-"""The port's main path (counterpart of ``__graft_entry__.entry``): a policy
-forward plus one batched ragdoll locomotion env step."""
+"""The port's main paths: a policy forward plus one batched ragdoll
+locomotion env step (counterpart of ``__graft_entry__.entry``), PPO
+training, the path tracer, the raster frame, and the runtime physics of
+BASELINE configs 1 (the 1k-body stack drop) and 4 (the gear-train
+vehicle)."""
 
 from __future__ import annotations
 
@@ -59,6 +62,96 @@ def train_entry(device="cuda", envs: int = 4096, rollout: int = 32,
                        minibatches=minibatches, epochs=epochs)
     init, train_iteration, _ = make_ppo(env, config)
     return train_iteration, init(seed)
+
+
+# bench.py:392-485 (`bench_physics_scale`): the stack leg steps at 120 Hz
+# with 30 solver iterations, the vehicle leg at 60 Hz; both take frames of
+# 1/60 s.
+PHYSICS_FRAME_DT = 1.0 / 60.0
+STACK_FRAME_RATE = 120
+VEHICLE_FRAME_RATE = 60
+# runtime_gs colors of the stack drop: on the 1k pile at rest the greedy
+# claim leaves 796 of 2,156 active rows in the last, unguaranteed color at
+# the JAX default of 32 (323 at 64, none at 128), and that color's
+# true-mass sweep throws the pile apart, in the JAX package as in the port
+# (tools/jax_stack_drop_reference.py).
+STACK_GS_COLORS = 128
+
+
+def _physics_runner(arch, settings, default_steps: int, overrides=None):
+    @torch.inference_mode()
+    def fn(state, steps: int = default_steps):
+        from .physics.step import physics_step
+
+        contacts = None
+        for _ in range(steps):
+            state, contacts = physics_step(arch, state, settings,
+                                           PHYSICS_FRAME_DT,
+                                           motor_overrides=overrides)
+        return state, contacts
+
+    return fn
+
+
+def _batched(state, batch: int):
+    return state.replace(**{f: getattr(state, f).expand(
+        (batch,) + getattr(state, f).shape[1:]).contiguous()
+        for f in ("pos", "rot", "vel", "omega", "force", "torque")})
+
+
+def stack_drop_entry(device="cuda", bodies: int = 1000, batch: int = 8,
+                     steps: int = 300, contact_mode: str = "split_jacobi"):
+    """BASELINE config 1 (counterpart of the stack leg of
+    `bench_physics_scale`, `bench.py:392-485`, and of
+    `examples/stack_drop_1k.py`): `bodies` boxes and spheres dropped onto a
+    plane, `batch` copies of the scene, the runtime sweep-and-prune
+    broadphase, contacts in `contact_mode` ("split_jacobi" or
+    "runtime_gs" with STACK_GS_COLORS colors), 120 Hz substeps with 30
+    iterations.
+
+    Returns `(fn, (arch, state))`: `fn(state, steps=steps) -> (state,
+    contacts)` advances every scene by `steps` frames of 1/60 s (two
+    substeps each) and returns the last substep's contact table."""
+    from .models.scenes import STACK_DROP_1K_FINALIZE, add_stack_drop_1k
+    from .physics.builder import SceneBuilder
+
+    device = resolve_device(device)
+    b = SceneBuilder()
+    add_stack_drop_1k(b, bodies)
+    arch, state = b.finalize(device=device, **STACK_DROP_1K_FINALIZE)
+    settings = PhysicsSettings(frame_rate=STACK_FRAME_RATE,
+                               solver_iterations=30, contact_mode=contact_mode,
+                               runtime_gs_colors=STACK_GS_COLORS)
+    return _physics_runner(arch, settings, steps), (arch,
+                                                    _batched(state, batch))
+
+
+def vehicle_entry(device="cuda", batch: int = 8, steps: int = 100,
+                  throttle=10.0):
+    """BASELINE config 4 (counterpart of the vehicle leg of
+    `bench_physics_scale`, `bench.py:392-485`): the 16-part gear-train
+    vehicle at (0, 0.85, 0) on a plane of friction 1, `batch` copies,
+    split-Jacobi contacts at 60 Hz, the motor hinge driven at `throttle`
+    rad/s (one value, or one per scene) and the steering wheel held
+    straight.
+
+    Returns `(fn, (arch, info, state))`: `fn(state, steps=steps) ->
+    (state, contacts)` advances every scene by `steps` frames of 1/60 s;
+    `info` names the vehicle's bodies (`models.vehicle.VehicleInfo`)."""
+    from .models.vehicle import build_vehicle, drive_overrides
+    from .physics.builder import SceneBuilder
+
+    device = resolve_device(device)
+    b = SceneBuilder()
+    b.add_static_plane((0.0, 1.0, 0.0), 0.0, friction=1.0)
+    info = build_vehicle(b, position=(0.0, 0.85, 0.0))
+    arch, state = b.finalize(device=device)
+    overrides = drive_overrides(arch, info, throttle_velocity=throttle,
+                                steering_angle=0.0, batch=batch)
+    settings = PhysicsSettings(frame_rate=VEHICLE_FRAME_RATE,
+                               contact_mode="split_jacobi")
+    return (_physics_runner(arch, settings, steps, overrides),
+            (arch, info, _batched(state, batch)))
 
 
 # bench.py:358-365: floor, column stone, trim, balustrade, fountain metal,

@@ -14,11 +14,16 @@ compare the archetypes).
   config 2, cut to one of each joint kind).
 * `add_stack_drop`: three boxes stacked on the plane and a sphere dropped
   beside them (`examples/stack_drop.py`).
+* `add_stack_drop_1k`: BASELINE config 1, a jittered grid of boxes and
+  spheres dropped onto the plane (`examples/stack_drop_1k.py`); finalize it
+  with `STACK_DROP_1K_FINALIZE`, the runtime broadphase's settings.
 """
 
 from __future__ import annotations
 
 import math
+
+import numpy as np
 
 # Capsules lie along their local y axis; these turn it onto x and z.
 _Y_TO_X = (0.0, 0.0, -math.sqrt(0.5), math.sqrt(0.5))
@@ -112,3 +117,42 @@ def add_stack_drop(b):
     sphere = b.add_body(position=(2.0, 3.0, 0))
     b.add_sphere_collider(sphere, radius=0.4, restitution=0.5)
     return {"boxes": boxes, "sphere": sphere}
+
+
+# examples/stack_drop_1k.py's broadphase: the sweep window of 160 covers the
+# widest same-axis slab of the 10x10x10 grid (overflow 0), 16 partners per
+# collider, 4096 candidate rows and 3072 active rows.
+STACK_DROP_1K_FINALIZE = dict(broadphase="sap", sap_neighbors=160,
+                              sap_max_contacts=4096, sap_active_budget=3072)
+
+
+def add_stack_drop_1k(b, num_bodies: int = 1000, seed: int = 0):
+    """examples/stack_drop_1k.py's scene: `num_bodies` unit boxes and
+    spheres (radius 0.5, mass 1), alternating in a checkerboard, on a cubic
+    grid of pitch 1.15 jittered by +-0.05 (numpy seed `seed`) above the
+    plane."""
+    rng = np.random.default_rng(seed)
+    b.add_static_plane((0.0, 1.0, 0.0), 0.0, friction=0.6, restitution=0.0)
+    side = int(round(num_bodies ** (1.0 / 3.0)))
+    while side * side * side < num_bodies:
+        side += 1
+    spacing = 1.15
+    bodies = []
+    for ix in range(side):
+        for iy in range(side):
+            for iz in range(side):
+                if len(bodies) >= num_bodies:
+                    break
+                jitter = rng.uniform(-0.05, 0.05, 3)
+                body = b.add_body(position=(
+                    (ix - side / 2) * spacing + jitter[0],
+                    1.0 + iy * spacing + jitter[1],
+                    (iz - side / 2) * spacing + jitter[2]), mass=1.0)
+                if (ix + iy + iz) % 2 == 0:
+                    b.add_box_collider(body, (0.5, 0.5, 0.5), friction=0.6,
+                                       restitution=0.1)
+                else:
+                    b.add_sphere_collider(body, 0.5, friction=0.6,
+                                          restitution=0.1)
+                bodies.append(body)
+    return {"bodies": bodies}

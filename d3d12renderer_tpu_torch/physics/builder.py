@@ -3,11 +3,12 @@
 
 The authoring API and the compilation to structure-of-arrays tables run in
 numpy, exactly as in the JAX builder; torch tensors are made at the end on
-the requested device.  Scenes of sphere, capsule and box colliders on static
-planes compile, with their collider pairs enumerated into static buckets
-(tether-pruned) and every joint kind (distance, ball, fixed, hinge,
-cone-twist, slider); cylinders, hulls, terrains, force fields, triggers and
-the runtime broadphase raise `NotImplementedError`.
+the requested device.  Scenes of sphere, capsule, box, cylinder and convex
+hull colliders on static planes compile, with their collider pairs either
+enumerated into static buckets (tether-pruned) or left to the runtime
+broadphase (`finalize(broadphase="sap")`), and every joint kind (distance,
+ball, fixed, hinge, cone-twist, slider); terrains, force fields and
+triggers raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .types import (
     SHAPE_BOX,
     SHAPE_CAPSULE,
     SHAPE_CYLINDER,
+    SHAPE_HULL,
     SHAPE_SPHERE,
     BodyState,
     ContactBucket,
@@ -53,6 +55,7 @@ class _Collider:
     density: float
     friction: float
     restitution: float
+    hull_verts: Optional[np.ndarray] = None  # (V, 3), collider frame
 
 
 @dataclass
@@ -77,9 +80,42 @@ class _Joint:
     collide_connected: bool = False
 
 
+def _hull_mass_properties(verts: np.ndarray, rho: float):
+    """Exact convex-polyhedron mass properties by tetrahedra from the
+    origin (covariance form).  Returns (mass, 3x3 inertia about the COG,
+    COG)."""
+    from scipy.spatial import ConvexHull
+
+    hull = ConvexHull(verts.astype(np.float64))
+    v = verts.astype(np.float64)
+    volume = 0.0
+    com = np.zeros(3)
+    cov = np.zeros((3, 3))
+    for simplex, eq in zip(hull.simplices, hull.equations):
+        a, b_, c_ = v[simplex[0]], v[simplex[1]], v[simplex[2]]
+        if np.cross(b_ - a, c_ - a) @ eq[:3] < 0:  # orient outward
+            b_, c_ = c_, b_
+        det = np.linalg.det(np.stack([a, b_, c_], axis=1))
+        volume += det / 6.0
+        com += det / 24.0 * (a + b_ + c_)
+        s = a + b_ + c_
+        cov += det / 120.0 * (np.outer(a, a) + np.outer(b_, b_)
+                              + np.outer(c_, c_) + np.outer(s, s))
+    mass = rho * volume
+    com = com / volume if volume > 1e-12 else np.zeros(3)
+    cov *= rho
+    inertia_origin = np.trace(cov) * np.eye(3) - cov
+    inertia_com = inertia_origin - mass * ((com @ com) * np.eye(3)
+                                           - np.outer(com, com))
+    return mass, inertia_com, com
+
+
 def _shape_mass_properties(c: _Collider):
-    """(mass, inertia diagonal about the shape COG, shape COG)."""
+    """(mass, inertia about the shape COG: its diagonal, or the 3x3 matrix
+    of a hull, shape COG)."""
     rho = c.density
+    if c.shape == SHAPE_HULL:
+        return _hull_mass_properties(c.hull_verts, rho)
     if c.shape == SHAPE_SPHERE:
         r = float(c.size[0])
         mass = rho * 4.0 / 3.0 * math.pi * r ** 3
@@ -92,6 +128,13 @@ def _shape_mass_properties(c: _Collider):
         iy = mass / 3.0 * (hx * hx + hz * hz)
         iz = mass / 3.0 * (hx * hx + hy * hy)
         return mass, np.array([ix, iy, iz]), np.zeros(3)
+    if c.shape == SHAPE_CYLINDER:
+        r, hh = float(c.size[0]), float(c.size[1])
+        h = 2.0 * hh
+        mass = rho * math.pi * r * r * h
+        iy = 0.5 * mass * r * r
+        ix = mass / 12.0 * (3 * r * r + h * h)
+        return mass, np.array([ix, iy, ix]), np.zeros(3)
     if c.shape == SHAPE_CAPSULE:
         r, hh = float(c.size[0]), float(c.size[1])
         h = 2.0 * hh
@@ -297,11 +340,38 @@ class SceneBuilder:
                                   rot.astype(np.float32), (radius, half, 0),
                                   density, friction, restitution)
 
-    def add_cylinder_collider(self, *args, **kwargs):
-        _not_ported("cylinder colliders", "slice 2, physics/narrow.py pairs")
+    def add_cylinder_collider(self, body, radius, half_length,
+                              center=(0, 0, 0), rotation=None, density=1000.0,
+                              friction=0.5, restitution=0.0):
+        """Cylinder along its local y axis."""
+        rot = (np.asarray(rotation, np.float32) if rotation is not None
+               else _IDENTITY_QUAT)
+        return self._add_collider(body, SHAPE_CYLINDER, center, rot,
+                                  (radius, half_length, 0), density, friction,
+                                  restitution)
 
-    def add_hull_collider(self, *args, **kwargs):
-        _not_ported("hull colliders", "slice 2, physics/gjk.py")
+    def add_hull_collider(self, body, points, center=(0, 0, 0), rotation=None,
+                          density=1000.0, friction=0.5, restitution=0.0):
+        """Convex hull of a point cloud (collider frame), computed here; of
+        more than MAX_HULL_VERTS hull vertices, greedy farthest-point
+        sampling keeps MAX_HULL_VERTS."""
+        from scipy.spatial import ConvexHull
+
+        pts = np.asarray(points, np.float64)
+        verts = pts[ConvexHull(pts).vertices]
+        if len(verts) > MAX_HULL_VERTS:
+            keep = [0]
+            while len(keep) < MAX_HULL_VERTS:
+                d = np.min(np.linalg.norm(verts[:, None] - verts[keep][None],
+                                          axis=-1), axis=1)
+                keep.append(int(np.argmax(d)))
+            verts = verts[sorted(set(keep))]
+        rot = (np.asarray(rotation, np.float32) if rotation is not None
+               else _IDENTITY_QUAT)
+        idx = self._add_collider(body, SHAPE_HULL, center, rot, (0.0, 0.0, 0.0),
+                                 density, friction, restitution)
+        self.colliders[idx].hull_verts = verts.astype(np.float32)
+        return idx
 
     def add_static_plane(self, normal, offset, friction=0.8, restitution=0.0):
         n = np.asarray(normal, np.float64)
@@ -480,7 +550,8 @@ class SceneBuilder:
             cog /= total_mass
             inertia = np.zeros((3, 3))
             for mass, ishape, rot, com in items:
-                i_local = rot @ np.diag(ishape) @ rot.T
+                imat = np.diag(ishape) if np.ndim(ishape) == 1 else ishape
+                i_local = rot @ imat @ rot.T
                 d = com - cog
                 i_local += mass * ((d @ d) * np.eye(3) - np.outer(d, d))
                 inertia += i_local
@@ -612,13 +683,61 @@ class SceneBuilder:
                     (a, b, self.colliders[a].body, self.colliders[b].body))
         return by_type
 
+    def _sap_tables(self):
+        """The runtime broadphase's static tables: the (C, C) upper-
+        triangular admissibility of the dense test, the collider type
+        combos, and the per-body attributes the sweep tests."""
+        c = len(self.colliders)
+        body_ok: Dict[Tuple[int, int], bool] = {}
+        collidable = np.zeros((c, c), bool)
+        for i in range(c):
+            bi = self.colliders[i].body
+            for j in range(i + 1, c):
+                key = (bi, self.colliders[j].body)
+                ok = body_ok.get(key)
+                if ok is None:
+                    ok = body_ok[key] = self._collides(*key)
+                collidable[i, j] = ok
+        types = sorted({cl.shape for cl in self.colliders})
+        type_pairs = tuple((ta, tb) for ai, ta in enumerate(types)
+                           for tb in types[ai:])
+        excl = sorted({(min(j.body_a, j.body_b), max(j.body_a, j.body_b))
+                       for j in self.joints if not j.collide_connected})
+        return dict(
+            sap_collidable=collidable,
+            sap_type_pairs=type_pairs,
+            sap_body_kinematic=np.array([b.kinematic for b in self.bodies],
+                                        bool),
+            sap_body_group=np.array([b.no_collide_group for b in self.bodies],
+                                    np.int64),
+            sap_joint_excl=(np.array(excl, np.int64).reshape(-1, 2)))
+
     def finalize(self, dtype=np.float32, broadphase: str = "static",
-                 device="cuda"):
+                 sap_neighbors: int = 16, sap_max_contacts: int = 0,
+                 sap_algorithm: str = "sweep",
+                 sap_active_budget: Optional[int] = None,
+                 sap_row_cap: int = 16, device="cuda"):
         """Compile into (SceneArchetype, BodyState) on `device`; the state
-        has a leading batch axis of 1."""
+        has a leading batch axis of 1.
+
+        broadphase="static" enumerates the collider pairs into typed,
+        tether-pruned, colored buckets.  broadphase="sap" enumerates none:
+        the runtime broadphase (physics/broadphase.py) finds them every
+        substep, keeping at most `sap_neighbors` sorted neighbours
+        ("sweep") or AABB partners ("dense") per collider, at most
+        `sap_row_cap` partners per collider after the sweep, at most
+        `sap_max_contacts` candidate rows (default 8 per collider) and
+        `sap_active_budget` active rows for the solve (default 4 per
+        collider).  Such scenes solve with contact_mode "split_jacobi" or
+        "runtime_gs".  The defaults are the JAX builder's."""
         device = resolve_device(device)
-        if broadphase != "static":
-            _not_ported("the runtime broadphase", "slice 2, physics/broadphase.py")
+        if broadphase not in ("static", "sap"):
+            raise ValueError("broadphase must be 'static' or 'sap', not "
+                             f"{broadphase!r}")
+        if sap_algorithm not in ("sweep", "dense"):
+            raise ValueError("sap_algorithm must be 'sweep' or 'dense', not "
+                             f"{sap_algorithm!r}")
+        sap = broadphase == "sap"
 
         n = len(self.bodies)
         c = len(self.colliders)
@@ -631,9 +750,18 @@ class SceneBuilder:
                 r = cl.size[0]
             elif cl.shape in (SHAPE_CAPSULE, SHAPE_CYLINDER):
                 r = cl.size[0] + cl.size[1]
+            elif cl.shape == SHAPE_HULL:
+                r = float(np.linalg.norm(cl.hull_verts, axis=-1).max())
             else:
                 r = float(np.linalg.norm(cl.size))
             bound_radius[i] = r + np.linalg.norm(cl.local_pos)
+
+        hull_verts = np.zeros((c, MAX_HULL_VERTS, 3), np.float32)
+        hull_mask = np.zeros((c, MAX_HULL_VERTS), bool)
+        for i, cl in enumerate(self.colliders):
+            if cl.hull_verts is not None:
+                hull_verts[i, :len(cl.hull_verts)] = cl.hull_verts
+                hull_mask[i, :len(cl.hull_verts)] = True
 
         # Plane rows, sorted by collider shape into one segment per type.
         vs_plane_rows = []
@@ -652,7 +780,16 @@ class SceneBuilder:
                 start = segs[-1][2] if segs else 0
                 segs.append((st, start, start + 1))
 
-        pair_rows = self._pair_rows(bound_radius)
+        if sap:
+            pair_rows = {}
+            sap_tables = self._sap_tables()
+        else:
+            pair_rows = self._pair_rows(bound_radius)
+            sap_tables = dict(
+                sap_collidable=np.zeros((0, 0), bool), sap_type_pairs=(),
+                sap_body_kinematic=np.zeros(0, bool),
+                sap_body_group=np.zeros(0, np.int64),
+                sap_joint_excl=np.zeros((0, 2), np.int64))
         bucket_keys = sorted(pair_rows)
 
         # One greedy coloring over the whole contact table: plane rows, then
@@ -709,10 +846,8 @@ class SceneBuilder:
             col_friction=f32([cl.friction for cl in self.colliders]),
             col_restitution=f32([cl.restitution for cl in self.colliders]),
             col_bound_radius=f32(bound_radius),
-            # Hull colliders are not ported: every row empty.
-            col_hull_verts=f32(np.zeros((c, MAX_HULL_VERTS, 3))),
-            col_hull_mask=torch.zeros((c, MAX_HULL_VERTS), dtype=torch.bool,
-                                      device=device),
+            col_hull_verts=f32(hull_verts),
+            col_hull_mask=torch.as_tensor(hull_mask, device=device),
             plane_normal=f32(stack([p[0] for p in self.planes], 3)),
             plane_offset=f32([p[1] for p in self.planes]),
             plane_friction=f32([p[2] for p in self.planes]),
@@ -731,6 +866,21 @@ class SceneBuilder:
             num_planes=g,
             vs_plane_num_colors=len(contact_idx),
             vs_plane_segments=tuple(segs),
+            sap_neighbors=sap_neighbors if sap else 0,
+            sap_max_contacts=(sap_max_contacts or 8 * max(c, 1)) if sap else 0,
+            sap_row_cap=sap_row_cap,
+            sap_mode=sap_algorithm,
+            sap_active_budget=((sap_active_budget if sap_active_budget
+                                is not None else 4 * max(c, 1))
+                               if sap else 0),
+            sap_type_pairs=sap_tables["sap_type_pairs"],
+            sap_collidable=torch.as_tensor(sap_tables["sap_collidable"],
+                                           device=device),
+            sap_body_kinematic=torch.as_tensor(
+                sap_tables["sap_body_kinematic"], device=device),
+            sap_body_group=i64(sap_tables["sap_body_group"]),
+            sap_joint_excl=torch.as_tensor(sap_tables["sap_joint_excl"],
+                                           device=device),
         )
 
         # Float32 like the JAX builder: pos + R @ local_cog.

@@ -1,10 +1,13 @@
 """Contact generation (counterpart of
-``d3d12renderer_tpu/physics/collide.py``): plane rows and the static
-collider-pair buckets.
+``d3d12renderer_tpu/physics/collide.py``): plane rows, the static
+collider-pair buckets and the runtime broadphase's rows.
 
 The row order is the builder's: plane rows sorted by collider type, then the
-buckets in sorted (type_a, type_b) order.  The solver's color lists index
-that order, so it must not change.
+buckets in sorted (type_a, type_b) order, then the runtime broadphase's
+rows (physics/broadphase.py).  The colored solver's color lists index that
+order, so it must not change.  Static rows name their bodies with (P,)
+tensors shared by every scene; the broadphase's rows differ per scene, so a
+table with them names its bodies with (B, P) tensors.
 """
 
 from __future__ import annotations
@@ -12,10 +15,11 @@ from __future__ import annotations
 import torch
 
 from ..core import maths as m
+from . import gjk as gjk_mod
 from . import narrow
 from .narrow import ContactTable
-from .types import (SHAPE_BOX, SHAPE_CAPSULE, SHAPE_SPHERE, BodyState,
-                    ContactBucket, SceneArchetype)
+from .types import (SHAPE_BOX, SHAPE_CAPSULE, SHAPE_CYLINDER, SHAPE_HULL,
+                    SHAPE_SPHERE, BodyState, ContactBucket, SceneArchetype)
 
 
 def collider_world_poses(arch: SceneArchetype, state: BodyState):
@@ -64,10 +68,19 @@ def _collider_vs_local_plane(arch: SceneArchetype, ci, cpos, crot, n, off,
                                                      off_s))
         elif stype == SHAPE_BOX:
             p, d, k = narrow.box_vs_plane(cpos_s, crot_s, size, n_s, off_s)
+        elif stype == SHAPE_CYLINDER:
+            p, d, k = narrow.cylinder_vs_plane(cpos_s, crot_s, size[..., 0],
+                                               size[..., 1], n_s, off_s)
+        elif stype == SHAPE_HULL:
+            hv = arch.col_hull_verts[ci[s:e]]
+            hm = arch.col_hull_mask[ci[s:e]]
+            wverts = cpos_s[..., None, :] + m.quat_rotate(crot_s[..., None, :],
+                                                          hv)
+            p, d, k = narrow.hull_vs_plane(wverts, hm, n_s, off_s)
+            k = k & torch.any(hm, -1)[:, None]
         else:
             raise NotImplementedError(
-                f"plane narrowphase for shape type {stype} is not ported yet "
-                "(ROADMAP.md Queue 1: slice 2, physics/narrow.py pairs)")
+                f"plane narrowphase for shape type {stype}")
         pts_parts.append(p)
         dep_parts.append(d)
         msk_parts.append(k)
@@ -103,9 +116,10 @@ def _vs_plane_manifolds(arch: SceneArchetype, wpos, wrot):
 def pair_narrow_dispatch(arch: SceneArchetype, ia, ib, ta: int, tb: int,
                          pa, ra, pb, rb):
     """Narrowphase of the pair rows of one static (type_a, type_b) combo,
-    ta <= tb, colliders `ia`, `ib` (P,) at world poses (B, P, 3 / 4).
-    Returns 4-point manifolds (normal, points, depths, masks).  Hull and
-    cylinder pairs (JAX's GJK / EPA branch) are not ported."""
+    ta <= tb, colliders `ia`, `ib` (P,) or (B, P) at world poses (B, P, 3 /
+    4).  Returns 4-point manifolds (normal, points, depths, masks).  Any
+    pair with a hull or a cylinder goes through the margin-aware GJK
+    (physics/gjk.py): one point."""
     sa = arch.col_size[ia].expand(pa.shape)
     sb = arch.col_size[ib].expand(pb.shape)
     if (ta, tb) == (SHAPE_SPHERE, SHAPE_SPHERE):
@@ -125,10 +139,18 @@ def pair_narrow_dispatch(arch: SceneArchetype, ia, ib, ta: int, tb: int,
         out = narrow.capsule_vs_box(a0, a1, sa[..., 0], pb, rb, sb)
     elif (ta, tb) == (SHAPE_BOX, SHAPE_BOX):
         out = narrow.box_vs_box(pa, ra, sa, pb, rb, sb)
+    elif SHAPE_HULL in (ta, tb) or SHAPE_CYLINDER in (ta, tb):
+        a_ref = gjk_mod.make_shape_ref(
+            ta, sa, pa, ra, arch.col_hull_verts[ia].expand(pa.shape[:-1]
+                                                           + (-1, 3)),
+            arch.col_hull_mask[ia].expand(pa.shape[:-1] + (-1,)))
+        b_ref = gjk_mod.make_shape_ref(
+            tb, sb, pb, rb, arch.col_hull_verts[ib].expand(pb.shape[:-1]
+                                                           + (-1, 3)),
+            arch.col_hull_mask[ib].expand(pb.shape[:-1] + (-1,)))
+        out = gjk_mod.gjk_epa_contact(a_ref, b_ref)
     else:
-        raise NotImplementedError(
-            f"narrowphase pair ({ta}, {tb}) is not ported yet (ROADMAP.md "
-            "Queue 1: slice 2, physics/gjk.py)")
+        raise NotImplementedError(f"narrowphase pair ({ta}, {tb})")
     normal, pts, dep, msk = out
     return (normal,) + _pad4(pts, dep, msk)
 
@@ -174,10 +196,10 @@ def _concat_tables(tables) -> ContactTable:
 
 
 def generate_contacts(arch: SceneArchetype, state: BodyState):
-    """The whole contact table, plane rows first, then each pair bucket, in
-    the order the builder colored; None for a scene without any row.  The
-    builder refuses terrains and the runtime broadphase."""
-    if arch.num_contact_rows == 0:
+    """The whole contact table, plane rows first, then each pair bucket,
+    then the runtime broadphase's rows, in the order the builder colored;
+    None for a scene without any row."""
+    if arch.num_contact_rows == 0 and arch.sap_neighbors == 0:
         return None
     wpos, wrot = collider_world_poses(arch, state)
     tables = []
@@ -185,4 +207,13 @@ def generate_contacts(arch: SceneArchetype, state: BodyState):
         tables.append(_vs_plane_manifolds(arch, wpos, wrot))
     for bucket in arch.contact_buckets:
         tables.append(_bucket_manifolds(arch, bucket, wpos, wrot))
+    if arch.sap_neighbors > 0:
+        from . import broadphase
+        sap = broadphase.sap_manifolds(arch, wpos, wrot)
+        # Static rows take the broadphase's per-scene (B, P) body indices.
+        batch = wpos.shape[0]
+        for t in tables:
+            t.body_a = t.body_a.expand(batch, -1)
+            t.body_b = t.body_b.expand(batch, -1)
+        tables.append(sap)
     return tables[0] if len(tables) == 1 else _concat_tables(tables)

@@ -17,7 +17,7 @@ import torch
 
 from ..core import maths as m
 from ..cuda_build import resolve_device
-from .solver import ColorPlan, scatter_bodies
+from .solver import ColorPlan, color_plans, scatter_bodies
 from .types import JointTable, SceneArchetype
 
 DISTANCE_BETA = 0.1
@@ -649,6 +649,19 @@ def init_impulses(arch: SceneArchetype, batch: int, dtype=torch.float32,
         torch.zeros((batch, t.body_a.shape[0], IMPULSE_DIMS[t.kind]),
                     dtype=dtype, device=device)
         for t in arch.joints)
+
+
+def color_plans_of(arch: SceneArchetype, device):
+    """Each joint table's color plans on `device`, built once per
+    archetype."""
+    key = ("joint_color_plans", str(device))
+    if key not in arch.cache:
+        dynamic = arch.inv_mass.cpu().numpy() > 0.0
+        arch.cache[key] = tuple(
+            color_plans(arch.joint_color_indices[k], t.body_a.to(device),
+                        t.body_b.to(device), dynamic)
+            for k, t in enumerate(arch.joints))
+    return arch.cache[key]
 
 
 def _gather_prep(prep, rows):

@@ -1,5 +1,6 @@
-"""Narrowphase: static planes against colliders, and the sphere / capsule /
-box pairs (counterpart of ``d3d12renderer_tpu/physics/narrow.py``).
+"""Narrowphase: static planes against every collider type, and the sphere /
+capsule / box pairs (counterpart of ``d3d12renderer_tpu/physics/narrow.py``;
+pairs with a cylinder or a hull go through physics/gjk.py).
 
 Manifold conventions are the JAX package's: the normal points from A (the
 plane, or the pair's first collider) toward B, depth >= 0 when touching, and
@@ -115,6 +116,30 @@ def box_vs_plane(center, rot, half, n, offset):
         [depth[..., k] for k in range(8)],
         [hit[..., k] for k in range(8)],
     )
+
+
+def hull_vs_plane(world_verts, vert_mask, n, offset):
+    """Convex hull (..., V, 3) world vertices with mask (..., V) against a
+    plane: the 4 deepest vertices form the manifold."""
+    d = torch.sum(world_verts * n[..., None, :], dim=-1) - offset[..., None]
+    d = torch.where(vert_mask, d, torch.inf)
+    top, idx = top_k(-d, 4)
+    pts = torch.gather(world_verts, -2, idx[..., None].expand(idx.shape + (3,)))
+    pts = pts + n[..., None, :] * (0.5 * torch.clamp(top, min=0.0))[..., None]
+    return pts, top, top >= 0.0
+
+
+def cylinder_vs_plane(center, rot, radius, half_len, n, offset):
+    """The rim points of both caps deepest and shallowest along the plane
+    normal: 4 candidates."""
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=center.dtype, device=center.device)
+    axis = m.quat_rotate(rot, up.expand(center.shape))
+    cap0 = center - axis * half_len[..., None]
+    cap1 = center + axis * half_len[..., None]
+    d = m.noz(-(n - axis * m.dot(n, axis)[..., None]))
+    r = d * radius[..., None]
+    return points_vs_plane(torch.stack([cap0 + r, cap1 + r, cap0 - r, cap1 - r],
+                                       dim=-2), n, offset)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,23 @@
-"""Sequential-impulse contact solve, colored mode (counterpart of
+"""Sequential-impulse contact solve (counterpart of
 ``d3d12renderer_tpu/physics/solver.py``).
 
 Per contact point, one friction impulse along a fixed tangent, then the
 normal impulse with accumulated clamping and a restitution + Baumgarte bias.
-Rows of one color share no dynamic body, so a color is one batched
-gather / solve / scatter; colors run in order (Gauss-Seidel).  Tensors carry
-a leading scene axis B.
+Three modes:
+
+* colored: rows of one static color share no dynamic body, so a color is
+  one batched gather / solve / scatter; colors run in order (Gauss-Seidel).
+* split_jacobi: every row at once against bodies split into `deg` pieces
+  (effective masses deg times lighter), the velocity deltas summed back
+  with `index_add_`.  The JAX package swaps its gather / scatter for
+  one-hot matmuls on large tables because XLA's TPU scatter-add
+  serialises; the port has one Jacobi solve for both of its branches.
+* runtime_gs: Gauss-Seidel over colors claimed each substep
+  (`runtime_color`) for pair sets that change every step.
+
+Tensors carry a leading scene axis B.  Contact tables name their bodies
+with (P,) indices shared by every scene (static rows) or (B, P) indices
+(the runtime broadphase's); `gather_rows` / `scatter_add_rows` take both.
 """
 
 from __future__ import annotations
@@ -43,8 +55,8 @@ class ContactPrep:
     inv_mass_b: torch.Tensor # (B, P)
     friction: torch.Tensor   # (B, P)
     pmask: torch.Tensor      # (B, P, 4) bool
-    body_a: torch.Tensor     # (P,) int64
-    body_b: torch.Tensor     # (P,) int64
+    body_a: torch.Tensor     # (P,) or (B, P) int64
+    body_b: torch.Tensor     # (P,) or (B, P) int64
 
 
 @dataclass
@@ -91,21 +103,71 @@ def scatter_bodies(plan: ColorPlan, vel, omega, va, wa, vb, wb):
     omega[:, plan.b_ids] = wb[:, plan.b_pos]
 
 
+def gather_rows(x, idx):
+    """Rows of x (B, S, ...) at body indices idx (P,) or (B, P) ->
+    (B, P, ...)."""
+    if idx.dim() == 1:
+        return x[:, idx]
+    return torch.gather(x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+                        .expand(idx.shape + x.shape[2:]))
+
+
+def scatter_add_rows(x, idx, delta):
+    """x (B, S, k) += delta (B, P, k) at body indices idx (P,) or (B, P), in
+    place (`index_add_` over the flattened scenes; x contiguous)."""
+    batch, slots = x.shape[:2]
+    if idx.dim() == 1:
+        idx = idx.expand(batch, -1)
+    flat = idx + slots * torch.arange(batch, device=idx.device)[:, None]
+    x.view(batch * slots, -1).index_add_(
+        0, flat.reshape(-1), delta.reshape(flat.numel(), -1))
+
+
+def contact_degrees(ct: ContactTable, num_slots: int):
+    """Per scene and body slot (B, num_slots), the active contact rows the
+    body is in, at least 1 (the mass split of split_jacobi)."""
+    ones = ct.active.to(torch.float32)[..., None]
+    deg = ones.new_zeros((ones.shape[0], num_slots, 1))
+    scatter_add_rows(deg, ct.body_a, ones)
+    scatter_add_rows(deg, ct.body_b, ones)
+    return torch.clamp(deg[..., 0], min=1.0)
+
+
 def prep_contacts_full(ct: ContactTable, body_pos, inv_mass, inv_inertia_w,
-                       vel, omega, dt) -> ContactPrep:
-    """body_pos/vel/omega (B, N+1, 3), inv_mass (N+1,), inv_inertia_w
-    (B, N+1, 3, 3)."""
+                       vel, omega, dt, inv_mass_eff=None,
+                       inv_inertia_eff=None) -> ContactPrep:
+    """body_pos/vel/omega (B, N+1, 3), inv_mass (N+1,) or (B, N+1),
+    inv_inertia_w (B, N+1, 3, 3).  `inv_mass` / `inv_inertia_w` apply the
+    impulses; the effective masses come from `*_eff` where given (the
+    split bodies of split_jacobi), else from the same arrays."""
     ia, ib = ct.body_a, ct.body_b
     batch = body_pos.shape[0]
-    im_a = inv_mass[ia].expand(batch, -1)
-    im_b = inv_mass[ib].expand(batch, -1)
-    ii_a, ii_b = inv_inertia_w[:, ia], inv_inertia_w[:, ib]
 
-    r_a = ct.point - body_pos[:, ia][:, :, None, :]
-    r_b = ct.point - body_pos[:, ib][:, :, None, :]
+    def per_scene(x):
+        return x.expand(batch, -1) if x.dim() == 1 else x
 
-    va = vel[:, ia][:, :, None, :] + m.cross(omega[:, ia][:, :, None, :], r_a)
-    vb = vel[:, ib][:, :, None, :] + m.cross(omega[:, ib][:, :, None, :], r_b)
+    inv_mass = per_scene(inv_mass)
+    im_a, im_b = gather_rows(inv_mass, ia), gather_rows(inv_mass, ib)
+    ii_a, ii_b = gather_rows(inv_inertia_w, ia), gather_rows(inv_inertia_w, ib)
+    if inv_mass_eff is None:
+        im_ea, im_eb = im_a, im_b
+    else:
+        inv_mass_eff = per_scene(inv_mass_eff)
+        im_ea = gather_rows(inv_mass_eff, ia)
+        im_eb = gather_rows(inv_mass_eff, ib)
+    if inv_inertia_eff is None:
+        ii_ea, ii_eb = ii_a, ii_b
+    else:
+        ii_ea = gather_rows(inv_inertia_eff, ia)
+        ii_eb = gather_rows(inv_inertia_eff, ib)
+
+    r_a = ct.point - gather_rows(body_pos, ia)[:, :, None, :]
+    r_b = ct.point - gather_rows(body_pos, ib)[:, :, None, :]
+
+    va = gather_rows(vel, ia)[:, :, None, :] + m.cross(
+        gather_rows(omega, ia)[:, :, None, :], r_a)
+    vb = gather_rows(vel, ib)[:, :, None, :] + m.cross(
+        gather_rows(omega, ib)[:, :, None, :], r_b)
     relv = vb - va
     n = ct.normal[:, :, None, :]
     vrel_n = torch.sum(relv * n, dim=-1)
@@ -118,10 +180,14 @@ def prep_contacts_full(ct: ContactTable, body_pos, inv_mass, inv_inertia_w,
     def eff(direction):
         cr_a = m.cross(r_a, direction)
         cr_b = m.cross(r_b, direction)
+        # Impulses apply at the true inertia ...
         ii_cr_a = mv34(ii_a, cr_a)
         ii_cr_b = mv34(ii_b, cr_b)
-        k = (im_a[..., None] + torch.sum(cr_a * ii_cr_a, dim=-1)
-             + im_b[..., None] + torch.sum(cr_b * ii_cr_b, dim=-1))
+        # ... effective masses see the (possibly split) one.
+        ii_ecr_a = ii_cr_a if ii_ea is ii_a else mv34(ii_ea, cr_a)
+        ii_ecr_b = ii_cr_b if ii_eb is ii_b else mv34(ii_eb, cr_b)
+        k = (im_ea[..., None] + torch.sum(cr_a * ii_ecr_a, dim=-1)
+             + im_eb[..., None] + torch.sum(cr_b * ii_ecr_b, dim=-1))
         safe = torch.where(k == 0.0, torch.ones_like(k), k)
         eff_mass = torch.where(k != 0.0, 1.0 / safe, torch.zeros_like(k))
         return eff_mass, ii_cr_a, ii_cr_b
@@ -207,3 +273,62 @@ def solve_contacts_colored(prep: ContactPrep, plans: Sequence[ColorPlan],
         scatter_bodies(plan, vel, omega, va, wa, vb, wb)
         imp_n[:, plan.rows] = new_n
         imp_t[:, plan.rows] = new_t
+
+
+def _solve_all_rows(prep: ContactPrep, pmask, vel, omega, imp_n, imp_t):
+    """Every row at once from the same velocities, under `pmask`; the
+    velocity deltas summed into vel / omega in place."""
+    p = {f: getattr(prep, f) for f in _ROW_FIELDS}
+    p["pmask"] = pmask
+    ia, ib = prep.body_a, prep.body_b
+    va0, wa0 = gather_rows(vel, ia), gather_rows(omega, ia)
+    vb0, wb0 = gather_rows(vel, ib), gather_rows(omega, ib)
+    va, wa, vb, wb, _, _ = _solve_rows(p, va0, wa0, vb0, wb0, imp_n, imp_t)
+    scatter_add_rows(vel, ia, va - va0)
+    scatter_add_rows(omega, ia, wa - wa0)
+    scatter_add_rows(vel, ib, vb - vb0)
+    scatter_add_rows(omega, ib, wb - wb0)
+
+
+def solve_contacts_split_jacobi(prep: ContactPrep, vel, omega, imp_n, imp_t):
+    """One mass-splitting Jacobi iteration: all rows in parallel, deltas
+    summed.  `prep` comes from degree-scaled effective masses.  Updates
+    `vel`, `omega` (B, N+1, 3, contiguous), `imp_n` and `imp_t` in place."""
+    _solve_all_rows(prep, prep.pmask, vel, omega, imp_n, imp_t)
+
+
+def runtime_color(ia, ib, active, dyn_a, dyn_b, num_slots: int,
+                  num_colors: int):
+    """Greedy parallel coloring of a runtime contact graph, per scene: in
+    each of `num_colors - 1` claim passes every unclaimed active row offers
+    its id to its dynamic bodies (minimum wins), and rows that win all of
+    theirs take the pass's color.  Rows never claimed land in the last
+    color, which is not conflict-free.  ia, ib, active, dyn_a, dyn_b (B, P).
+    Returns (color (B, P), leftover active rows per scene (B,))."""
+    batch, p = ia.shape
+    rowid = torch.arange(p, device=ia.device).expand(batch, -1)
+    color = torch.full((batch, p), num_colors - 1, dtype=torch.int64,
+                       device=ia.device)
+    unclaimed = active
+    for c in range(num_colors - 1):
+        slots = torch.full((batch, num_slots), p, dtype=torch.int64,
+                           device=ia.device)
+        slots.scatter_reduce_(1, ia, torch.where(unclaimed & dyn_a, rowid, p),
+                              reduce="amin")
+        slots.scatter_reduce_(1, ib, torch.where(unclaimed & dyn_b, rowid, p),
+                              reduce="amin")
+        won = (unclaimed & (~dyn_a | (torch.gather(slots, 1, ia) == rowid))
+               & (~dyn_b | (torch.gather(slots, 1, ib) == rowid)))
+        color = torch.where(won, c, color)
+        unclaimed = unclaimed & ~won
+    return color, torch.sum(unclaimed, dim=-1)
+
+
+def solve_contacts_runtime_gs(prep: ContactPrep, color, num_colors: int,
+                              vel, omega, imp_n, imp_t):
+    """One Gauss-Seidel iteration over runtime colors: color by color, the
+    rows of a color solve at once (they share no dynamic body) and their
+    deltas are summed in.  Updates in place."""
+    for c in range(num_colors):
+        _solve_all_rows(prep, prep.pmask & (color == c)[..., None], vel,
+                        omega, imp_n, imp_t)

@@ -284,11 +284,7 @@ class ColoredSolver:
     def _color_plans(self, device):
         if device not in self._plans:
             arch = self.arch
-            joint_plans = tuple(
-                solver_mod.color_plans(arch.joint_color_indices[k],
-                                       t.body_a.to(device), t.body_b.to(device),
-                                       self.dynamic)
-                for k, t in enumerate(arch.joints))
+            joint_plans = joints_mod.color_plans_of(arch, device)
             contact_plans = []
             if self.num_pairs > 0:
                 ia, ib = (torch.as_tensor(x, device=device)

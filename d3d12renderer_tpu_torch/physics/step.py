@@ -2,11 +2,14 @@
 
 Per substep, unless the fused whole-substep kernel takes it
 (`substep_cuda.make_fused_substep`, for supported archetypes on CUDA
-tensors): collider poses -> narrowphase (plane rows, then the
-collider-pair buckets) -> gravity, damping and force integration -> contact
-and joint prep -> the colored solve (the CUDA kernel for CUDA tensors) ->
-semi-implicit Euler.  The scene batch is the leading axis of every state
-tensor.
+tensors): collider poses -> narrowphase (plane rows, the collider-pair
+buckets, the runtime broadphase's rows) -> gravity, damping and force
+integration -> contact and joint prep -> the solve -> semi-implicit Euler.
+The solve is the colored one (the CUDA kernel for CUDA tensors) in
+contact_mode "colored"; in "split_jacobi" and "runtime_gs" each of the
+`solver_iterations` iterations runs the joints' colored sweep and then the
+contact mode's solve, in plain PyTorch, as the JAX package does in XLA.
+The scene batch is the leading axis of every state tensor.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..core import maths as m
-from . import collide, joints as joints_mod, solver, solver_cuda, substep_cuda
+from . import (broadphase, collide, joints as joints_mod, solver, solver_cuda,
+               substep_cuda)
 from .narrow import ContactTable
 from .types import BodyState, PhysicsSettings, SceneArchetype
 
@@ -62,16 +66,20 @@ class SubstepPrep:
     joint_preps: Tuple[dict, ...]
     vel1: torch.Tensor                    # (B, N+1, 3) after forces
     omega1: torch.Tensor
+    # runtime_gs: each row's color (B, P).
+    contact_colors: Optional[torch.Tensor] = None
+
+
+CONTACT_MODES = ("colored", "split_jacobi", "runtime_gs")
 
 
 def _check_settings(settings: PhysicsSettings):
     if settings.fused_substep not in ("auto", "force", "off"):
         raise ValueError("fused_substep must be 'auto', 'force' or 'off', "
                          f"not {settings.fused_substep!r}")
-    if settings.contact_mode != "colored":
-        raise NotImplementedError(
-            f"contact_mode={settings.contact_mode!r} is not ported yet "
-            "(ROADMAP.md Queue 1: slice 2, split_jacobi/runtime_gs)")
+    if settings.contact_mode not in CONTACT_MODES:
+        raise ValueError(f"contact_mode must be one of {CONTACT_MODES}, not "
+                         f"{settings.contact_mode!r}")
     if settings.solver_backend not in ("auto", "kernel", "plain"):
         raise ValueError("solver_backend must be 'auto', 'kernel' or 'plain', "
                          f"not {settings.solver_backend!r}")
@@ -80,6 +88,13 @@ def _check_settings(settings: PhysicsSettings):
 def substep_prep(arch: SceneArchetype, state: BodyState, dt: float,
                  settings: PhysicsSettings, motor_overrides=None) -> SubstepPrep:
     """Contacts, force integration and constraint prep of one substep."""
+    mode = settings.contact_mode
+    if arch.sap_neighbors > 0 and mode == "colored":
+        raise ValueError(
+            "runtime broadphase (finalize(broadphase='sap')) produces dynamic "
+            "pair sets that cannot be statically colored; use "
+            "PhysicsSettings(contact_mode='split_jacobi') (or 'runtime_gs' "
+            "for validation runs)")
     # Contacts from the pre-integration poses.
     contacts = collide.generate_contacts(arch, state)
     vel, omega, inv_inertia_w = integrate_forces(
@@ -91,19 +106,69 @@ def substep_prep(arch: SceneArchetype, state: BodyState, dt: float,
     vel1 = _append_world(vel)
     omega1 = _append_world(omega)
     ii_w1 = _append_world(inv_inertia_w)
-    contact_prep = None
-    if contacts is not None:
-        contact_prep = solver.prep_contacts_full(
-            contacts, pos1, arch.inv_mass, ii_w1, vel1, omega1, dt)
+    if arch.sap_neighbors > 0 and arch.sap_active_budget > 0:
+        # Only the manifolds that hit go on to prep and the solve.
+        contacts = broadphase.compact_active(contacts,
+                                             arch.sap_active_budget)
+    inv_mass1 = arch.inv_mass
+    contact_prep = colors = None
+    if contacts is not None and contacts.active.shape[-1] > 0:
+        if mode == "split_jacobi":
+            # Effective masses see each body split into `deg` pieces, so
+            # each row under-corrects by 1/deg; impulses apply at the true
+            # masses.
+            deg = solver.contact_degrees(contacts, arch.num_bodies + 1)
+            contact_prep = solver.prep_contacts_full(
+                contacts, pos1, inv_mass1, ii_w1, vel1, omega1, dt,
+                inv_mass_eff=inv_mass1 * deg,
+                inv_inertia_eff=ii_w1 * deg[..., None, None])
+        else:
+            contact_prep = solver.prep_contacts_full(
+                contacts, pos1, inv_mass1, ii_w1, vel1, omega1, dt)
+        if mode == "runtime_gs":
+            batch = pos1.shape[0]
+            ia = contacts.body_a.expand(batch, -1)
+            ib = contacts.body_b.expand(batch, -1)
+            colors, _ = solver.runtime_color(
+                ia, ib, contacts.active, inv_mass1[ia] > 0, inv_mass1[ib] > 0,
+                arch.num_bodies + 1, settings.runtime_gs_colors)
 
     rot1 = _append_world(state.rot)
     rot1[:, -1, 3] = 1.0
     ctx = joints_mod.JointContext(
-        pos1=pos1, rot1=rot1, inv_mass1=arch.inv_mass, ii_w1=ii_w1,
+        pos1=pos1, rot1=rot1, inv_mass1=inv_mass1, ii_w1=ii_w1,
         local_cog1=arch.local_cog, dt=dt)
     joint_preps = joints_mod.prep_all(arch, ctx, motor_overrides)
     return SubstepPrep(contacts=contacts, contact_prep=contact_prep,
-                       joint_preps=joint_preps, vel1=vel1, omega1=omega1)
+                       joint_preps=joint_preps, vel1=vel1, omega1=omega1,
+                       contact_colors=colors)
+
+
+def solve_iterations(arch: SceneArchetype, sp: SubstepPrep,
+                     settings: PhysicsSettings):
+    """The split_jacobi / runtime_gs solve: per iteration the joints'
+    colored sweep, then the contacts.  Returns (vel1, omega1)."""
+    vel1, omega1 = sp.vel1.clone(), sp.omega1.clone()
+    batch = vel1.shape[0]
+    plans = joints_mod.color_plans_of(arch, vel1.device)
+    impulses = joints_mod.init_impulses(arch, batch, vel1.dtype, vel1.device)
+    prep = sp.contact_prep
+    if prep is not None:
+        imp_n = vel1.new_zeros(prep.pmask.shape)
+        imp_t = vel1.new_zeros(prep.pmask.shape)
+    for _ in range(settings.solver_iterations):
+        joints_mod.solve_all_one_iteration(arch, plans, sp.joint_preps,
+                                           impulses, vel1, omega1)
+        if prep is None:
+            continue
+        if settings.contact_mode == "split_jacobi":
+            solver.solve_contacts_split_jacobi(prep, vel1, omega1, imp_n,
+                                               imp_t)
+        else:
+            solver.solve_contacts_runtime_gs(prep, sp.contact_colors,
+                                             settings.runtime_gs_colors, vel1,
+                                             omega1, imp_n, imp_t)
+    return vel1, omega1
 
 
 def physics_substep(arch: SceneArchetype, state: BodyState, dt: float,
@@ -121,7 +186,9 @@ def physics_substep(arch: SceneArchetype, state: BodyState, dt: float,
     n = arch.num_bodies
     sp = substep_prep(arch, state, dt, settings, motor_overrides)
     vel1, omega1 = sp.vel1, sp.omega1
-    if arch.joints or sp.contact_prep is not None:
+    if settings.contact_mode != "colored":
+        vel1, omega1 = solve_iterations(arch, sp, settings)
+    elif arch.joints or sp.contact_prep is not None:
         num_pairs = 0 if sp.contacts is None else sp.contacts.body_a.shape[0]
         solve = solver_cuda.make_colored_solver(
             arch, num_pairs, settings.solver_iterations, settings.solver_backend)

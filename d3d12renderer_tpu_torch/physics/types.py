@@ -9,7 +9,7 @@ A scene is compiled once into fixed-shape structure-of-arrays tables
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -84,8 +84,9 @@ class JointTable:
 @dataclass
 class SceneArchetype:
     """Compiled static scene: the fields of the JAX archetype that the
-    colored-solver path reads (plane rows and static pair buckets).  Body
-    tables have N+1 rows; the last one is the static world body."""
+    port reads (plane rows, static pair buckets, hull tables and the
+    runtime broadphase's settings).  Body tables have N+1 rows; the last one
+    is the static world body."""
 
     inv_mass: torch.Tensor          # (N+1,)
     inv_inertia: torch.Tensor       # (N+1, 3, 3) local inverse inertia
@@ -130,6 +131,27 @@ class SceneArchetype:
     vs_plane_num_colors: int
     # Static (shape_type, start, end) runs of the type-sorted plane rows.
     vs_plane_segments: Tuple[Tuple[int, int, int], ...] = ()
+
+    # Runtime broadphase (physics/broadphase.py), as in the JAX archetype.
+    # sap_neighbors 0: collider pairs come from the static buckets only;
+    # > 0: from the sweep (window of sap_neighbors sorted neighbours, at
+    # most sap_row_cap partners per collider) or the dense AABB test each
+    # substep, compacted to sap_max_contacts candidate rows and then to
+    # sap_active_budget active rows (0: no compaction).  Such scenes need
+    # contact_mode "split_jacobi" or "runtime_gs".
+    sap_neighbors: int = 0
+    sap_max_contacts: int = 0
+    sap_row_cap: int = 16
+    sap_mode: str = "sweep"
+    sap_active_budget: int = 0
+    # The (type_a, type_b) combos present among the colliders, type_a <= type_b.
+    sap_type_pairs: Tuple[Tuple[int, int], ...] = ()
+    # (C, C) upper-triangular pair admissibility for the dense test (empty
+    # for static scenes); the sweep reads the per-body attributes instead.
+    sap_collidable: Optional[torch.Tensor] = None   # (C, C) bool
+    sap_body_kinematic: Optional[torch.Tensor] = None  # (N,) bool
+    sap_body_group: Optional[torch.Tensor] = None   # (N,) int64, -1 = none
+    sap_joint_excl: Optional[torch.Tensor] = None   # (E, 2) body pairs, lo < hi
     # Derived static data (solver metadata, device index arrays), built on
     # first use and kept for the archetype's life.
     cache: dict = field(default_factory=dict, repr=False, compare=False)
@@ -156,9 +178,13 @@ class PhysicsSettings:
     picks the unfused step's solve: "auto" (the CUDA kernel for CUDA
     tensors, the plain PyTorch solve for CPU tensors), "kernel" (the CUDA
     kernel; raises on CPU tensors) or "plain" (the plain PyTorch solve on any
-    device; it also keeps the fused kernel out).  Only
-    `contact_mode="colored"` is ported; the step raises
-    `NotImplementedError` for the others."""
+    device; it also keeps the fused kernel out).  `contact_mode` takes
+    "colored" (the static colors' Gauss-Seidel solve), "split_jacobi"
+    (mass-splitting Jacobi) or "runtime_gs" (Gauss-Seidel over colors found
+    each substep, `runtime_gs_colors` of them).  `jacobi_matmul_threshold`
+    is accepted and has no effect: the JAX package switches its Jacobi
+    gather / scatter to one-hot matmuls above it because XLA's TPU
+    scatter-add serialises; the port always gathers and scatter-adds."""
 
     frame_rate: int = 120
     max_substeps: int = 4

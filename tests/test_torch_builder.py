@@ -12,7 +12,9 @@ from d3d12renderer_tpu.physics.types import PhysicsSettings as JaxSettings
 from d3d12renderer_tpu_torch.convert import archetype_to_numpy
 from d3d12renderer_tpu_torch.core import maths
 from d3d12renderer_tpu_torch.learning.loco_env import LocoEnv
+from d3d12renderer_tpu_torch.models import scenes
 from d3d12renderer_tpu_torch.physics.builder import SceneBuilder
+from d3d12renderer_tpu_torch.physics.types import MAX_HULL_VERTS
 
 torch.set_num_threads(1)
 
@@ -64,19 +66,112 @@ def _two_spheres(b):
     return a, c
 
 
-@pytest.mark.parametrize("unported", [
-    lambda b: b.finalize(broadphase="sap", device="cpu"),
-    lambda b: b.add_force_field((0, 1, 0), 1.0, 10.0),
-    lambda b: b.add_trigger((0, 1, 0), 1.0),
-    lambda b: b.add_terrain(np.zeros((4, 4))),
-    lambda b: b.add_hull_collider(0, np.eye(3)),
-    lambda b: b.add_cylinder_collider(0, 0.5, 0.5),
-])
-def test_builder_refuses_what_is_not_ported(unported):
-    b = SceneBuilder()
-    _two_spheres(b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        unported(b)
+def _assert_same_archetype(got, want):
+    """Field by field: ints and masks equal, floats within 1e-6."""
+    got, want = archetype_to_numpy(got), archetype_to_numpy(want)
+    assert set(got) == set(want)
+    for name in sorted(want):
+        g, w = got[name], want[name]
+        assert g.shape == w.shape and g.dtype.kind == w.dtype.kind, name
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+_TETRAHEDRON = np.vstack([np.zeros(3), np.eye(3)]) - 0.25
+
+
+# (call on the two-sphere scene, finalize arguments, ported): what is not
+# ported yet raises; the runtime broadphase, hulls and cylinders compile.
+@pytest.mark.parametrize("call,finalize,ported", [
+    (lambda b: None, dict(broadphase="sap"), True),
+    (lambda b: b.add_force_field((0, 1, 0), 1.0, 10.0), {}, False),
+    (lambda b: b.add_trigger((0, 1, 0), 1.0), {}, False),
+    (lambda b: b.add_terrain(np.zeros((4, 4))), {}, False),
+    (lambda b: b.add_hull_collider(0, _TETRAHEDRON), {}, True),
+    (lambda b: b.add_cylinder_collider(0, 0.5, 0.5), {}, True),
+], ids=[f"unported{i}" for i in range(6)])
+def test_builder_refuses_what_is_not_ported(call, finalize, ported):
+    """Terrains, force fields and triggers raise NotImplementedError naming
+    their ROADMAP item; the runtime broadphase, hull and cylinder colliders
+    compile to JAX's archetype."""
+    if not ported:
+        b = SceneBuilder()
+        _two_spheres(b)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call(b)
+        return
+    jb, tb = JaxSceneBuilder(), SceneBuilder()
+    for b in (jb, tb):
+        _two_spheres(b)
+        call(b)
+    _assert_same_archetype(tb.finalize(device="cpu", **finalize)[0],
+                           jb.finalize(**finalize)[0])
+
+
+def _convex_zoo(b, rng):
+    """Bodies with hulls (one of 60 points on an ellipsoid, capped at
+    MAX_HULL_VERTS), cylinders and boxes at offsets and rotations, one
+    hinge."""
+    b.add_static_plane((0.0, 1.0, 0.0), 0.0)
+    turn = (0.0, 0.0, np.sin(0.3), np.cos(0.3))
+    for i in range(4):
+        body = b.add_body((1.5 * i, 1.0, 0.0), mass=(2.0 if i == 3 else None))
+        pts = rng.normal(0, 1, (60 if i == 0 else 12, 3))
+        if i == 0:
+            pts = pts / np.linalg.norm(pts, axis=-1, keepdims=True)
+        b.add_hull_collider(body, pts * [0.3, 0.2, 0.25],
+                            center=(0.1, 0.0, 0.05 * i), rotation=turn,
+                            density=500.0 + 100 * i)
+        b.add_cylinder_collider(body, 0.2 + 0.05 * i, 0.3, center=(0, 0.4, 0),
+                                rotation=turn)
+        if i % 2:
+            b.add_box_collider(body, (0.1, 0.2, 0.3), center=(0, -0.3, 0))
+    b.add_hinge_joint(0, 1, (0.75, 1.0, 0.0), (0.0, 0.0, 1.0))
+
+
+@pytest.mark.parametrize("finalize", [
+    {}, dict(broadphase="sap"),
+    dict(broadphase="sap", sap_neighbors=8, sap_max_contacts=40,
+         sap_algorithm="dense", sap_active_budget=20, sap_row_cap=4),
+], ids=["static", "sap", "sap_dense"])
+def test_hull_and_cylinder_tables_match_jax(finalize):
+    """Hull mass properties (tetrahedra of the scipy hull) and the padded
+    vertex tables, cylinder masses, bound radii, pair buckets or the
+    broadphase's tables: JAX's archetype and initial state."""
+    jb, tb = JaxSceneBuilder(), SceneBuilder()
+    for b in (jb, tb):
+        _convex_zoo(b, np.random.default_rng(5))
+    jarch, jstate = jb.finalize(**finalize)
+    tarch, tstate = tb.finalize(device="cpu", **finalize)
+    _assert_same_archetype(tarch, jarch)
+    assert int(tarch.col_hull_mask[0].sum()) == MAX_HULL_VERTS
+    assert bool(tarch.col_hull_mask[1:].any())
+    for f in ("pos", "rot"):
+        np.testing.assert_allclose(getattr(tstate, f)[0].numpy(),
+                                   np.asarray(getattr(jstate, f)), rtol=0,
+                                   atol=1e-6)
+
+
+def test_stack_drop_1k_archetype_matches_jax():
+    """BASELINE config 1's scene at 1,000 bodies through both builders with
+    its broadphase settings: every table, the (C, C) admissibility and the
+    per-body attributes of the sweep included."""
+    jb, tb = JaxSceneBuilder(), SceneBuilder()
+    for b in (jb, tb):
+        scenes.add_stack_drop_1k(b, 1000)
+    jarch, jstate = jb.finalize(**scenes.STACK_DROP_1K_FINALIZE)
+    tarch, tstate = tb.finalize(device="cpu", **scenes.STACK_DROP_1K_FINALIZE)
+    _assert_same_archetype(tarch, jarch)
+    assert (tarch.sap_neighbors, tarch.sap_max_contacts, tarch.sap_row_cap,
+            tarch.sap_active_budget, tarch.sap_mode) == (160, 4096, 16, 3072,
+                                                         "sweep")
+    assert tarch.sap_type_pairs == ((0, 0), (0, 2), (2, 2))
+    assert tarch.contact_buckets == () and tarch.num_colliders == 1000
+    assert int(tarch.sap_collidable.sum()) == 1000 * 999 // 2
+    np.testing.assert_allclose(tstate.pos[0].numpy(), np.asarray(jstate.pos),
+                               rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("now_ported", [
@@ -94,13 +189,7 @@ def test_builder_compiles_pairs_and_sliders(now_ported):
     for b in (jb, tb):
         _two_spheres(b)
         now_ported(b)
-    want = archetype_to_numpy(jb.finalize()[0])
-    got = archetype_to_numpy(tb.finalize(device="cpu")[0])
-    assert set(got) == set(want)
-    for name in sorted(want):
-        g, w = got[name], want[name]
-        assert g.shape == w.shape and g.dtype.kind == w.dtype.kind, name
-        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6, err_msg=name)
+    _assert_same_archetype(tb.finalize(device="cpu")[0], jb.finalize()[0])
 
 
 def test_unknown_joint_kind_is_refused():

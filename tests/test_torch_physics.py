@@ -106,7 +106,8 @@ def both():
         tsub, _ = step.physics_substep(tenv.arch, tstate, DT, tenv.settings,
                                        tenv._motor_overrides(taction))
     return dict(jax=jout, jax_substep=jsub, port=sp, port_solve=(tv, tw),
-                port_substep=tsub, env=tenv)
+                port_substep=tsub, env=tenv, jenv=jenv, state=state_np,
+                action=action_np)
 
 
 def _close(got, want, atol, what, rtol=0.0):
@@ -221,17 +222,100 @@ def test_substep_matches_jax(both, field, atol):
            getattr(both["jax_substep"], field), atol, field)
 
 
+@pytest.fixture(scope="module")
+def jax_steps():
+    """JAX's substep of `both`'s inputs under given settings, one jit per
+    settings."""
+    cache = {}
+
+    def get(both, settings):
+        js = JaxSettings(frame_rate=settings.frame_rate,
+                         contact_mode=settings.contact_mode,
+                         fused_substep=settings.fused_substep)
+        if js not in cache:
+            jenv = both["jenv"]
+            arch = jenv.arch
+
+            def sub(state, action):
+                return jstep.physics_substep(arch, state, DT, js,
+                                             jenv._motor_overrides(action))[0]
+
+            jstate = JaxBodyState(**{k: jnp.asarray(v)
+                                     for k, v in both["state"].items()})
+            cache[js] = jax.jit(jax.vmap(sub))(jstate,
+                                               jnp.asarray(both["action"]))
+        return cache[js]
+
+    return get
+
+
 @pytest.mark.parametrize("settings,error", [
-    (PhysicsSettings(frame_rate=60, contact_mode="runtime_gs"),     # fused auto
-     NotImplementedError),
+    (PhysicsSettings(frame_rate=60, contact_mode="runtime_gs"), None),
     (PhysicsSettings(frame_rate=60, fused_substep="force",
-                     contact_mode="split_jacobi"), NotImplementedError),
+                     contact_mode="split_jacobi"), None),
     (PhysicsSettings(frame_rate=60, fused_substep="off",
-                     contact_mode="split_jacobi"), NotImplementedError),
+                     contact_mode="split_jacobi"), None),
     (PhysicsSettings(frame_rate=60, fused_substep="off",
                      solver_backend="xla"), ValueError),
-])
-def test_unported_settings_raise(both, settings, error):
+], ids=["settings0-NotImplementedError", "settings1-NotImplementedError",
+        "settings2-NotImplementedError", "settings3-ValueError"])
+def test_unported_settings_raise(both, jax_steps, settings, error):
+    """solver_backend="xla" (the JAX package's own backend) is refused.  The
+    runtime_gs and split_jacobi contact modes step the ragdoll: the fused
+    route refuses them (fused "auto" and "force"), as in the JAX package,
+    and one substep of the generic loop matches JAX's (pos/rot 5e-6, vel
+    5e-5, omega 5e-4)."""
     env = both["env"]
-    with pytest.raises(error):
-        step.physics_step(env.arch, env._state0, settings, DT)
+    if error is not None:
+        with pytest.raises(error):
+            step.physics_step(env.arch, env._state0, settings, DT)
+        return
+    tstate = body_state_from_numpy(both["state"], device="cpu")
+    got, _ = step.physics_substep(
+        env.arch, tstate, DT, settings,
+        env._motor_overrides(torch.as_tensor(both["action"])))
+    want = jax_steps(both, settings)
+    for field, atol in (("pos", 5e-6), ("rot", 5e-6), ("vel", 5e-5),
+                        ("omega", 5e-4)):
+        _close(getattr(got, field), getattr(want, field), atol, field)
+
+
+def test_prep_takes_shared_and_per_scene_body_indices(both):
+    """The ragdoll's contact table names its bodies with (P,) indices; the
+    same table with them expanded to (B, P), as the runtime broadphase
+    gives them, preps bit-equal, split masses included, and the Jacobi
+    scatter of both sums the same."""
+    from dataclasses import replace
+
+    from d3d12renderer_tpu_torch.physics import solver
+
+    env = both["env"]
+    arch = env.arch
+    tstate = body_state_from_numpy(both["state"], device="cpu")
+    ct = both["port"].contacts
+    ct_b = replace(ct, body_a=ct.body_a.expand(B, -1),
+                   body_b=ct.body_b.expand(B, -1))
+    vel, omega, ii_w = step.integrate_forces(
+        arch, tstate.pos, tstate.rot, tstate.vel, tstate.omega, tstate.force,
+        tstate.torque, DT, (0.0, 0.0, 0.0))
+    args = [step._append_world(x) for x in (tstate.pos,)] + [
+        arch.inv_mass, step._append_world(ii_w), step._append_world(vel),
+        step._append_world(omega), DT]
+    preps = []
+    for table in (ct, ct_b):
+        deg = solver.contact_degrees(table, arch.num_bodies + 1)
+        preps.append(solver.prep_contacts_full(
+            table, *args, inv_mass_eff=arch.inv_mass * deg,
+            inv_inertia_eff=args[2] * deg[..., None, None]))
+        assert deg.shape == (B, arch.num_bodies + 1) and deg.max() > 1
+    for f in solver.ContactPrep.__dataclass_fields__:
+        a, b = getattr(preps[0], f), getattr(preps[1], f)
+        assert torch.equal(a.expand(b.shape), b), f
+    out = []
+    for prep in preps:
+        v, w = args[3].clone(), args[4].clone()
+        imp = torch.zeros(prep.pmask.shape)
+        solver.solve_contacts_split_jacobi(prep, v, w, imp, imp.clone())
+        out.append((v, w))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1],
+                                                             out[1][1])

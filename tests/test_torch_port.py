@@ -237,6 +237,8 @@ def _entry_points():
         "pathtrace_entry": (entry.pathtrace_entry, lambda f: f()),
         "raster_entry": (entry.raster_entry, lambda f: f()),
         "train_entry": (entry.train_entry, lambda f: f()),
+        "stack_drop_entry": (entry.stack_drop_entry, lambda f: f()),
+        "vehicle_entry": (entry.vehicle_entry, lambda f: f()),
         "train_state_from_numpy": (convert.train_state_from_numpy, None),
         "initial_frame_state": (pipeline.initial_frame_state,
                                 lambda f: f(8, 8)),
