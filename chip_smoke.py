@@ -27,9 +27,18 @@ the paths:
   scene at 4096 scenes for 400 steps;
 * runtime physics, plain PyTorch with no kernel of its own: BASELINE
   config 1 (`entry.stack_drop_entry`: 1,000 boxes and spheres x 8 scenes,
-  sweep-and-prune broadphase, split-Jacobi, 300 frames, then runtime
-  Gauss-Seidel on the settled piles) and config 4 (`entry.vehicle_entry`:
-  the gear-train vehicle x 8, cylinders through GJK, split-Jacobi);
+  sweep-and-prune broadphase, split-Jacobi, 300 frames, then one frame of
+  runtime Gauss-Seidel on the settled piles) and config 4
+  (`entry.vehicle_entry`: the gear-train vehicle x 8, cylinders through
+  GJK, split-Jacobi);
+* terrain and cloth (`terrain_and_cloth`, last): examples/showcase.py's
+  drop onto a 65 x 65 heightmap (`entry.terrain_entry`, 4096 scenes, 180
+  frames with collision events; its terrain rows through the
+  colored-solver kernel), raycasts and pokes on its piles, the
+  triangle-exact ridge (1024 scenes, the colored-solver kernel), cloth
+  against a sphere and a capsule (`entry.cloth_entry`, BASELINE config 3
+  at 32 x 32 x 256 and 256 x 256 x 8; every rigid step one fused launch)
+  and the vehicle on terrain (`entry.vehicle_terrain_entry`);
 
 and checks what comes out.  Both solver kernels run at every team width
 (8, 16 and 32 lanes per scene) and at ragged batches against their plain
@@ -196,7 +205,9 @@ STACK_TOL = 0.05
 # in x-z), those at throttle 8 after VEHICLE_DRIVE_STEPS (intact, motor gear
 # above 2 rad/s, drive axis above 0.3).
 STACK_1K_BODIES, STACK_1K_BATCH, STACK_1K_STEPS = 1000, 8, 300
-STACK_GS_STEPS = 3
+# One frame: the check's bounds after it are those of three (the reference
+# tool's CPU readings cover frame 1), and each frame costs 30-50 s.
+STACK_GS_STEPS = 1
 GS_MEAN_DRIFT, GS_MIN_DRIFT = 5e-3, 2e-2
 PHYS_CHECK_EVERY = 25
 PHYS_PROFILE_STEPS = 1
@@ -204,6 +215,38 @@ STACK_1K_FLOOR, STACK_1K_BOUND = -0.2, 100.0
 VEHICLE_BATCH = 8
 VEHICLE_STEPS, VEHICLE_REST_STEPS, VEHICLE_DRIVE_STEPS = 100, 120, 180
 VEHICLE_THROTTLES = (10.0,) * 4 + (8.0,) * 2 + (0.0,) * 2
+
+# Terrain, events, raycasts and cloth (run last).  examples/showcase.py's
+# drop through terrain_entry: TERRAIN_BATCH scenes, TERRAIN_FRAMES frames of
+# 1/60 s (2 substeps, one colored-solver launch each) with collision events;
+# every body ends at least TERRAIN_CLEARANCE above the bilinear surface
+# under it (its half extent less 5 cm), and every body of every scene has a
+# terrain-row begin event faster than IMPACT_SPEED (showcase's audio
+# threshold).  The ridge (terrain_entry(scene="ridge"), triangle-exact):
+# RIDGE_BATCH scenes, RIDGE_FRAMES frames, the box above RIDGE_FLOOR at
+# every frame (the vertex-only narrowphase sinks it to ~1.45).  Cloth
+# (cloth_entry, BASELINE config 3) at each CLOTH_RUNS (grid, scenes) for
+# CLOTH_FRAMES frames: the top row pinned, the cloth at least
+# CLOTH_CLEARANCE from the sphere's centre every 20 frames, the ball past
+# x = 0.5 at the end (tests/test_cloth.py:126-128).  The vehicle on terrain
+# (vehicle_terrain_entry) for VT_FRAMES frames.  Card against the CPU: the
+# drop's first TERRAIN_REF_SCENES scenes for TERRAIN_REF_FRAMES frames from
+# the run's state after frame TERRAIN_REF_FROM, the cloth's first scenes for
+# CLOTH_REF_FRAMES frames, at REF_TOL.
+TERRAIN_BATCH, TERRAIN_FRAMES = 4096, 180
+TERRAIN_CLEARANCE = 0.45 - 0.05
+IMPACT_SPEED = 0.8
+# The box lands on the crest at about frame 19; the ridge runs 24 frames
+# (of a planned 30) and the vehicle 5 (of 10), to keep these phases within
+# 100 s (108 s at the full counts on an H100).
+RIDGE_BATCH, RIDGE_FRAMES, RIDGE_FLOOR = 1024, 24, 1.95
+CLOTH_RUNS = ((32, 256), (256, 8))
+CLOTH_FRAMES = 240
+CLOTH_CLEARANCE = 0.4 - 0.08
+VT_FRAMES = 5
+TERRAIN_REF_SCENES, TERRAIN_REF_FRAMES, CLOTH_REF_FRAMES = 4, 3, 5
+# Every body has landed by then (the highest falls 5.5 m: ~64 frames).
+TERRAIN_REF_FROM = 90
 
 # Training: train_entry at BASELINE config 5 (BASELINE.md:163): 4096 envs,
 # rollout 32 (its defaults); the median of TRAIN_ITERS iterations after a
@@ -1773,6 +1816,436 @@ def vehicle(card):
         fail("vehicle: the motor does not drive the gear train")
 
 
+def terrain_and_cloth(card, cuda_ms, max_err):
+    """Terrain, collision events, raycasts, pokes and cloth on the card:
+    examples/showcase.py's drop (kernel #1 on terrain rows), the
+    triangle-exact ridge (kernel #1), cloth against a sphere and a capsule
+    (kernel #2 on the rigid steps), the vehicle on terrain (plain PyTorch)
+    and `ray_cast` / `ray_poke` on the drop's piles.  Each path's launches
+    are counted from 0 around its run.  Returns the kernels line's entries
+    for the terrain and cloth paths."""
+    import torch
+
+    from d3d12renderer_tpu_torch.entry import (cloth_entry, terrain_entry,
+                                               vehicle_terrain_entry)
+    from d3d12renderer_tpu_torch.physics import (collide, events, raycast,
+                                                 solver_cuda, step,
+                                                 substep_cuda)
+    from d3d12renderer_tpu_torch.physics.types import PhysicsSettings
+    from d3d12renderer_tpu_torch.terrain.heightmap import (
+        sample_height_bilinear)
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    colored, fused_k = (solver_cuda.colored_solve_cuda,
+                        substep_cuda.fused_substep_cuda)
+    t_phase = time.perf_counter()
+    out = []
+
+    def ground(arch, pos):
+        h, _ = sample_height_bilinear(arch.terrain_height[0],
+                                      arch.terrain_origin[0],
+                                      arch.terrain_cell[0], pos[..., 0],
+                                      pos[..., 2])
+        return h
+
+    def colored_check(arch, st, what):
+        """Kernel #1 against its plain version on one substep's preps at
+        the state `st`; its CUDA-event time, the plain time and the bound
+        from this substep's tables and active points."""
+        settings = PhysicsSettings()
+        with torch.inference_mode():
+            sp = step.substep_prep(arch, st, 1.0 / settings.frame_rate,
+                                   settings)
+            solver = solver_cuda.ColoredSolver(
+                arch, sp.contacts.body_a.shape[0], ITERATIONS, "kernel")
+            args = (sp.joint_preps, sp.contact_prep, sp.vel1, sp.omega1)
+            kv, kw = solver(*args)
+            # The plain solve takes seconds at these batches: timed once,
+            # by events, on this first call.
+            t_start = torch.cuda.Event(enable_timing=True)
+            t_end = torch.cuda.Event(enable_timing=True)
+            t_start.record()
+            pv, pw = solver.plain(*args)
+            t_end.record()
+            sync()
+            p_ms = t_start.elapsed_time(t_end)
+            errs = (max_err(kv, pv), max_err(kw, pw))
+            batch = sp.vel1.shape[0]
+            prep = solver.pack_prep(sp.joint_preps, sp.contact_prep, batch,
+                                    dev)
+            arrays = solver.kernel_arrays(dev)
+
+            def kernel_only():
+                return colored(sp.vel1, sp.omega1, prep, arrays,
+                               len(solver.tables), solver.num_impulses,
+                               ITERATIONS)
+
+            k_ms = cuda_ms(kernel_only, 20)
+        q = arch.vs_plane_collider.shape[0]
+        q2 = arch.vs_terrain_collider.shape[0]
+        terrain_active = int(sp.contacts.active[:, q:q + q2].sum())
+        points = int(sp.contact_prep.pmask.sum().item())
+        b = bound(4 * (prep.numel() + 4 * sp.vel1.numel()),
+                  solve_flop(solver.tables, batch, points, ITERATIONS))
+        if terrain_active == 0:
+            fail(f"{what}: no terrain row is active at the kernel check")
+        if not (errs[0] <= VEL_TOL and errs[1] <= OMEGA_TOL):
+            fail(f"{what}: the colored kernel disagrees with its plain "
+                 f"version: {errs}")
+        return dict(errs=errs, ms=k_ms, plain_ms=p_ms, bound=b,
+                    terrain_active=terrain_active, points=points,
+                    colors=len(arch.contact_color_indices))
+
+    def kernel_entry(name, source, replaces, launches, chk):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(chk["errs"]), "ms": chk["ms"],
+                "plain_ms": chk["plain_ms"], "bound_ms": chk["bound"][0],
+                "bound_by": chk["bound"][1], "library_ms": None}
+
+
+    # 1. The terrain drop with events.
+    t0p = time.perf_counter()
+    fn, (arch, st0) = terrain_entry(device=dev, batch=TERRAIN_BATCH)
+    fn(st0)
+    sync()
+    q2 = arch.vs_terrain_collider.shape[0]
+    q = arch.vs_plane_collider.shape[0]
+    tbody = arch.vs_terrain_body
+    nb = arch.num_bodies
+    fast = torch.zeros((TERRAIN_BATCH, q2), dtype=torch.bool, device=dev)
+    began = torch.zeros_like(fast)
+    colored.launches = fused_k.launches = 0
+    st, prev = st0, None
+    t0 = time.perf_counter()
+    for f in range(TERRAIN_FRAMES):
+        st, contacts, ev = fn(st, prev)
+        prev = ev.active
+        tb = ev.begin[:, q:q + q2]
+        began |= tb
+        fast |= tb & (ev.approach_speed[:, q:q + q2] > IMPACT_SPEED)
+        if f == TERRAIN_REF_FROM:
+            snap = (st.replace(**{k: getattr(st, k)[:TERRAIN_REF_SCENES]
+                                  .clone() for k in BODY_FIELDS}),
+                    prev[:TERRAIN_REF_SCENES].clone())
+    sync()
+    secs = time.perf_counter() - t0
+    drop_launches = (colored.launches, fused_k.launches)
+    if drop_launches != (2 * TERRAIN_FRAMES, 0):
+        fail(f"terrain drop: {drop_launches} colored / fused launches in "
+             f"{TERRAIN_FRAMES} frames (want {2 * TERRAIN_FRAMES} and 0)")
+    if not _finite(st):
+        fail("terrain drop: non-finite state")
+    lift = st.pos[..., 1] - ground(arch, st.pos)
+    body_fast = torch.stack([fast[:, tbody == b].any(-1) for b in range(nb)],
+                            -1)
+    wall = 1e3 * secs / TERRAIN_FRAMES
+    kpf, dev_ms = _profiled(lambda n: [fn(st) for _ in range(n)])
+    drop_chk = colored_check(arch, st, "terrain drop")
+    # Card against the CPU from the snapshot after the first contacts.
+    cpu_fn, (cpu_arch, _) = terrain_entry(device="cpu",
+                                          batch=TERRAIN_REF_SCENES)
+    ref_gpu, pa_gpu = snap
+    ref_cpu = ref_gpu.replace(**{k: getattr(ref_gpu, k).cpu()
+                                 for k in BODY_FIELDS})
+    pa_cpu = pa_gpu.cpu()
+    for _ in range(TERRAIN_REF_FRAMES):
+        ref_gpu, _, eg = fn(ref_gpu, pa_gpu)
+        ref_cpu, _, ec = cpu_fn(ref_cpu, pa_cpu)
+        pa_gpu, pa_cpu = eg.active, ec.active
+    ref_err = max(max_err(getattr(ref_gpu, k).cpu(), getattr(ref_cpu, k))
+                  for k in ("pos", "rot"))
+    print(f"terrain drop (terrain_entry: examples/showcase.py's 65 x 65 "
+          f"heightmap, {nb} bodies x {TERRAIN_BATCH} scenes, "
+          f"{TERRAIN_FRAMES} frames of 2 substeps with events, "
+          f"{arch.num_contact_rows} contact rows ({q2} terrain) in "
+          f"{drop_chk['colors']} colors): {wall:.2f} "
+          f"ms per frame, colored launches {drop_launches[0]}, fused "
+          f"{drop_launches[1]} | lowest body {lift.min().item():.4f} m above "
+          f"the surface under it (bound {TERRAIN_CLEARANCE}); begin events "
+          f"on {int(began.any(0).sum())} of {q2} terrain rows, every body of "
+          f"every scene with a begin faster than {IMPACT_SPEED} m/s: "
+          f"{bool(body_fast.all())} ({int(body_fast.sum())} of "
+          f"{body_fast.numel()}) | profiled frame: {kpf:.0f} kernels, device "
+          f"busy {dev_ms:.3f} ms of the frame's {wall:.3f} ms "
+          f"({100 * dev_ms / wall:.1f}%) | kernel #1 vs plain at the run's "
+          f"end ({drop_chk['terrain_active']} active terrain rows, "
+          f"{drop_chk['points']} points): max err {drop_chk['errs']} (bounds "
+          f"{VEL_TOL} / {OMEGA_TOL}), {drop_chk['ms']:.4f} ms by events, "
+          f"plain {drop_chk['plain_ms']:.1f} ms, bound "
+          f"{drop_chk['bound'][0]:.5f} ({drop_chk['bound'][1]}) | card vs "
+          f"CPU, {TERRAIN_REF_SCENES} scenes x {TERRAIN_REF_FRAMES} frames "
+          f"after frame {TERRAIN_REF_FROM}: max err pos/rot {ref_err:.2e} (bound "
+          f"{REF_TOL}) | {time.perf_counter() - t0p:.1f} s | {card}",
+          flush=True)
+    if not lift.min().item() >= TERRAIN_CLEARANCE:
+        fail("terrain drop: a body sank into the terrain")
+    if not bool(body_fast.all()):
+        fail("terrain drop: a body has no collision-begin event faster than "
+             f"{IMPACT_SPEED} m/s")
+    if not ref_err <= REF_TOL:
+        fail("terrain drop: the card disagrees with the CPU path")
+    out.append(kernel_entry(
+        "colored_solver_terrain_drop",
+        "d3d12renderer_tpu_torch/csrc/colored_solver.cu",
+        "d3d12renderer_tpu/physics/solver_pallas.py:619", drop_launches[0],
+        drop_chk))
+
+    # 5. Raycasts and pokes on the drop's piles (before they move on).
+    t0p = time.perf_counter()
+    with torch.inference_mode():
+        down = torch.tensor([0.0, -1.0, 0.0], device=dev)
+        up5 = torch.tensor([0.0, 5.0, 0.0], device=dev)
+        ray_sub = 64
+        sub = st.replace(**{k: getattr(st, k)[:ray_sub].contiguous()
+                            for k in BODY_FIELDS})
+        sub_cpu = sub.replace(**{k: getattr(sub, k).cpu()
+                                 for k in BODY_FIELDS})
+        hits, ray_err, ray_ms = [], 0.0, []
+        origins = [st.pos[:, b] + up5 for b in range(nb)] + [
+            torch.tensor([15.0, 20.0, 15.0], device=dev).expand(
+                TERRAIN_BATCH, 3)]
+        for i, o in enumerate(origins):
+            t0 = time.perf_counter()
+            h = raycast.ray_cast(arch, st, o, down)
+            sync()
+            ray_ms.append(1e3 * (time.perf_counter() - t0))
+            want = i if i < nb else -1
+            hits.append(float((h.body == want).float().mean()))
+            hc = raycast.ray_cast(cpu_arch, sub_cpu, o[:ray_sub].cpu(),
+                                  down.cpu())
+            hg = raycast.ray_cast(arch, sub, o[:ray_sub], down)
+            if not torch.equal(hg.hit.cpu(), hc.hit):
+                fail("ray_cast: the card's hits differ from the CPU path's")
+            ray_err = max(ray_err, ((hg.t.cpu() - hc.t).abs()
+                                    / hc.t.abs().clamp(min=1.0))[hc.hit]
+                          .max().item())
+        pokes = {}
+        for exact in (False, True):
+            poked = events.ray_poke(arch, st.replace(
+                force=torch.zeros_like(st.force),
+                torque=torch.zeros_like(st.torque)), origins[0], down,
+                exact=exact)
+            pokes[exact] = float((poked.force[:, 0].norm(dim=-1) > 0)
+                                 .float().mean())
+    print(f"raycasts on the drop's piles ({TERRAIN_BATCH} scenes, one ray "
+          f"per scene, straight down over each body and over open terrain): "
+          f"share hitting the body below (or the terrain) "
+          f"{[round(x, 4) for x in hits]}, ms per cast "
+          f"{[round(x, 2) for x in ray_ms]} | card vs CPU over {ray_sub} "
+          f"scenes: hits equal, max relative t err {ray_err:.2e} (bound "
+          f"1e-5) | ray_poke over body 0, share of scenes whose body 0 gets "
+          f"a force: bounds {pokes[False]}, exact {pokes[True]} | "
+          f"{time.perf_counter() - t0p:.1f} s | {card}", flush=True)
+    if min(hits) < 0.99 or ray_err > 1e-5:
+        fail("ray_cast: wrong hits on the card")
+    if min(pokes.values()) < 1.0:
+        fail("ray_poke: a poked body got no force")
+
+    # 2. The ridge, triangle-exact.
+    t0p = time.perf_counter()
+    fn, (rarch, rst) = terrain_entry(device=dev, batch=RIDGE_BATCH,
+                                     scene="ridge")
+    fn(rst)
+    sync()
+    colored.launches = fused_k.launches = 0
+    low, prev = 1e9, None
+    t0 = time.perf_counter()
+    for _ in range(RIDGE_FRAMES):
+        rst, _, ev = fn(rst, prev)
+        prev = ev.active
+        low = min(low, rst.pos[..., 1].min().item())
+    secs = time.perf_counter() - t0
+    ridge_launches = (colored.launches, fused_k.launches)
+    if ridge_launches != (2 * RIDGE_FRAMES, 0):
+        fail(f"ridge: {ridge_launches} colored / fused launches in "
+             f"{RIDGE_FRAMES} frames")
+    if not _finite(rst):
+        fail("ridge: non-finite state")
+    rwall = 1e3 * secs / RIDGE_FRAMES
+    rkpf, rdev_ms = _profiled(lambda n: [fn(rst) for _ in range(n)])
+    ridge_chk = colored_check(rarch, rst, "ridge")
+    print(f"ridge (terrain_entry(scene='ridge'), triangle-exact terrain, "
+          f"{RIDGE_BATCH} scenes, {RIDGE_FRAMES} frames of 2 substeps): "
+          f"{rwall:.2f} ms per frame (each frame reads "
+          f"the lowest height), colored launches {ridge_launches[0]}, fused "
+          f"{ridge_launches[1]} | the box's lowest height over the run "
+          f"{low:.4f} (bound {RIDGE_FLOOR}; vertex-only ~1.45), final mean "
+          f"{rst.pos[..., 1].mean().item():.4f} | profiled frame: "
+          f"{rkpf:.0f} kernels, device busy {rdev_ms:.3f} ms of the frame's "
+          f"{rwall:.3f} ms "
+          f"({100 * rdev_ms / rwall:.1f}%) | kernel #1 vs plain at the end: "
+          f"max err {ridge_chk['errs']}, {ridge_chk['ms']:.4f} ms, plain "
+          f"{ridge_chk['plain_ms']:.1f} ms, bound "
+          f"{ridge_chk['bound'][0]:.5f} ({ridge_chk['bound'][1]}) | "
+          f"{time.perf_counter() - t0p:.1f} s | {card}", flush=True)
+    if not low > RIDGE_FLOOR:
+        fail(f"ridge: the box sank to {low:.3f}")
+    out.append(kernel_entry(
+        "colored_solver_ridge",
+        "d3d12renderer_tpu_torch/csrc/colored_solver.cu",
+        "d3d12renderer_tpu/physics/solver_pallas.py:619", ridge_launches[0],
+        ridge_chk))
+
+    # 3. Cloth, BASELINE config 3.
+    cloth_chk = None
+    cloth_launches = 0
+    for grid, batch in CLOTH_RUNS:
+        t0p = time.perf_counter()
+        fn, (carch, bst, params, cst) = cloth_entry(device=dev, grid=grid,
+                                                    batch=batch)
+        settings = PhysicsSettings()
+        reason = substep_cuda.support_reason(carch, settings)
+        top0 = cst.positions[:, 0].clone()
+        ref = (cst.replace(**{k: getattr(cst, k)[:2].cpu() for k in (
+            "positions", "prev_positions", "velocities", "forces")}),
+            bst.replace(**{k: getattr(bst, k)[:2].cpu()
+                           for k in BODY_FIELDS}))
+        ball = 0
+        colored.launches = fused_k.launches = 0
+        clearance = 1e9
+        t0 = time.perf_counter()
+        for f in range(CLOTH_FRAMES):
+            cst, bst = fn(cst, bst)
+            if f % 20 == 0:
+                clearance = min(clearance, (
+                    cst.positions - bst.pos[:, ball, None, None]).norm(
+                        dim=-1).min().item())
+        sync()
+        secs = time.perf_counter() - t0
+        launches = (fused_k.launches, colored.launches)
+        pinned = (cst.positions[:, 0] - top0).abs().max().item()
+        ball_x = bst.pos[:, ball, 0].min().item()
+        finite = bool(torch.isfinite(cst.positions).all()) and _finite(bst)
+        cwall = 1e3 * secs / CLOTH_FRAMES
+        ckpf, cdev_ms = _profiled(lambda n: [fn(cst, bst) for _ in range(n)])
+        if grid == CLOTH_RUNS[0][0]:
+            # Kernel #2 on the rigid step against its plain version, and
+            # the card against the CPU over the first frames.
+            plain_set = PhysicsSettings(fused_substep="off",
+                                        solver_backend="plain")
+            # The main path's bodies hang clear of the plane, so its rigid
+            # step is integration only.  The same bodies sunk 2 cm into the
+            # plane and falling at 1 m/s make the kernel's narrowphase,
+            # prep and solve work on active plane rows; both states are
+            # held against plain.
+            touch = bst.replace(pos=bst.pos.clone(), vel=bst.vel.clone())
+            touch.vel[..., 1] -= 1.0
+            touch.pos[:, carch.col_body, 1] = (carch.plane_offset[0]
+                                               + carch.col_size[:, 0] - 0.02)
+            errs = dict.fromkeys(("pos", "rot", "vel", "omega"), 0.0)
+            with torch.inference_mode():
+                touching = int(collide.generate_contacts(
+                    carch, touch).active.sum())
+                for s0 in (bst, touch):
+                    kst, _ = step.physics_step(carch, s0, settings,
+                                               1.0 / settings.frame_rate)
+                    pst, _ = step.physics_step(carch, s0, plain_set,
+                                               1.0 / settings.frame_rate)
+                    for k in errs:
+                        errs[k] = max(errs[k], max_err(getattr(kst, k),
+                                                       getattr(pst, k)))
+                sync()
+                consts = substep_cuda.pack_consts(
+                    carch, settings, 1.0 / settings.frame_rate, {}, 0, dev)
+                f_ms = cuda_ms(lambda: fused_k(bst, None, consts), 20)
+                pl_ms = cuda_ms(lambda: step.physics_step(
+                    carch, bst, plain_set, 1.0 / settings.frame_rate), 1)
+                cfn, _ = cloth_entry(device="cpu", grid=grid, batch=2)
+                rc, rb = ref
+                gc = rc.replace(**{k: getattr(rc, k).to(dev) for k in (
+                    "positions", "prev_positions", "velocities", "forces")})
+                gb = rb.replace(**{k: getattr(rb, k).to(dev)
+                                   for k in BODY_FIELDS})
+                for _ in range(CLOTH_REF_FRAMES):
+                    rc, rb = cfn(rc, rb)
+                    gc, gb = fn(gc, gb)
+                cref = max(max_err(gc.positions.cpu(), rc.positions),
+                           max_err(gb.pos.cpu(), rb.pos))
+            # Bound: body state in and out; the solve of the plane rows has
+            # no active point (the bodies hang clear of the plane).
+            cq = carch.vs_plane_collider.shape[0]
+            ctables = solver_cuda.ColoredSolver(carch, cq, ITERATIONS,
+                                                "kernel").tables
+            cbound = bound(4 * batch * 2 * 19 * bst.pos.shape[1],
+                           solve_flop(ctables, batch, 0, ITERATIONS))
+            cloth_chk = dict(errs=(errs["vel"], errs["omega"]), ms=f_ms,
+                             plain_ms=pl_ms, bound=cbound)
+            cloth_launches = launches[0]
+            extra = (f" | kernel #2 vs plain on one rigid step, the "
+                     f"path's state and the bodies sunk into the plane "
+                     f"({touching} active plane rows): max err "
+                     f"{json.dumps(errs)} (bounds {POSE_TOL} / {VEL_TOL} / "
+                     f"{OMEGA_TOL}), {f_ms:.4f} ms by events, plain rigid "
+                     f"step {pl_ms:.1f} ms, bound {cbound[0]:.5f} "
+                     f"({cbound[1]}); {cq} plane rows | card vs CPU, 2 "
+                     f"scenes x {CLOTH_REF_FRAMES} frames: max err "
+                     f"{cref:.2e} (bound {REF_TOL})")
+            if touching == 0:
+                fail("cloth: no plane row is active at the kernel check")
+            if not (errs["pos"] <= POSE_TOL and errs["rot"] <= POSE_TOL
+                    and errs["vel"] <= VEL_TOL
+                    and errs["omega"] <= OMEGA_TOL):
+                fail("cloth: the fused kernel disagrees with its plain "
+                     "version")
+            if not cref <= REF_TOL:
+                fail("cloth: the card disagrees with the CPU path")
+        else:
+            extra = ""
+        print(f"cloth (cloth_entry, BASELINE config 3: {grid} x {grid} "
+              f"particles x {batch} scenes, {CLOTH_FRAMES} frames of 1/120 "
+              f"s, a sphere and a capsule): rigid route "
+              f"{'fused kernel' if reason is None else 'unfused: ' + reason}"
+              f", fused launches {launches[0]}, colored {launches[1]} | "
+              f"{cwall:.2f} ms per frame | top row moved "
+              f"{pinned:.2e}, min clearance from the sphere {clearance:.4f} "
+              f"(bound {CLOTH_CLEARANCE}), ball x {ball_x:.3f} (> 0.5), "
+              f"finite {finite} | profiled frame: {ckpf:.0f} kernels, device "
+              f"busy {cdev_ms:.3f} ms of the frame's {cwall:.3f} ms "
+              f"({100 * cdev_ms / cwall:.1f}%){extra} | "
+              f"{time.perf_counter() - t0p:.1f} s | {card}", flush=True)
+        if reason is not None or launches != (CLOTH_FRAMES, 0):
+            fail(f"cloth: the rigid steps did not take the fused kernel "
+                 f"({reason}, {launches})")
+        if not (finite and pinned == 0.0 and clearance > CLOTH_CLEARANCE
+                and ball_x > 0.5):
+            fail("cloth: the checks of tests/test_cloth.py failed")
+    out.append(kernel_entry(
+        "fused_substep_cloth", "d3d12renderer_tpu_torch/csrc/fused_substep.cu",
+        "d3d12renderer_tpu/physics/substep_pallas.py:1026", cloth_launches,
+        cloth_chk))
+
+    # 4. The vehicle on terrain.
+    t0p = time.perf_counter()
+    fn, (varch, info, vst) = vehicle_terrain_entry(device=dev)
+    fn(vst, 1)
+    sync()
+    t0 = time.perf_counter()
+    vst, _ = fn(vst, VT_FRAMES)
+    sync()
+    vsecs = time.perf_counter() - t0
+    motor = vst.pos[:, info.bodies["motor"]]
+    above = (motor[:, 1] - ground(varch, motor)).min().item()
+    vwall = 1e3 * vsecs / VT_FRAMES
+    vkpf, vdev_ms = _profiled(lambda n: fn(vst, n))
+    print(f"vehicle on terrain (vehicle_terrain_entry: 49 x 49 heightmap, "
+          f"{vst.pos.shape[0]} scenes, split_jacobi, throttle 10): "
+          f"{vwall:.1f} ms per frame over {VT_FRAMES} "
+          f"frames | chassis {above:.4f} m above the terrain under it at the "
+          f"lowest, finite {_finite(vst)} | profiled frame: {vkpf:.0f} "
+          f"kernels, device busy {vdev_ms:.3f} ms of the frame's "
+          f"{vwall:.3f} ms "
+          f"({100 * vdev_ms / vwall:.1f}%) | "
+          f"{time.perf_counter() - t0p:.1f} s | {card}", flush=True)
+    if not (_finite(vst) and above > 0.0):
+        fail("vehicle on terrain: the chassis left the terrain or the state "
+             "is not finite")
+    print(f"terrain and cloth phases: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def training(card, here):
     """The training path: `train_entry` at BASELINE config 5 (4096 envs,
     rollout 32, 8 minibatches, 4 epochs), one warm iteration and
@@ -1951,6 +2424,7 @@ def training(card, here):
 
 
 def main():
+    t_script = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import torch
@@ -2426,7 +2900,10 @@ def main():
     # ~97,000-kernel frames left that profile seeing 23 of its 50 calls
     # whole.
     runtime_physics(card)
+    terrain_cloth = terrain_and_cloth(card, cuda_ms, max_err)
 
+    print(f"chip_smoke total: {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     # Kernel #1's line: this slice's path, the self-colliding locomotion;
     # the plane-only ragdoll's numbers are on phase 3's line.
     print(json.dumps({"kernels": [{
@@ -2453,7 +2930,7 @@ def main():
         "bound_ms": fused_bound[0],
         "bound_by": fused_bound[1],
         "library_ms": None,
-    }] + rays + images}))
+    }] + rays + images + terrain_cloth}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -173,13 +173,21 @@ def env_state_from_numpy(bodies, last_action, steps,
 
 
 SAP_MODES = ("sweep", "dense")
+_TABLE_FIELDS = ("joints", "contact_buckets", "contact_color_indices",
+                 "joint_color_indices", "cache")
+_SEGMENT_FIELDS = ("vs_plane_segments", "vs_terrain_segments")
+_COUNT_FIELDS = ("num_bodies", "num_colliders", "num_planes", "num_terrains",
+                 "vs_plane_num_colors")
+_BUCKET_FIELDS = ("collider_a", "collider_b", "body_a", "body_b", "color",
+                  "valid")
 
 
 def archetype_to_numpy(arch) -> Dict[str, np.ndarray]:
     """Flatten an archetype (the port's, or the JAX package's) into named
     numpy arrays over the fields the port has, for field-by-field
-    comparison.  Ints come out as int64; `sap_mode` as its index in
-    SAP_MODES."""
+    comparison and for `archetype_from_numpy`.  Ints come out as int64;
+    `sap_mode` as its index in SAP_MODES; the segment tables and
+    `sap_type_pairs` as (k, 3) / (k, 2) int arrays."""
     out: Dict[str, np.ndarray] = {}
 
     def put(name, x):
@@ -187,19 +195,18 @@ def archetype_to_numpy(arch) -> Dict[str, np.ndarray]:
         out[name] = x.astype(np.int64) if x.dtype.kind in "iu" else x
 
     for f in SceneArchetype.__dataclass_fields__:
-        if f in ("joints", "contact_buckets", "contact_color_indices",
-                 "joint_color_indices", "cache", "vs_plane_segments",
-                 "sap_mode") \
-                or f.startswith("num_") or f == "vs_plane_num_colors":
+        if f in _TABLE_FIELDS + _SEGMENT_FIELDS + _COUNT_FIELDS + (
+                "sap_mode", "sap_type_pairs"):
             continue
         put(f, getattr(arch, f))
     put("sap_mode", SAP_MODES.index(arch.sap_mode))
+    put("sap_type_pairs", np.asarray(arch.sap_type_pairs,
+                                     np.int64).reshape(-1, 2))
     for i, idx in enumerate(arch.contact_color_indices):
         put(f"contact_color_{i}", idx)
     for bucket in arch.contact_buckets:
         key = f"bucket_{bucket.type_a}_{bucket.type_b}"
-        for f in ("collider_a", "collider_b", "body_a", "body_b", "color",
-                  "valid"):
+        for f in _BUCKET_FIELDS:
             put(f"{key}_{f}", getattr(bucket, f))
         put(f"{key}_num_colors", bucket.num_colors)
     for k, table in enumerate(arch.joints):
@@ -209,8 +216,70 @@ def archetype_to_numpy(arch) -> Dict[str, np.ndarray]:
             put(f"joint_{table.kind}_param_{name}", v)
         for i, idx in enumerate(arch.joint_color_indices[k]):
             put(f"joint_{table.kind}_color_{i}", idx)
-    for f in ("num_bodies", "num_colliders", "num_planes",
-              "vs_plane_num_colors"):
+    for f in _COUNT_FIELDS:
         put(f, getattr(arch, f))
-    put("vs_plane_segments", np.asarray(arch.vs_plane_segments, np.int64))
+    for f in _SEGMENT_FIELDS:
+        put(f, np.asarray(getattr(arch, f), np.int64).reshape(-1, 3))
     return out
+
+
+def archetype_from_numpy(flat: Mapping[str, np.ndarray],
+                         device="cuda") -> SceneArchetype:
+    """The port's archetype from `archetype_to_numpy`'s arrays (of the
+    port's archetype or of the JAX package's), on `device`.  Derived data
+    (solver tables, terrain mips) is rebuilt on first use."""
+    from .physics.builder import JOINT_KINDS
+    from .physics.types import ContactBucket, JointTable
+
+    device = resolve_device(device)
+
+    def tensor(x):
+        return torch.as_tensor(np.array(x), device=device)
+
+    def listed(prefix):
+        out, i = [], 0
+        while f"{prefix}{i}" in flat:
+            out.append(tensor(flat[f"{prefix}{i}"]))
+            i += 1
+        return tuple(out)
+
+    kw = {}
+    for f, spec in SceneArchetype.__dataclass_fields__.items():
+        if f in _TABLE_FIELDS:
+            continue
+        x = flat[f]
+        if f in _SEGMENT_FIELDS or f == "sap_type_pairs":
+            kw[f] = tuple(tuple(int(v) for v in row) for row in x)
+        elif f == "sap_mode":
+            kw[f] = SAP_MODES[int(x)]
+        elif spec.type in ("int", "bool"):
+            kw[f] = {"int": int, "bool": bool}[spec.type](x)
+        else:
+            kw[f] = tensor(x)
+
+    buckets = []
+    for key in dict.fromkeys(k.rsplit("_", 2)[0] for k in flat
+                             if k.startswith("bucket_")
+                             and k.endswith("_num_colors")):
+        _, ta, tb = key.split("_")
+        buckets.append(ContactBucket(
+            **{f: tensor(flat[f"{key}_{f}"]) for f in _BUCKET_FIELDS},
+            type_a=int(ta), type_b=int(tb),
+            num_colors=int(flat[f"{key}_num_colors"])))
+    joints, joint_colors = [], []
+    kinds = [k for k in JOINT_KINDS if f"joint_{k}_body_a" in flat]
+    for kind in sorted(kinds, key=lambda k: list(flat).index(
+            f"joint_{k}_body_a")):
+        colors = listed(f"joint_{kind}_color_")
+        prefix = f"joint_{kind}_param_"
+        joints.append(JointTable(
+            **{f: tensor(flat[f"joint_{kind}_{f}"])
+               for f in ("body_a", "body_b", "color", "valid")},
+            params={k[len(prefix):]: tensor(v) for k, v in flat.items()
+                    if k.startswith(prefix)},
+            kind=kind, num_colors=len(colors)))
+        joint_colors.append(colors)
+    return SceneArchetype(
+        **kw, contact_buckets=tuple(buckets), joints=tuple(joints),
+        contact_color_indices=listed("contact_color_"),
+        joint_color_indices=tuple(joint_colors))

@@ -9,9 +9,19 @@ follow the JAX module so that both round alike on the CPU.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 GRAVITY = -9.81
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device):
+    """A small constant tensor, built once per (values, dtype, device): a
+    tensor built from host data on the card waits for the card's queue.
+    Callers must not write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def dot(a, b):

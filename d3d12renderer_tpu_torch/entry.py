@@ -1,8 +1,10 @@
 """The port's main paths: a policy forward plus one batched ragdoll
 locomotion env step (counterpart of ``__graft_entry__.entry``), PPO
-training, the path tracer, the raster frame, and the runtime physics of
+training, the path tracer, the raster frame, the runtime physics of
 BASELINE configs 1 (the 1k-body stack drop) and 4 (the gear-train
-vehicle)."""
+vehicle), terrain physics (examples/showcase.py's drop with collision
+events, the triangle-exact ridge, the vehicle on terrain) and cloth against
+rigid bodies (BASELINE config 3)."""
 
 from __future__ import annotations
 
@@ -78,9 +80,9 @@ VEHICLE_FRAME_RATE = 60
 STACK_GS_COLORS = 128
 
 
-def _physics_runner(arch, settings, default_steps: int, overrides=None):
+def _physics_runner(arch, settings, default_steps=None, overrides=None):
     @torch.inference_mode()
-    def fn(state, steps: int = default_steps):
+    def fn(state, steps=default_steps):
         from .physics.step import physics_step
 
         contacts = None
@@ -151,6 +153,131 @@ def vehicle_entry(device="cuda", batch: int = 8, steps: int = 100,
     settings = PhysicsSettings(frame_rate=VEHICLE_FRAME_RATE,
                                contact_mode="split_jacobi")
     return (_physics_runner(arch, settings, steps, overrides),
+            (arch, info, _batched(state, batch)))
+
+
+# examples/showcase.py:129-133: frames of 1/60 s in 2 substeps of the
+# default settings (120 Hz, colored contacts).
+TERRAIN_FRAME_DT = 1.0 / 60.0
+TERRAIN_SUBSTEPS = 2
+TERRAIN_SCENES = ("drop", "ridge")
+
+
+def terrain_entry(device="cuda", batch: int = 4096, scene: str = "drop"):
+    """Rigid bodies on a heightfield, `batch` copies, the default settings
+    (120 Hz, 30 iterations, colored contacts: the colored-solver kernel on
+    CUDA tensors), collision events collected per substep as
+    examples/showcase.py's `--audio` path does.
+
+    scene "drop" (examples/showcase.py:86-147): 6 boxes and spheres dropped
+    onto its 65 x 65 heightmap, bilinear terrain rows.  scene "ridge"
+    (tests/test_heightmap_mip.py:138-161): a wide flat box dropped on a
+    ridge's crest, `terrain_collision="triangles"` (the mip descent, vertex
+    tests and GJK / EPA per candidate triangle).
+
+    Returns `(fn, (arch, state))`: `fn(state, prev_active=None) -> (state,
+    contacts, events)` advances every scene by one frame of 1/60 s (2
+    substeps); pass the events' `active` back as `prev_active`."""
+    from .models import scenes
+    from .physics.builder import SceneBuilder
+    from .physics.step import physics_step
+
+    if scene not in TERRAIN_SCENES:
+        raise ValueError(f"scene must be one of {TERRAIN_SCENES}, not "
+                         f"{scene!r}")
+    device = resolve_device(device)
+    b = SceneBuilder()
+    if scene == "drop":
+        scenes.add_terrain_drop(b, scenes.terrain_drop_heights())
+        arch, state = b.finalize(device=device)
+    else:
+        scenes.add_ridge(b)
+        arch, state = b.finalize(device=device,
+                                 terrain_collision="triangles")
+    settings = PhysicsSettings()
+
+    @torch.inference_mode()
+    def fn(state, prev_active=None):
+        return physics_step(arch, state, settings, TERRAIN_FRAME_DT,
+                            num_substeps=TERRAIN_SUBSTEPS,
+                            collect_events=True, prev_active=prev_active)
+
+    return fn, (arch, _batched(state, batch))
+
+
+def cloth_entry(device="cuda", grid: int = 32, batch: int = 256):
+    """BASELINE config 3 (cloth grids colliding with rigid spheres and
+    capsules; tests/test_cloth.py:87-129's coupled step): a `grid` x `grid`
+    cloth, 2 x 2 m, its top row pinned, and a rigid sphere rolling under it
+    beside a capsule held in place (`scenes.add_cloth_colliders`), `batch`
+    copies.  A frame is one `physics_step` of 1/120 s (the fused kernel
+    takes it on CUDA tensors: spheres and capsules on a plane) and one
+    `step_cloth_with_bodies` (2 position iterations, margin 0.01).
+
+    Returns `(fn, (arch, body_state, params, cloth_state))`:
+    `fn(cloth_state, body_state) -> (cloth_state, body_state)` runs one
+    frame."""
+    from .models import scenes
+    from .physics.builder import SceneBuilder
+    from .physics.cloth import create_cloth
+    from .physics.cloth_coupling import step_cloth_with_bodies
+    from .physics.step import physics_step
+
+    device = resolve_device(device)
+    b = SceneBuilder()
+    info = scenes.add_cloth_colliders(b)
+    arch, state = b.finalize(device=device)
+    state.vel[:, info["ball"]] = torch.tensor(scenes.CLOTH_BALL_VEL,
+                                              device=device)
+    params, cloth = create_cloth(
+        scenes.CLOTH_SIZE, scenes.CLOTH_SIZE, grid, grid,
+        total_mass=scenes.CLOTH_MASS, damping=scenes.CLOTH_DAMPING,
+        device=device)
+    cloth = cloth.replace(**{f: getattr(cloth, f).expand(
+        (batch,) + getattr(cloth, f).shape).contiguous()
+        for f in ("positions", "prev_positions", "velocities", "forces")})
+    settings = PhysicsSettings()
+
+    @torch.inference_mode()
+    def fn(cloth_state, body_state):
+        body_state, _ = physics_step(arch, body_state, settings,
+                                     scenes.CLOTH_DT)
+        cloth_state = step_cloth_with_bodies(
+            params, cloth_state, arch, body_state, scenes.CLOTH_DT,
+            position_iterations=scenes.CLOTH_ITERATIONS,
+            margin=scenes.CLOTH_MARGIN)
+        return cloth_state, body_state
+
+    return fn, (arch, _batched(state, batch), params, cloth)
+
+
+# examples/vehicle_terrain.py:21: the motor hinge's default target.
+VEHICLE_TERRAIN_THROTTLE = 10.0
+
+
+def vehicle_terrain_entry(device="cuda", batch: int = 8):
+    """examples/vehicle_terrain.py's drive: the gear-train vehicle on its
+    49 x 49 heightmap (amplitude 1.2, seed 11, friction 1), `batch` copies,
+    split-Jacobi contacts at 60 Hz, the motor hinge at
+    VEHICLE_TERRAIN_THROTTLE rad/s, steering straight.
+
+    Returns `(fn, (arch, info, state))` as `vehicle_entry`, except that
+    `fn(state, steps)` takes its frame count from the caller."""
+    from .models import scenes
+    from .models.vehicle import build_vehicle, drive_overrides
+    from .physics.builder import SceneBuilder
+
+    device = resolve_device(device)
+    b = SceneBuilder()
+    start = scenes.add_vehicle_terrain(b, scenes.vehicle_terrain_heights())
+    info = build_vehicle(b, position=start)
+    arch, state = b.finalize(device=device)
+    overrides = drive_overrides(arch, info,
+                                throttle_velocity=VEHICLE_TERRAIN_THROTTLE,
+                                steering_angle=0.0, batch=batch)
+    settings = PhysicsSettings(frame_rate=VEHICLE_FRAME_RATE,
+                               contact_mode="split_jacobi")
+    return (_physics_runner(arch, settings, overrides=overrides),
             (arch, info, _batched(state, batch)))
 
 

@@ -17,6 +17,16 @@ compare the archetypes).
 * `add_stack_drop_1k`: BASELINE config 1, a jittered grid of boxes and
   spheres dropped onto the plane (`examples/stack_drop_1k.py`); finalize it
   with `STACK_DROP_1K_FINALIZE`, the runtime broadphase's settings.
+* `add_terrain_drop`: `examples/showcase.py`'s physics, boxes and spheres
+  dropped onto its 65 x 65 heightmap (`terrain_drop_heights`).
+* `add_ridge`: a wide flat box dropped on the crest of a 9 x 9 ridge
+  (`tests/test_heightmap_mip.py`), finalized with
+  `terrain_collision="triangles"`.
+* `add_cloth_colliders`: the rigid side of the coupled cloth step
+  (`tests/test_cloth.py`): a sphere that rolls under the cloth and a
+  capsule held in place, with `CLOTH_*` the cloth's settings.
+* `add_terrain` of a vehicle: `vehicle_terrain_heights` is
+  `examples/vehicle_terrain.py`'s heightmap, `VEHICLE_TERRAIN` its placement.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 # Capsules lie along their local y axis; these turn it onto x and z.
 _Y_TO_X = (0.0, 0.0, -math.sqrt(0.5), math.sqrt(0.5))
@@ -156,3 +167,125 @@ def add_stack_drop_1k(b, num_bodies: int = 1000, seed: int = 0):
                                           restitution=0.1)
                 bodies.append(body)
     return {"bodies": bodies}
+
+
+# examples/showcase.py:86-90: the heightmap and its placement.
+TERRAIN_DROP_MAP = dict(resolution=65, world_size=48.0, amplitude=5.0,
+                        noise_scale=0.06, seed=7)
+TERRAIN_DROP_ORIGIN = (-24.0, 0.0, -24.0)
+TERRAIN_DROP_CELL = 48.0 / 64
+TERRAIN_DROP_BODIES = 6
+TERRAIN_DROP_HALF = 0.45     # the boxes' half extent and the spheres' radius
+
+
+def terrain_drop_heights() -> np.ndarray:
+    """The (65, 65) heightmap of examples/showcase.py."""
+    from ..terrain.heightmap import generate_heightmap
+
+    return generate_heightmap(**TERRAIN_DROP_MAP).numpy()
+
+
+def _height_at(heights, origin, cell, x, z) -> float:
+    from ..terrain.heightmap import sample_height_bilinear
+
+    h, _ = sample_height_bilinear(
+        torch.as_tensor(heights), origin, cell,
+        torch.tensor(x, dtype=torch.float32),
+        torch.tensor(z, dtype=torch.float32))
+    return float(h)
+
+
+def add_terrain_drop(b, heights):
+    """examples/showcase.py:110-123's physics: the heightmap (friction
+    0.7) and TERRAIN_DROP_BODIES bodies at numpy `default_rng(0)` x / z in
+    [-6, 6], 3 m + 0.5 m per body above the ground, alternating boxes and
+    spheres of TERRAIN_DROP_HALF (friction 0.7).  Finalize with the
+    defaults (bilinear terrain rows)."""
+    b.add_terrain(heights, origin=TERRAIN_DROP_ORIGIN,
+                  cell_size=TERRAIN_DROP_CELL, friction=0.7)
+    rng = np.random.default_rng(0)
+    bodies = []
+    for i in range(TERRAIN_DROP_BODIES):
+        x, z = rng.uniform(-6, 6, 2)
+        y = _height_at(heights, TERRAIN_DROP_ORIGIN, TERRAIN_DROP_CELL, x, z)
+        body = b.add_body(position=(x, y + 3.0 + i * 0.5, z))
+        if i % 2 == 0:
+            b.add_box_collider(body, (TERRAIN_DROP_HALF,) * 3, friction=0.7)
+        else:
+            b.add_sphere_collider(body, TERRAIN_DROP_HALF, friction=0.7)
+        bodies.append(body)
+    return {"bodies": bodies}
+
+
+def ridge_heights() -> np.ndarray:
+    """A 9 x 9 ridge along z, crest 2.0 at x = 4, slopes of 0.5."""
+    i = np.arange(9, dtype=np.float32)
+    return np.broadcast_to((2.0 - 0.5 * np.abs(i - 4.0))[:, None],
+                           (9, 9)).copy()
+
+
+RIDGE_BOX_HALF = (1.5, 0.1, 0.5)
+
+
+def add_ridge(b):
+    """tests/test_heightmap_mip.py:138-161: the 1.5 x 0.1 x 0.5 box
+    (friction 0.9) dropped from 2.6 m onto the ridge's crest; finalize with
+    terrain_collision="triangles".  On the crest the box rests at ~2.1 m;
+    the vertex-only narrowphase lets it sink to ~1.45."""
+    body = b.add_body(position=(4.0, 2.6, 4.0), linear_damping=0.2,
+                      angular_damping=0.5)
+    b.add_box_collider(body, RIDGE_BOX_HALF, friction=0.9)
+    b.add_terrain(ridge_heights(), origin=(0.0, 0.0, 0.0), cell_size=1.0)
+    return {"box": body}
+
+
+# tests/test_cloth.py:87-129: a 2 x 2 m cloth of mass 1, damping 1,
+# stepped at 120 Hz with 2 position iterations and a 1 cm margin.
+CLOTH_SIZE, CLOTH_MASS, CLOTH_DAMPING = 2.0, 1.0, 1.0
+CLOTH_DT = 1.0 / 120.0
+CLOTH_ITERATIONS, CLOTH_MARGIN = 2, 0.01
+CLOTH_BALL_VEL = (1.5, 0.0, 0.0)
+CLOTH_BALL_RADIUS = 0.4
+
+
+def add_cloth_colliders(b):
+    """tests/test_cloth.py's scene with a capsule added: the plane at
+    y = -3, a sphere of radius 0.4 at (-2, -0.8, -0.5) free of gravity and
+    damping (set its velocity to CLOTH_BALL_VEL: it rolls under the cloth),
+    and a capsule along x below the cloth's pinned edge on a body free of
+    gravity (zero velocity: it stays).  Both bodies share a no-collide
+    group, so the scene has plane rows only."""
+    b.add_static_plane((0, 1, 0), -3.0)
+    ball = b.add_body(position=(-2.0, -0.8, -0.5), gravity_factor=0.0,
+                      linear_damping=0.0)
+    b.add_sphere_collider(ball, radius=CLOTH_BALL_RADIUS)
+    bar = b.add_body(position=(0.0, -1.6, -0.3), gravity_factor=0.0)
+    b.add_capsule_collider(bar, 0.15, 0.6, rotation=_Y_TO_X)
+    group = b.new_no_collide_group()
+    b.set_no_collide_group(ball, group)
+    b.set_no_collide_group(bar, group)
+    return {"ball": ball, "bar": bar}
+
+
+# examples/vehicle_terrain.py: rolling terrain of small amplitude against
+# the wheels' radius, the vehicle 0.85 m above the ground at the origin.
+VEHICLE_TERRAIN_MAP = dict(resolution=49, world_size=48.0, amplitude=1.2,
+                           noise_scale=0.05, seed=11)
+VEHICLE_TERRAIN_ORIGIN = (-24.0, 0.0, -24.0)
+VEHICLE_TERRAIN_CELL = 1.0
+
+
+def vehicle_terrain_heights() -> np.ndarray:
+    from ..terrain.heightmap import generate_heightmap
+
+    return generate_heightmap(**VEHICLE_TERRAIN_MAP).numpy()
+
+
+def add_vehicle_terrain(b, heights):
+    """The vehicle's terrain (friction 1); returns the chassis position
+    (x, y, z) examples/vehicle_terrain.py builds the vehicle at."""
+    b.add_terrain(heights, origin=VEHICLE_TERRAIN_ORIGIN,
+                  cell_size=VEHICLE_TERRAIN_CELL, friction=1.0)
+    h0 = _height_at(heights, VEHICLE_TERRAIN_ORIGIN, VEHICLE_TERRAIN_CELL,
+                    0.0, 0.0)
+    return (0.0, h0 + 0.85, 0.0)

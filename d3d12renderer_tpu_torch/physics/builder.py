@@ -4,11 +4,11 @@
 The authoring API and the compilation to structure-of-arrays tables run in
 numpy, exactly as in the JAX builder; torch tensors are made at the end on
 the requested device.  Scenes of sphere, capsule, box, cylinder and convex
-hull colliders on static planes compile, with their collider pairs either
-enumerated into static buckets (tether-pruned) or left to the runtime
-broadphase (`finalize(broadphase="sap")`), and every joint kind (distance,
-ball, fixed, hinge, cone-twist, slider); terrains, force fields and
-triggers raise `NotImplementedError`.
+hull colliders on static planes and heightfield terrains compile, with
+their collider pairs either enumerated into static buckets (tether-pruned)
+or left to the runtime broadphase (`finalize(broadphase="sap")`), every
+joint kind (distance, ball, fixed, hinge, cone-twist, slider), spherical
+force fields and trigger volumes.
 """
 
 from __future__ import annotations
@@ -37,12 +37,6 @@ from .types import (
 
 _IDENTITY_QUAT = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
 JOINT_KINDS = ("distance", "ball", "fixed", "hinge", "cone_twist", "slider")
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to d3d12renderer_tpu_torch yet "
-        f"(ROADMAP.md Queue 1: {item})")
 
 
 @dataclass
@@ -263,6 +257,10 @@ class SceneBuilder:
         self.bodies: List[_Body] = []
         self.colliders: List[_Collider] = []
         self.planes: List[Tuple[np.ndarray, float, float, float]] = []
+        self.terrains: List[Tuple[np.ndarray, np.ndarray, float, float,
+                                  float]] = []
+        self.force_fields: List[Tuple[np.ndarray, float, np.ndarray]] = []
+        self.triggers: List[Tuple[np.ndarray, float]] = []
         self.joints: List[_Joint] = []
         self._no_collide_groups = 0
 
@@ -380,14 +378,34 @@ class SceneBuilder:
                             restitution))
         return len(self.planes) - 1
 
-    def add_terrain(self, *args, **kwargs):
-        _not_ported("terrains", "slice 2, physics/heightmap_collision.py")
+    def add_terrain(self, heights, origin=(0.0, 0.0, 0.0), cell_size=1.0,
+                    friction=0.8, restitution=0.0):
+        """Static heightfield: heights (R0, R1) over x (axis 0) and z (axis
+        1) from `origin`, `cell_size` apart.  All terrains of a scene share
+        one grid resolution."""
+        h = np.asarray(heights, np.float32)
+        if h.ndim != 2:
+            raise ValueError(f"heights must be 2-D, not {h.shape}")
+        if self.terrains and h.shape != self.terrains[0][0].shape:
+            raise ValueError("all terrains must share one resolution: "
+                             f"{h.shape} != {self.terrains[0][0].shape}")
+        self.terrains.append((h, np.asarray(origin, np.float32),
+                              float(cell_size), friction, restitution))
+        return len(self.terrains) - 1
 
-    def add_force_field(self, *args, **kwargs):
-        _not_ported("force fields", "slice 2, physics/events.py")
+    def add_force_field(self, center, radius, force):
+        """Spherical force volume: bodies whose centre lies inside get
+        `force` each substep (physics/events.py)."""
+        self.force_fields.append((np.asarray(center, np.float32),
+                                  float(radius),
+                                  np.asarray(force, np.float32)))
+        return len(self.force_fields) - 1
 
-    def add_trigger(self, *args, **kwargs):
-        _not_ported("triggers", "slice 2, physics/events.py")
+    def add_trigger(self, center, radius):
+        """Spherical trigger volume: enter / leave events of body centres
+        (physics/events.py)."""
+        self.triggers.append((np.asarray(center, np.float32), float(radius)))
+        return len(self.triggers) - 1
 
     # -- joints ------------------------------------------------------------
 
@@ -716,7 +734,8 @@ class SceneBuilder:
                  sap_neighbors: int = 16, sap_max_contacts: int = 0,
                  sap_algorithm: str = "sweep",
                  sap_active_budget: Optional[int] = None,
-                 sap_row_cap: int = 16, device="cuda"):
+                 sap_row_cap: int = 16, terrain_collision: str = "bilinear",
+                 device="cuda"):
         """Compile into (SceneArchetype, BodyState) on `device`; the state
         has a leading batch axis of 1.
 
@@ -729,7 +748,11 @@ class SceneBuilder:
         `sap_max_contacts` candidate rows (default 8 per collider) and
         `sap_active_budget` active rows for the solve (default 4 per
         collider).  Such scenes solve with contact_mode "split_jacobi" or
-        "runtime_gs".  The defaults are the JAX builder's."""
+        "runtime_gs".  terrain_collision="bilinear" collides every terrain
+        row against the bilinear tangent plane under the collider;
+        "triangles" sends box and hull rows through the min-max mip descent
+        and the heightfield's triangles (physics/heightmap_collision.py),
+        whose mips are built here.  The defaults are the JAX builder's."""
         device = resolve_device(device)
         if broadphase not in ("static", "sap"):
             raise ValueError("broadphase must be 'static' or 'sap', not "
@@ -737,6 +760,9 @@ class SceneBuilder:
         if sap_algorithm not in ("sweep", "dense"):
             raise ValueError("sap_algorithm must be 'sweep' or 'dense', not "
                              f"{sap_algorithm!r}")
+        if terrain_collision not in ("bilinear", "triangles"):
+            raise ValueError("terrain_collision must be 'bilinear' or "
+                             f"'triangles', not {terrain_collision!r}")
         sap = broadphase == "sap"
 
         n = len(self.bodies)
@@ -763,22 +789,26 @@ class SceneBuilder:
                 hull_verts[i, :len(cl.hull_verts)] = cl.hull_verts
                 hull_mask[i, :len(cl.hull_verts)] = True
 
-        # Plane rows, sorted by collider shape into one segment per type.
-        vs_plane_rows = []
-        for ci, cl in enumerate(self.colliders):
-            if cl.body < 0 or self.bodies[cl.body].kinematic:
-                continue
-            for pi in range(g):
-                vs_plane_rows.append((ci, pi, cl.body))
-        vs_plane_rows.sort(key=lambda r: self.colliders[r[0]].shape)
-        segs = []
-        for (ci, _, _) in vs_plane_rows:
-            st = self.colliders[ci].shape
-            if segs and segs[-1][0] == st:
-                segs[-1] = (st, segs[-1][1], segs[-1][2] + 1)
-            else:
-                start = segs[-1][2] if segs else 0
-                segs.append((st, start, start + 1))
+        # Plane and terrain rows: every dynamic collider against each,
+        # sorted by collider shape into one segment per type.
+        def static_rows(count):
+            rows = [(ci, k, cl.body) for ci, cl in enumerate(self.colliders)
+                    if cl.body >= 0 and not self.bodies[cl.body].kinematic
+                    for k in range(count)]
+            rows.sort(key=lambda r: self.colliders[r[0]].shape)
+            segs = []
+            for (ci, _, _) in rows:
+                st = self.colliders[ci].shape
+                if segs and segs[-1][0] == st:
+                    segs[-1] = (st, segs[-1][1], segs[-1][2] + 1)
+                else:
+                    start = segs[-1][2] if segs else 0
+                    segs.append((st, start, start + 1))
+            return rows, tuple(segs)
+
+        vs_plane_rows, segs = static_rows(g)
+        t_count = len(self.terrains)
+        vs_terrain_rows, terrain_segs = static_rows(t_count)
 
         if sap:
             pair_rows = {}
@@ -792,9 +822,10 @@ class SceneBuilder:
                 sap_joint_excl=np.zeros((0, 2), np.int64))
         bucket_keys = sorted(pair_rows)
 
-        # One greedy coloring over the whole contact table: plane rows, then
-        # the buckets in order, as generate_contacts concatenates them.
-        all_rows = [(n, r[2]) for r in vs_plane_rows]
+        # One greedy coloring over the whole contact table: plane rows,
+        # terrain rows, then the buckets in order, as generate_contacts
+        # concatenates them.
+        all_rows = [(n, r[2]) for r in vs_plane_rows + vs_terrain_rows]
         for key in bucket_keys:
             all_rows += [(r[2], r[3]) for r in pair_rows[key]]
         colors = _greedy_color(all_rows, static_body=n)
@@ -814,7 +845,8 @@ class SceneBuilder:
         def stack(rows, width):
             return np.stack(rows) if rows else np.zeros((0, width), np.float32)
 
-        buckets, offset = [], q
+        q2 = len(vs_terrain_rows)
+        buckets, offset = [], q + q2
         for key in bucket_keys:
             rows = pair_rows[key]
             k = len(rows)
@@ -857,6 +889,21 @@ class SceneBuilder:
             vs_plane_body=i64([r[2] for r in vs_plane_rows]),
             vs_plane_color=i64(colors[:q]),
             vs_plane_valid=torch.ones(q, dtype=torch.bool, device=device),
+            terrain_height=f32(np.stack([t[0] for t in self.terrains])
+                               if t_count else np.zeros((0, 1, 1))),
+            terrain_origin=f32(stack([t[1] for t in self.terrains], 3)),
+            terrain_cell=f32([t[2] for t in self.terrains]),
+            terrain_friction=f32([t[3] for t in self.terrains]),
+            terrain_restitution=f32([t[4] for t in self.terrains]),
+            vs_terrain_collider=i64([r[0] for r in vs_terrain_rows]),
+            vs_terrain_terrain=i64([r[1] for r in vs_terrain_rows]),
+            vs_terrain_body=i64([r[2] for r in vs_terrain_rows]),
+            vs_terrain_valid=torch.ones(q2, dtype=torch.bool, device=device),
+            ff_center=f32(stack([f[0] for f in self.force_fields], 3)),
+            ff_radius=f32([f[1] for f in self.force_fields]),
+            ff_force=f32(stack([f[2] for f in self.force_fields], 3)),
+            trigger_center=f32(stack([t[0] for t in self.triggers], 3)),
+            trigger_radius=f32([t[1] for t in self.triggers]),
             contact_buckets=tuple(buckets),
             joints=joint_tables,
             contact_color_indices=tuple(i64(i) for i in contact_idx),
@@ -864,8 +911,11 @@ class SceneBuilder:
             num_bodies=n,
             num_colliders=c,
             num_planes=g,
+            num_terrains=t_count,
             vs_plane_num_colors=len(contact_idx),
-            vs_plane_segments=tuple(segs),
+            vs_plane_segments=segs,
+            vs_terrain_segments=terrain_segs,
+            terrain_tri_exact=terrain_collision == "triangles",
             sap_neighbors=sap_neighbors if sap else 0,
             sap_max_contacts=(sap_max_contacts or 8 * max(c, 1)) if sap else 0,
             sap_row_cap=sap_row_cap,
@@ -882,6 +932,10 @@ class SceneBuilder:
             sap_joint_excl=torch.as_tensor(sap_tables["sap_joint_excl"],
                                            device=device),
         )
+        if arch.terrain_tri_exact and t_count:
+            # The mips depend on the heights alone: built once, here.
+            from .heightmap_collision import terrain_mips
+            terrain_mips(arch)
 
         # Float32 like the JAX builder: pos + R @ local_cog.
         rot = np.stack([b.rot for b in self.bodies]).astype(dtype)

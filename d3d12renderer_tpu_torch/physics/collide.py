@@ -1,10 +1,10 @@
 """Contact generation (counterpart of
-``d3d12renderer_tpu/physics/collide.py``): plane rows, the static
-collider-pair buckets and the runtime broadphase's rows.
+``d3d12renderer_tpu/physics/collide.py``): plane rows, terrain rows, the
+static collider-pair buckets and the runtime broadphase's rows.
 
-The row order is the builder's: plane rows sorted by collider type, then the
-buckets in sorted (type_a, type_b) order, then the runtime broadphase's
-rows (physics/broadphase.py).  The colored solver's color lists index that
+The row order is the builder's: plane rows sorted by collider type, terrain
+rows sorted by collider type, then the buckets in sorted (type_a, type_b)
+order, then the runtime broadphase's rows (physics/broadphase.py).  The colored solver's color lists index that
 order, so it must not change.  Static rows name their bodies with (P,)
 tensors shared by every scene; the broadphase's rows differ per scene, so a
 table with them names its bodies with (B, P) tensors.
@@ -34,8 +34,18 @@ def collider_world_poses(arch: SceneArchetype, state: BodyState):
     return wpos, wrot
 
 
+def colliders_of_type(arch: SceneArchetype, shape: int):
+    """The indices of the colliders of one shape type, a device tensor
+    built once per archetype."""
+    key = ("colliders_of_type", shape)
+    if key not in arch.cache:
+        arch.cache[key] = torch.nonzero(arch.col_type.cpu() == shape)[:, 0].to(
+            arch.col_type.device)
+    return arch.cache[key]
+
+
 def _capsule_endpoints(wpos, wrot, half_len):
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=wpos.dtype, device=wpos.device)
+    up = m.constant((0.0, 1.0, 0.0), wpos.dtype, wpos.device)
     axis = m.quat_rotate(wrot, up.expand(wpos.shape))
     return wpos - axis * half_len[..., None], wpos + axis * half_len[..., None]
 
@@ -103,6 +113,94 @@ def _vs_plane_manifolds(arch: SceneArchetype, wpos, wrot):
     return ContactTable(
         body_a=torch.full_like(arch.vs_plane_body, arch.world_body),
         body_b=arch.vs_plane_body,
+        normal=n,
+        point=pts,
+        depth=dep,
+        pmask=msk,
+        friction=friction.expand(dep.shape[:-1]),
+        restitution=restitution.expand(dep.shape[:-1]),
+        active=torch.any(msk, dim=-1),
+    )
+
+
+_BOX_SIGNS = tuple((sx, sy, sz) for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
+                   for sz in (-1.0, 1.0))
+
+
+def _vs_terrain_manifolds(arch: SceneArchetype, wpos, wrot):
+    """Collider vs heightfield rows.  Every row collides against the
+    bilinear tangent plane through the surface point under the collider;
+    with `arch.terrain_tri_exact`, box and hull rows instead take the mip
+    descent's triangles (physics/heightmap_collision.py), and keep the
+    tangent plane where the descent overflows."""
+    from ..terrain.heightmap import sample_height_bilinear
+
+    ci, ti = arch.vs_terrain_collider, arch.vs_terrain_terrain
+    cpos, crot = wpos[:, ci], wrot[:, ci]
+    hgt = n = None
+    for t in range(arch.num_terrains):
+        h_t, n_t = sample_height_bilinear(
+            arch.terrain_height[t], arch.terrain_origin[t],
+            arch.terrain_cell[t], cpos[..., 0], cpos[..., 2])
+        if hgt is None:
+            hgt, n = h_t, n_t
+        else:
+            on_t = ti == t
+            hgt = torch.where(on_t, h_t, hgt)
+            n = torch.where(on_t[:, None], n_t, n)
+    # The tangent plane through the surface point under the collider.
+    surf = torch.stack([cpos[..., 0], hgt, cpos[..., 2]], -1)
+    off = torch.sum(n * surf, -1)
+    pts, dep, msk = _collider_vs_local_plane(arch, ci, cpos, crot, n, off,
+                                             arch.vs_terrain_segments)
+
+    if arch.terrain_tri_exact:
+        from .heightmap_collision import (convex_vs_terrain_triangles,
+                                          terrain_mips)
+        levels = terrain_mips(arch)
+        pts, dep, msk, n = pts.clone(), dep.clone(), msk.clone(), n.clone()
+        batch = cpos.shape[0]
+        for (stype, s, e) in arch.vs_terrain_segments:
+            ci_s, ti_s = ci[s:e], ti[s:e]
+            cpos_s, crot_s = cpos[:, s:e], crot[:, s:e]
+            size = arch.col_size[ci_s].expand(cpos_s.shape)
+            hv = arch.col_hull_verts[ci_s].expand((batch,) + (e - s,)
+                                                  + arch.col_hull_verts.shape[1:])
+            hm = arch.col_hull_mask[ci_s].expand(hv.shape[:-1])
+            if stype == SHAPE_BOX:
+                signs = m.constant(_BOX_SIGNS, cpos.dtype, cpos.device)
+                verts = cpos_s[..., None, :] + m.quat_rotate(
+                    crot_s[..., None, :], signs * size[..., None, :])
+                vmask = torch.ones(verts.shape[:-1], dtype=torch.bool,
+                                   device=cpos.device)
+            elif stype == SHAPE_HULL:
+                verts = cpos_s[..., None, :] + m.quat_rotate(
+                    crot_s[..., None, :], hv)
+                vmask = hm
+            else:
+                continue
+            col_ref = gjk_mod.make_shape_ref(stype, size, cpos_s, crot_s,
+                                             hv, hm)
+            tp, td, tm, tn, tov = convex_vs_terrain_triangles(
+                arch.terrain_height, levels,
+                arch.terrain_origin[ti_s].expand(cpos_s.shape),
+                arch.terrain_cell[ti_s].expand(cpos_s.shape[:-1]),
+                verts, vmask, col_ref, ti_s.expand(cpos_s.shape[:-1]))
+            # An overflowing descent dropped candidate cells: those rows
+            # keep the tangent plane's manifold.
+            ok = tov == 0
+            pts[:, s:e] = torch.where(ok[..., None, None], tp, pts[:, s:e])
+            dep[:, s:e] = torch.where(ok[..., None], td, dep[:, s:e])
+            msk[:, s:e] = torch.where(ok[..., None], tm, msk[:, s:e])
+            n[:, s:e] = torch.where(ok[..., None], tn, n[:, s:e])
+
+    friction, restitution = narrow.combine_materials(
+        arch.col_friction[ci], arch.terrain_friction[ti],
+        arch.col_restitution[ci], arch.terrain_restitution[ti])
+    msk = msk & arch.vs_terrain_valid[:, None]
+    return ContactTable(
+        body_a=torch.full_like(arch.vs_terrain_body, arch.world_body),
+        body_b=arch.vs_terrain_body,
         normal=n,
         point=pts,
         depth=dep,
@@ -196,15 +294,17 @@ def _concat_tables(tables) -> ContactTable:
 
 
 def generate_contacts(arch: SceneArchetype, state: BodyState):
-    """The whole contact table, plane rows first, then each pair bucket,
-    then the runtime broadphase's rows, in the order the builder colored;
-    None for a scene without any row."""
+    """The whole contact table, plane rows first, then terrain rows, each
+    pair bucket and the runtime broadphase's rows, in the order the builder
+    colored; None for a scene without any row."""
     if arch.num_contact_rows == 0 and arch.sap_neighbors == 0:
         return None
     wpos, wrot = collider_world_poses(arch, state)
     tables = []
     if arch.vs_plane_collider.shape[0] > 0:
         tables.append(_vs_plane_manifolds(arch, wpos, wrot))
+    if arch.vs_terrain_collider.shape[0] > 0:
+        tables.append(_vs_terrain_manifolds(arch, wpos, wrot))
     for bucket in arch.contact_buckets:
         tables.append(_bucket_manifolds(arch, bucket, wpos, wrot))
     if arch.sap_neighbors > 0:

@@ -5,9 +5,10 @@ one CUDA kernel, `csrc/colored_solver.cu` (the team solve and row solves in
 A team of `TEAM_WIDTH` lanes solves one scene from shared memory.
 
 The contact rows are one table in the builder's global color order: plane
-rows, then the collider-pair buckets.  Where some row's A body is dynamic
-(a pair row), the table carries the A fields and its plane rows name the
-world slot as A, which the kernel never writes (`dynamic` is 0 there).
+rows, terrain rows, then the collider-pair buckets.  Plane and terrain rows
+name the world slot as A, which the kernel never writes (`dynamic` is 0
+there); where some row's A body is dynamic (a pair row), the table carries
+the A fields.
 
 Counterpart of ``d3d12renderer_tpu/physics/solver_pallas.py``
 (`make_colored_solver` and its kernel `_build_kernel`).  Beside the kernel
@@ -397,10 +398,10 @@ class ColoredSolver:
 
 def contact_bodies(arch: SceneArchetype):
     """(body_a, body_b) numpy arrays of every contact row, in the order of
-    `collide.generate_contacts`: plane rows (A the world slot), then the
-    buckets."""
-    ib = [arch.vs_plane_body.cpu().numpy()]
-    ia = [np.full_like(ib[0], arch.world_body)]
+    `collide.generate_contacts`: plane rows, then terrain rows (A the world
+    slot in both), then the buckets."""
+    ib = [arch.vs_plane_body.cpu().numpy(), arch.vs_terrain_body.cpu().numpy()]
+    ia = [np.full_like(b, arch.world_body) for b in ib]
     for bucket in arch.contact_buckets:
         ia.append(bucket.body_a.cpu().numpy())
         ib.append(bucket.body_b.cpu().numpy())

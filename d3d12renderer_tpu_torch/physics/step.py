@@ -2,9 +2,10 @@
 
 Per substep, unless the fused whole-substep kernel takes it
 (`substep_cuda.make_fused_substep`, for supported archetypes on CUDA
-tensors): collider poses -> narrowphase (plane rows, the collider-pair
-buckets, the runtime broadphase's rows) -> gravity, damping and force
-integration -> contact and joint prep -> the solve -> semi-implicit Euler.
+tensors): collider poses -> narrowphase (plane rows, terrain rows, the
+collider-pair buckets, the runtime broadphase's rows) -> force fields,
+gravity, damping and force integration -> contact and joint prep -> the
+solve -> semi-implicit Euler.
 The solve is the colored one (the CUDA kernel for CUDA tensors) in
 contact_mode "colored"; in "split_jacobi" and "runtime_gs" each of the
 `solver_iterations` iterations runs the joints' colored sweep and then the
@@ -17,11 +18,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core import maths as m
-from . import (broadphase, collide, joints as joints_mod, solver, solver_cuda,
-               substep_cuda)
+from . import (broadphase, collide, events, joints as joints_mod, solver,
+               solver_cuda, substep_cuda)
 from .narrow import ContactTable
 from .types import BodyState, PhysicsSettings, SceneArchetype
 
@@ -40,8 +42,8 @@ def integrate_forces(arch: SceneArchetype, pos, rot, vel, omega, force, torque,
     gravity[..., 1] = m.GRAVITY * arch.gravity_factor[:-1]
     rotm = m.quat_to_mat3(rot)
     inv_inertia_w = rotm @ arch.inv_inertia[:-1] @ rotm.transpose(-1, -2)
-    force = force + torch.as_tensor(global_force_field, dtype=vel.dtype,
-                                    device=vel.device)
+    force = force + m.constant(tuple(global_force_field), vel.dtype,
+                               vel.device)
     moving = (inv_mass > 0.0)[:, None]
     lin_acc = (gravity + force * inv_mass[:, None]) * moving
     ang_acc = m.mat3_vec(inv_inertia_w, torque)
@@ -97,8 +99,11 @@ def substep_prep(arch: SceneArchetype, state: BodyState, dt: float,
             "for validation runs)")
     # Contacts from the pre-integration poses.
     contacts = collide.generate_contacts(arch, state)
+    force = state.force
+    if arch.ff_center.shape[0] > 0:
+        force = force + events.apply_force_fields(arch, state)
     vel, omega, inv_inertia_w = integrate_forces(
-        arch, state.pos, state.rot, state.vel, state.omega, state.force,
+        arch, state.pos, state.rot, state.vel, state.omega, force,
         state.torque, dt, settings.global_force_field)
 
     # N+1 slots: the static world body last.
@@ -203,15 +208,87 @@ def physics_substep(arch: SceneArchetype, state: BodyState, dt: float,
 
 def physics_step(arch: SceneArchetype, state: BodyState,
                  settings: PhysicsSettings, dt: float,
-                 num_substeps: Optional[int] = None, motor_overrides=None):
+                 num_substeps: Optional[int] = None, motor_overrides=None,
+                 collect_events: bool = False, prev_active=None):
     """Step every scene by `dt` in fixed-rate substeps (at most
-    `settings.max_substeps`).  Returns (state, contacts of the last substep)."""
+    `settings.max_substeps`).  Returns (state, contacts of the last
+    substep).
+
+    `collect_events=True` also returns the `events.CollisionEvents` folded
+    over the substeps: begin / end found per substep against `prev_active`
+    (the previous frame's `active`), the approach speed from the
+    pre-solve velocities of the substep the contact began in.  That route
+    takes the unfused step, whose contact table it reads, as in the JAX
+    package."""
     if num_substeps is None:
         num_substeps = max(1, round(dt * settings.frame_rate))
         num_substeps = min(num_substeps, settings.max_substeps)
     h = 1.0 / settings.frame_rate
+    contacts = folded = None
+    for _ in range(num_substeps):
+        if collect_events:
+            # A zero row for the world slot, which plane and terrain rows
+            # name as body A.
+            vel0, omega0, pos0 = (_append_world(x) for x in (
+                state.vel, state.omega, state.pos))
+        state, contacts = physics_substep(arch, state, h, settings,
+                                          motor_overrides,
+                                          allow_fused=not collect_events)
+        if collect_events and contacts is not None:
+            ev = events.collision_events(contacts, vel0, omega0, prev_active,
+                                         pos=pos0)
+            prev_active = ev.active
+            folded = ev if folded is None else events.CollisionEvents(
+                begin=folded.begin | ev.begin,
+                end=folded.end | ev.end,
+                active=ev.active,
+                approach_speed=torch.maximum(folded.approach_speed,
+                                             ev.approach_speed))
+    if collect_events:
+        return state, contacts, folded
+    return state, contacts
+
+
+def physics_step_interpolated(arch: SceneArchetype, state: BodyState,
+                              settings: PhysicsSettings, dt: float,
+                              accumulator: float = 0.0, motor_overrides=None):
+    """Fixed-rate substeps with the leftover time carried over and a render
+    pose between the last two substeps' poses.  `dt` and `accumulator` are
+    Python floats.  Returns (state, contacts, new accumulator, (render_pos,
+    render_rot)); more than `settings.max_substeps` substeps of time (a
+    dropped frame) runs max_substeps and keeps only the fraction of a
+    substep left over."""
+    h = 1.0 / settings.frame_rate
+    total = accumulator + dt
+    num_substeps = int(total / h)
+    if num_substeps > settings.max_substeps:
+        num_substeps = settings.max_substeps
+        total = num_substeps * h + (total % h)
+    new_accumulator = total - num_substeps * h
+
+    pos0, rot0 = state.pos, state.rot
     contacts = None
     for _ in range(num_substeps):
+        pos0, rot0 = state.pos, state.rot
         state, contacts = physics_substep(arch, state, h, settings,
                                           motor_overrides)
-    return state, contacts
+
+    alpha = float(np.float32(new_accumulator / h))
+    render_pos = pos0 + (state.pos - pos0) * alpha
+    # nlerp on the near hemisphere.
+    dot = torch.sum(rot0 * state.rot, -1, keepdim=True)
+    rot1 = torch.where(dot < 0, -state.rot, state.rot)
+    render_rot = m.normalize(rot0 + (rot1 - rot0) * alpha)
+    return state, contacts, new_accumulator, (render_pos, render_rot)
+
+
+def make_batched_step(arch: SceneArchetype, settings: PhysicsSettings,
+                      dt: float):
+    """`step(state) -> state`: one `physics_step` of `dt` over a batched
+    state.  Every state of the port carries the scene axis already, so this
+    is the step itself; kept for the JAX package's API."""
+
+    def step(batched_state: BodyState) -> BodyState:
+        return physics_step(arch, batched_state, settings, dt)[0]
+
+    return step

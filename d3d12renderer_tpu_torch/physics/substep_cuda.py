@@ -111,20 +111,23 @@ def shared_need(arch: SceneArchetype,
 def support_reason(arch: SceneArchetype, settings: PhysicsSettings
                    ) -> Optional[str]:
     """None if the fused kernel can run this archetype, else why not: the
-    kernel generates plane contacts only, so collider-pair buckets are
-    refused, and so is the runtime broadphase, as in the JAX package.  JAX
-    also refuses terrain rows and force fields; the port's builder refuses
-    those scenes, so no archetype here has them.  Where JAX refuses more
-    than 64 bodies, the port refuses a scene whose block does not fit in
-    shared memory."""
+    kernel generates plane contacts only and applies no force field, so
+    terrain rows, collider-pair buckets, the runtime broadphase and force
+    fields are refused, as in the JAX package.  Where JAX refuses more than
+    64 bodies, the port refuses a scene whose block does not fit in shared
+    memory."""
     if settings.contact_mode != "colored":
         return f"contact_mode {settings.contact_mode!r}"
     if settings.solver_backend == "plain":
         return "solver_backend plain"
+    if arch.vs_terrain_collider.shape[0] > 0:
+        return "terrain rows"
     if arch.contact_buckets:
         return "pair buckets"
     if arch.sap_neighbors > 0:
         return "runtime broadphase"
+    if arch.ff_center.shape[0] > 0:
+        return "force fields"
     for (stype, _, _) in arch.vs_plane_segments:
         if stype not in (SHAPE_SPHERE, SHAPE_CAPSULE, SHAPE_BOX):
             return f"plane collider type {stype}"

@@ -83,10 +83,10 @@ class JointTable:
 
 @dataclass
 class SceneArchetype:
-    """Compiled static scene: the fields of the JAX archetype that the
-    port reads (plane rows, static pair buckets, hull tables and the
-    runtime broadphase's settings).  Body tables have N+1 rows; the last one
-    is the static world body."""
+    """Compiled static scene: the fields of the JAX archetype (plane and
+    terrain rows, static pair buckets, hull tables, force fields, triggers
+    and the runtime broadphase's settings).  Body tables have N+1 rows; the
+    last one is the static world body."""
 
     inv_mass: torch.Tensor          # (N+1,)
     inv_inertia: torch.Tensor       # (N+1, 3, 3) local inverse inertia
@@ -117,20 +117,42 @@ class SceneArchetype:
     vs_plane_color: torch.Tensor    # (Q,) int64
     vs_plane_valid: torch.Tensor    # (Q,) bool
 
+    # Heightfield terrains (one grid resolution for all) and the
+    # (dynamic collider, terrain) rows, sorted by collider type.
+    terrain_height: torch.Tensor        # (T, R0, R1)
+    terrain_origin: torch.Tensor        # (T, 3)
+    terrain_cell: torch.Tensor          # (T,)
+    terrain_friction: torch.Tensor      # (T,)
+    terrain_restitution: torch.Tensor   # (T,)
+    vs_terrain_collider: torch.Tensor   # (Q2,) int64
+    vs_terrain_terrain: torch.Tensor    # (Q2,) int64
+    vs_terrain_body: torch.Tensor       # (Q2,) int64
+    vs_terrain_valid: torch.Tensor      # (Q2,) bool
+    # Spherical force fields and trigger volumes (physics/events.py).
+    ff_center: torch.Tensor             # (F, 3)
+    ff_radius: torch.Tensor             # (F,)
+    ff_force: torch.Tensor              # (F, 3)
+    trigger_center: torch.Tensor        # (TR, 3)
+    trigger_radius: torch.Tensor        # (TR,)
+
     contact_buckets: Tuple[ContactBucket, ...]
     joints: Tuple[JointTable, ...]
     # Per-color row indices into the contact table: plane rows first, then
-    # the buckets in order.  Rows of one color share no dynamic body.
+    # terrain rows, then the buckets in order.  Rows of one color share no
+    # dynamic body.
     contact_color_indices: Tuple[torch.Tensor, ...]
     joint_color_indices: Tuple[Tuple[torch.Tensor, ...], ...]
 
     num_bodies: int
     num_colliders: int
     num_planes: int
-    # Colors of the whole contact table (plane and bucket rows).
+    num_terrains: int
+    # Colors of the whole contact table (plane, terrain and bucket rows).
     vs_plane_num_colors: int
-    # Static (shape_type, start, end) runs of the type-sorted plane rows.
+    # Static (shape_type, start, end) runs of the type-sorted plane and
+    # terrain rows.
     vs_plane_segments: Tuple[Tuple[int, int, int], ...] = ()
+    vs_terrain_segments: Tuple[Tuple[int, int, int], ...] = ()
 
     # Runtime broadphase (physics/broadphase.py), as in the JAX archetype.
     # sap_neighbors 0: collider pairs come from the static buckets only;
@@ -152,6 +174,10 @@ class SceneArchetype:
     sap_body_kinematic: Optional[torch.Tensor] = None  # (N,) bool
     sap_body_group: Optional[torch.Tensor] = None   # (N,) int64, -1 = none
     sap_joint_excl: Optional[torch.Tensor] = None   # (E, 2) body pairs, lo < hi
+    # True: box and hull rows collide against the heightfield's triangles
+    # (min-max mip descent, physics/heightmap_collision.py); False: against
+    # the bilinear tangent plane under the collider.
+    terrain_tri_exact: bool = False
     # Derived static data (solver metadata, device index arrays), built on
     # first use and kept for the archetype's life.
     cache: dict = field(default_factory=dict, repr=False, compare=False)
@@ -162,9 +188,12 @@ class SceneArchetype:
 
     @property
     def num_contact_rows(self) -> int:
-        """Rows of the contact table: plane rows, then bucket rows."""
-        return int(self.vs_plane_collider.shape[0]) + sum(
-            int(b.collider_a.shape[0]) for b in self.contact_buckets)
+        """Rows of the contact table: plane rows, terrain rows, then bucket
+        rows."""
+        return (int(self.vs_plane_collider.shape[0])
+                + int(self.vs_terrain_collider.shape[0])
+                + sum(int(b.collider_a.shape[0])
+                      for b in self.contact_buckets))
 
 
 @dataclass(frozen=True)

@@ -82,26 +82,21 @@ def _assert_same_archetype(got, want):
 _TETRAHEDRON = np.vstack([np.zeros(3), np.eye(3)]) - 0.25
 
 
-# (call on the two-sphere scene, finalize arguments, ported): what is not
-# ported yet raises; the runtime broadphase, hulls and cylinders compile.
-@pytest.mark.parametrize("call,finalize,ported", [
-    (lambda b: None, dict(broadphase="sap"), True),
-    (lambda b: b.add_force_field((0, 1, 0), 1.0, 10.0), {}, False),
-    (lambda b: b.add_trigger((0, 1, 0), 1.0), {}, False),
-    (lambda b: b.add_terrain(np.zeros((4, 4))), {}, False),
-    (lambda b: b.add_hull_collider(0, _TETRAHEDRON), {}, True),
-    (lambda b: b.add_cylinder_collider(0, 0.5, 0.5), {}, True),
+# (call on the two-sphere scene, finalize arguments): what earlier slices
+# refused now compiles: the runtime broadphase, force fields, triggers,
+# terrains, hull and cylinder colliders.
+@pytest.mark.parametrize("call,finalize", [
+    (lambda b: None, dict(broadphase="sap")),
+    (lambda b: b.add_force_field((0, 1, 0), 1.0, 10.0), {}),
+    (lambda b: b.add_trigger((0, 1, 0), 1.0), {}),
+    (lambda b: b.add_terrain(np.zeros((4, 4))), {}),
+    (lambda b: b.add_hull_collider(0, _TETRAHEDRON), {}),
+    (lambda b: b.add_cylinder_collider(0, 0.5, 0.5), {}),
 ], ids=[f"unported{i}" for i in range(6)])
-def test_builder_refuses_what_is_not_ported(call, finalize, ported):
-    """Terrains, force fields and triggers raise NotImplementedError naming
-    their ROADMAP item; the runtime broadphase, hull and cylinder colliders
-    compile to JAX's archetype."""
-    if not ported:
-        b = SceneBuilder()
-        _two_spheres(b)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(b)
-        return
+def test_builder_refuses_what_is_not_ported(call, finalize):
+    """Every scene the port's builder once refused compiles to JAX's
+    archetype: the runtime broadphase, hulls and cylinders, force
+    fields, triggers and terrains (their rows, colors and tables)."""
     jb, tb = JaxSceneBuilder(), SceneBuilder()
     for b in (jb, tb):
         _two_spheres(b)
@@ -110,6 +105,52 @@ def test_builder_refuses_what_is_not_ported(call, finalize, ported):
                            jb.finalize(**finalize)[0])
 
 
+def _world(b):
+    """Planes, two terrains of one resolution, bodies of every plane-row
+    shape and a kinematic one (no rows), colliding pairs, force fields and
+    triggers: plane rows, terrain rows and buckets in one coloring."""
+    rng = np.random.default_rng(3)
+    b.add_static_plane((0.0, 1.0, 0.0), -2.0)
+    b.add_static_plane((1.0, 0.2, 0.0), -5.0, friction=0.5)
+    b.add_terrain(rng.normal(0, 0.3, (9, 7)), origin=(-4.0, 0.0, -3.0),
+                  cell_size=1.0, friction=0.6, restitution=0.1)
+    b.add_terrain(rng.normal(0, 0.3, (9, 7)), origin=(4.0, 0.5, -3.0),
+                  cell_size=0.5)
+    bodies = [b.add_body((0.5 * i, 1.0, 0.3 * i)) for i in range(4)]
+    b.add_sphere_collider(bodies[0], 0.4)
+    b.add_box_collider(bodies[1], (0.3, 0.2, 0.3))
+    b.add_capsule_collider(bodies[2], 0.2, 0.3)
+    b.add_sphere_collider(bodies[2], 0.2, center=(0.0, 0.5, 0.0))
+    b.add_hull_collider(bodies[3], _TETRAHEDRON)
+    b.add_box_collider(b.add_body((3.0, 3.0, 0.0), kinematic=True),
+                       (0.5, 0.5, 0.5))
+    b.add_force_field((0.0, 1.0, 0.0), 2.0, (0.0, 20.0, 0.0))
+    b.add_force_field((1.0, 0.0, 1.0), 0.5, (1.0, 2.0, 3.0))
+    b.add_trigger((1.0, 1.0, 1.0), 1.5)
+
+
+@pytest.mark.parametrize("terrain_collision", ["bilinear", "triangles"])
+def test_terrain_fields_and_triggers_match_jax(terrain_collision):
+    """terrain_* / vs_terrain_* / ff_* / trigger_* arrays, the terrain
+    segments, terrain_tri_exact and contact_color_indices (terrain rows
+    colored between the plane rows and the buckets) equal JAX's."""
+    jb, tb = JaxSceneBuilder(), SceneBuilder()
+    _world(jb)
+    _world(tb)
+    fin = dict(terrain_collision=terrain_collision)
+    jarch, _ = jb.finalize(**fin)
+    tarch, _ = tb.finalize(device="cpu", **fin)
+    _assert_same_archetype(tarch, jarch)
+    got = archetype_to_numpy(tarch)
+    assert got["terrain_height"].shape == (2, 9, 7)
+    assert tarch.num_terrains == 2 and tarch.vs_terrain_collider.shape == (10,)
+    assert tarch.vs_terrain_segments == jarch.vs_terrain_segments
+    assert tarch.terrain_tri_exact == (terrain_collision == "triangles")
+    assert got["ff_force"].shape == (2, 3) and got["trigger_radius"].shape == (1,)
+    # Plane, terrain and pair rows all take colors.
+    rows = np.concatenate([i.numpy() for i in tarch.contact_color_indices])
+    assert sorted(rows.tolist()) == list(range(tarch.num_contact_rows))
+    assert tarch.contact_buckets
 def _convex_zoo(b, rng):
     """Bodies with hulls (one of 60 points on an ellipsoid, capped at
     MAX_HULL_VERTS), cylinders and boxes at offsets and rotations, one
@@ -269,3 +310,44 @@ def test_maths_matches_jax(name, make):
     got = got if isinstance(got, tuple) else (got,)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("scene", ["world", "ragdoll", "stack_1k"])
+def test_archetype_round_trip_through_numpy(envs, scene):
+    """`archetype_from_numpy` inverts `archetype_to_numpy` on the port's
+    archetypes, and a JAX-built archetype converts into the port's: the
+    terrain, force-field and trigger fields, buckets, joint tables and
+    colors included; the converted terrain scene collides as the built
+    one."""
+    from d3d12renderer_tpu_torch.convert import archetype_from_numpy
+    from d3d12renderer_tpu_torch.physics import collide
+
+    jb, tb = JaxSceneBuilder(), SceneBuilder()
+    if scene == "world":
+        _world(jb)
+        _world(tb)
+        fin = dict(terrain_collision="triangles")
+    elif scene == "stack_1k":
+        for b in (jb, tb):
+            scenes.add_stack_drop_1k(b, 64)
+        fin = scenes.STACK_DROP_1K_FINALIZE
+    if scene == "ragdoll":
+        jarch, tarch = envs[0].arch, envs[1].arch
+    else:
+        jarch = jb.finalize(**fin)[0]
+        tarch, tstate = tb.finalize(device="cpu", **fin)
+    flat = archetype_to_numpy(tarch)
+    back = archetype_from_numpy(flat, device="cpu")
+    _assert_same_archetype(back, tarch)
+    assert (back.vs_terrain_segments, back.terrain_tri_exact, back.sap_mode,
+            back.sap_type_pairs) == (tarch.vs_terrain_segments,
+                                     tarch.terrain_tri_exact, tarch.sap_mode,
+                                     tarch.sap_type_pairs)
+    from_jax = archetype_from_numpy(archetype_to_numpy(jarch), device="cpu")
+    _assert_same_archetype(from_jax, tarch)
+    if scene == "world":
+        want = collide.generate_contacts(tarch, tstate)
+        got = collide.generate_contacts(from_jax, tstate)
+        for f in ("normal", "point", "depth", "pmask", "active"):
+            torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                       rtol=0, atol=1e-6)

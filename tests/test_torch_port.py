@@ -227,7 +227,7 @@ def test_header_edit_changes_the_build_dir(tmp_path, monkeypatch):
 
 def _entry_points():
     from d3d12renderer_tpu_torch import convert, entry
-    from d3d12renderer_tpu_torch.physics import builder, joints
+    from d3d12renderer_tpu_torch.physics import builder, cloth, joints
     from d3d12renderer_tpu_torch.render import bvh, camera, lights, mesh
     from d3d12renderer_tpu_torch.render import pathtracer, pipeline
 
@@ -239,6 +239,15 @@ def _entry_points():
         "train_entry": (entry.train_entry, lambda f: f()),
         "stack_drop_entry": (entry.stack_drop_entry, lambda f: f()),
         "vehicle_entry": (entry.vehicle_entry, lambda f: f()),
+        "terrain_entry": (entry.terrain_entry, lambda f: f()),
+        "terrain_entry_ridge": (entry.terrain_entry,
+                                lambda f: f(scene="ridge")),
+        "cloth_entry": (entry.cloth_entry, lambda f: f()),
+        "vehicle_terrain_entry": (entry.vehicle_terrain_entry,
+                                  lambda f: f()),
+        "create_cloth": (cloth.create_cloth,
+                         lambda f: f(1.0, 1.0, 4, 4, 1.0)),
+        "archetype_from_numpy": (convert.archetype_from_numpy, None),
         "train_state_from_numpy": (convert.train_state_from_numpy, None),
         "initial_frame_state": (pipeline.initial_frame_state,
                                 lambda f: f(8, 8)),

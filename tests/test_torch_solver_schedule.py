@@ -5,8 +5,10 @@ takes every row of every color once; the team width a launch takes; and
 csrc/colored_solver.cu, compiled as host C++ (tests/torch_host_build.py),
 against the plain solve.  The archetypes: the plane-only ragdoll, the
 jointed chain, the self-colliding ragdoll (plane and collider-pair rows in
-one contact table, pair rows with a dynamic A) and the slider zoo (every
-joint kind and all six pair functions).
+one contact table, pair rows with a dynamic A), the slider zoo (every
+joint kind and all six pair functions), examples/showcase.py's terrain
+drop (terrain rows, then pair rows) and the ridge (triangle-exact terrain
+rows).
 """
 
 import ctypes
@@ -57,7 +59,8 @@ def color_conflicts(solver):
     return out
 
 
-WHICH = ("ragdoll", "chain", "self_collision", "zoo")
+WHICH = ("ragdoll", "chain", "self_collision", "zoo", "terrain_drop",
+         "ridge")
 PLAIN = PhysicsSettings(frame_rate=60, fused_substep="off",
                         solver_backend="plain")
 
@@ -85,10 +88,22 @@ def _zoo():
     return arch, state0, info
 
 
+@functools.lru_cache(maxsize=None)
+def _terrain(which):
+    b = SceneBuilder()
+    if which == "terrain_drop":
+        zoo_scenes.add_terrain_drop(b, zoo_scenes.terrain_drop_heights())
+        return b.finalize(device="cpu")
+    zoo_scenes.add_ridge(b)
+    return b.finalize(device="cpu", terrain_collision="triangles")
+
+
 def _arch(which, ragdoll, chain):
     return {"ragdoll": lambda: ragdoll.arch, "chain": lambda: chain[0],
             "self_collision": lambda: _self_colliding().arch,
-            "zoo": lambda: _zoo()[0]}[which]()
+            "zoo": lambda: _zoo()[0],
+            "terrain_drop": lambda: _terrain("terrain_drop")[0],
+            "ridge": lambda: _terrain("ridge")[0]}[which]()
 
 
 # --------------------------------------------------------------------------
@@ -105,10 +120,17 @@ def test_colors_write_disjoint_dynamic_bodies(ragdoll, chain, which):
         assert [[hi - lo for lo, hi in m.color_bounds]
                 for m in solver.tables] == [[6], [3, 1, 1, 1, 1],
                                             [14, 1, 1, 1]]
-    if which in ("self_collision", "zoo"):
+    if which in ("self_collision", "zoo", "terrain_drop"):
         # Pair rows write both of their bodies.
         contact = solver.tables[-1]
         assert not contact.a_static and not contact.b_static
+    if which in ("terrain_drop", "ridge"):
+        # Terrain rows, A the world slot, sit between the plane rows (none
+        # here) and the buckets.
+        arch = _arch(which, ragdoll, chain)
+        ia, _ = solver_cuda.contact_bodies(arch)
+        q2 = arch.vs_terrain_collider.shape[0]
+        assert q2 and (ia[:q2] == arch.world_body).all()
 
 
 def test_color_conflicts_finds_a_shared_body(ragdoll):
@@ -344,21 +366,55 @@ def _zoo_prep():
         return step.substep_prep(arch, state, DT, PLAIN)
 
 
+def _terrain_prep(which):
+    """Preps of 3 scenes of the terrain drop (bodies 0.3 m above the
+    surface, moving: terrain and pair rows touch) or the ridge (the box
+    5 cm into the crest)."""
+    from d3d12renderer_tpu_torch.terrain.heightmap import (
+        sample_height_bilinear)
+
+    arch, state0 = _terrain(which)
+    gen = torch.Generator().manual_seed(1)
+    pos = state0.pos.expand(3, -1, -1).clone()
+    if which == "ridge":
+        pos[..., 1] = 2.05
+    else:
+        y, _ = sample_height_bilinear(arch.terrain_height[0],
+                                      arch.terrain_origin[0],
+                                      arch.terrain_cell[0], pos[..., 0],
+                                      pos[..., 2])
+        pos[..., 1] = y + 0.3
+        pos[:, 1] = pos[:, 0] + torch.tensor([0.5, 0.2, 0.3])
+    state = state0.replace(
+        pos=pos, rot=state0.rot.expand(3, -1, -1).contiguous(),
+        vel=torch.rand(pos.shape, generator=gen) - 0.5,
+        omega=torch.rand(pos.shape, generator=gen) - 0.5,
+        force=torch.zeros_like(pos), torque=torch.zeros_like(pos))
+    with torch.no_grad():
+        return step.substep_prep(arch, state, DT, PLAIN)
+
+
 @pytest.mark.parametrize("which", WHICH)
 def test_host_colored_kernel_matches_plain(host, ragdoll, chain, which):
     """30 iterations through the kernel source, on the wrapper's packed
     buffer, against the plain solve: equal bit for bit.  g++
     -ffp-contract=off rounds every operation as PyTorch's CPU ops do, and
     the row solves take the plain version's operation order.  The
-    self-colliding and zoo scenes have active pair rows."""
+    self-colliding, zoo and terrain-drop scenes have active pair rows, the
+    terrain scenes active terrain rows."""
     arch = _arch(which, ragdoll, chain)
     sp = {"ragdoll": lambda: _ragdoll_prep(ragdoll),
           "chain": lambda: _chain_prep(chain),
           "self_collision": _self_colliding_prep,
-          "zoo": _zoo_prep}[which]()
-    if which in ("self_collision", "zoo"):
-        q = arch.vs_plane_collider.shape[0]
-        assert sp.contacts.active[:, q:].any()
+          "zoo": _zoo_prep,
+          "terrain_drop": lambda: _terrain_prep("terrain_drop"),
+          "ridge": lambda: _terrain_prep("ridge")}[which]()
+    q = arch.vs_plane_collider.shape[0]
+    q2 = arch.vs_terrain_collider.shape[0]
+    if which in ("self_collision", "zoo", "terrain_drop"):
+        assert sp.contacts.active[:, q + q2:].any()
+    if which in ("terrain_drop", "ridge"):
+        assert sp.contacts.active[:, q:q + q2].any()
     solver = _solver(arch, iterations=30)
     batch, slots = sp.vel1.shape[0], sp.vel1.shape[1]
     args = (sp.joint_preps, sp.contact_prep, sp.vel1, sp.omega1)
