@@ -20,6 +20,16 @@ the paths:
 * PPO training (`entry.train_entry`: BASELINE config 5, 4096 envs, rollout
   32, 8 minibatches, 4 epochs; one fused launch per rollout step) and the
   eval render of the trained pose through the BVH ray kernel;
+* data-parallel training (`entry.distributed_entry`: NCCL at world size 1,
+  the same config per rank, kernel #2 under the all-reduces), its sharded
+  checkpoint round trip, and the atrium path-traced in bands
+  (`parallel.eval_render.pathtrace_sharded`, the BVH ray kernel);
+* the raster frame's options (`entry.raster_showcase_entry`: SSS, RT
+  reflections through the BVH ray kernel, spot and point lights with their
+  maps in one shadow atlas, probes, a decal, a glass slab through the
+  brute-force ray kernel, water; `entry.raster_lights_entry`: 128 point
+  lights through the Forward+ tile lists) and the three modes of
+  `render_mode`;
 * self-colliding locomotion (`entry(self_collision=True)`: the ragdoll's
   collider pairs through the pair narrowphase, one colored-solver launch per
   step, no fused launch) at 4096 envs, the slider zoo (every joint kind and
@@ -251,6 +261,24 @@ TERRAIN_REF_FROM = 90
 # Training: train_entry at BASELINE config 5 (BASELINE.md:163): 4096 envs,
 # rollout 32 (its defaults); the median of TRAIN_ITERS iterations after a
 # warm one; the eval render of examples/train_locomotion.py:109-121.
+# The distributed phase: `distributed_entry` at world size 1 (NCCL), the
+# sharded checkpoint round trip, and `pathtrace_sharded` of the atrium at
+# 1080p, depth 1, 1 spp.
+DIST_SEED = 3
+SHARDED_DEPTH = 1
+# The raster-options phase: the two new entries at 1080p, best of 3 x 5
+# frames; each option's effect on a frame against the same frame without
+# it; each entry's frame on the card against the CPU over a 256x144
+# version of the scene (the raster slice's 1,294 triangles, maps cut to
+# 64^2); the three modes of `render_mode` at 1080p.
+OPT_W, OPT_H = 1920, 1080
+OPT_SLICE_W, OPT_SLICE_H = 256, 144
+OPT_SLICE_MAPS = 64
+OPT_JITTER = (0.3, 0.6)
+# Where an option shows: at least this many pixels change by more than
+# SLICE_PIXEL_TOL against the frame without it.
+OPT_MIN_PIXELS = 500
+MODE_SPP = 8
 TRAIN_ENVS, TRAIN_ROLLOUT = 4096, 32
 TRAIN_ITERS = 3
 EVAL_SIZE, EVAL_SPP = 256, 8
@@ -843,6 +871,15 @@ def path_tracing(card, cuda_ms):
     return entries
 
 
+def slice_meshes(mesh):
+    """The raster tests' meshes (tests/test_torch_pipeline.py): ground, an
+    ico sphere, a box; 1,294 triangles."""
+    return [(mesh.quad(half=20.0), 0),
+            (mesh.ico_sphere(1.0, 3).transformed(translate=(0, 1.0, 0)), 1),
+            (mesh.box((0.7, 0.7, 0.7)).transformed(
+                translate=(2.2, 0.7, -0.5)), 2)]
+
+
 def slice_scene(mesh, pt, device):
     """The raster tests' scene (tests/test_torch_pipeline.py): ground, a
     metal ico sphere, an emissive box; 1,294 triangles."""
@@ -850,10 +887,7 @@ def slice_scene(mesh, pt, device):
 
     from d3d12renderer_tpu_torch.render import bvh as bvh_mod
 
-    meshes = [(mesh.quad(half=20.0), 0),
-              (mesh.ico_sphere(1.0, 3).transformed(translate=(0, 1.0, 0)), 1),
-              (mesh.box((0.7, 0.7, 0.7)).transformed(
-                  translate=(2.2, 0.7, -0.5)), 2)]
+    meshes = slice_meshes(mesh)
 
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
@@ -2423,6 +2457,430 @@ def training(card, here):
           flush=True)
 
 
+def distributed_training(card, cuda_ms):
+    """The distributed phase: `distributed_entry` (NCCL at world size 1,
+    4096 envs, BASELINE config 5) for one iteration, which must launch
+    kernel #2 once per rollout step; the sharded checkpoint round trip and
+    one more iteration from the restored state (loaded onto this rank's
+    card by default), equal bit for bit to the iteration from the state
+    never saved; `pathtrace_sharded` of the atrium at 1080p in scanline
+    bands, equal bit for bit to `pathtracer.render` on the same draws.
+    Returns the BVH kernel's launches in the phase."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from d3d12renderer_tpu_torch.entry import distributed_entry, pathtrace_entry
+    from d3d12renderer_tpu_torch.ops import ray_trace
+    from d3d12renderer_tpu_torch.parallel.data_parallel import train_state_spec
+    from d3d12renderer_tpu_torch.parallel.eval_render import pathtrace_sharded
+    from d3d12renderer_tpu_torch.physics import substep_cuda
+    from d3d12renderer_tpu_torch.render import pathtracer as pt
+    from d3d12renderer_tpu_torch.utils import checkpoint
+
+    sync = torch.cuda.synchronize
+    fused_k = substep_cuda.fused_substep_cuda
+    bvh_k = ray_trace.ray_closest_hit_bvh
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    init, train, _ = distributed_entry()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"distributed_entry joined {dist.get_backend()} at world size "
+             f"{dist.get_world_size()}, want nccl at 1")
+    state = init(DIST_SEED)
+    sync()
+    setup_s = time.perf_counter() - t0
+    iter_s = []
+    for i in range(2):                   # a warm iteration, then a timed one
+        fused_k.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = train(state)
+        sync()
+        iter_s.append(time.perf_counter() - t0)
+        if fused_k.launches != TRAIN_ROLLOUT:
+            fail(f"distributed iteration {i}: {fused_k.launches} fused "
+                 f"launches, want {TRAIN_ROLLOUT}")
+    losses = {k: v.item() for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"distributed iteration: non-finite metrics {losses}")
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", "dist_state.bin")
+    t0 = time.perf_counter()
+    checkpoint.save_pytree_sharded(path, state, train_state_spec())
+    restored = checkpoint.load_pytree_sharded(path, train_state_spec())
+    ckpt_s = time.perf_counter() - t0
+    here = torch.device("cuda", torch.cuda.current_device())
+    if any(x.device != here for x in checkpoint.tree_leaves(restored)
+           if isinstance(x, (torch.Tensor, torch.Generator))):
+        fail(f"load_pytree_sharded put a part of the state off {here}")
+    a, ma = train(state)
+    b, mb = train(restored)
+    sync()
+    leaves = list(zip(checkpoint.tree_leaves(a), checkpoint.tree_leaves(b)))
+    for x, y in leaves:
+        same = (torch.equal(x.get_state(), y.get_state())
+                if isinstance(x, torch.Generator) else
+                torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+        if not same:
+            fail("the iteration from the restored state differs from the "
+                 "iteration from the state never saved")
+    if not all(torch.equal(ma[k], mb[k]) for k in ma):
+        fail("the restored state's iteration has other metrics")
+
+    # pathtrace_sharded of the atrium against pathtracer.render, the same
+    # draws: render traces in 32x32 tile order, the bands in scanline
+    # order, so the band's per-ray draws are render's put back in scanline
+    # order (pixel i takes render's draw inv[i]); the camera's draw, of the
+    # image's shape, is the same in both.
+    _, (scene, camera, _) = pathtrace_entry(width=PT_W, height=PT_H)
+    settings = pt.PathTracerSettings(recursion_depth=SHARDED_DEPTH)
+    inv = pt._tile_order(PT_W, PT_H, camera.position.device)[1]
+
+    class Scanline(pt.Sampler):
+        def _scanline(self, x):
+            return x[inv] if x.dim() and x.shape[0] == inv.shape[0] else x
+
+        def uniform(self, shape):
+            return self._scanline(super().uniform(shape))
+
+        def normal(self, shape):
+            return self._scanline(super().normal(shape))
+
+    def generator():
+        return torch.Generator(device="cuda").manual_seed(DIST_SEED)
+
+    def sharded():
+        g = generator()
+        return pathtrace_sharded(scene, camera, PT_W, PT_H, dist.group.WORLD,
+                                 settings=settings,
+                                 camera_sampler=pt.Sampler(g),
+                                 sampler=Scanline(g))
+
+    with torch.inference_mode():
+        sharded()
+        bvh_k.launches = 0
+        t0 = time.perf_counter()
+        frame = sharded()
+        sync()
+        sharded_ms = 1e3 * (time.perf_counter() - t0)
+        launches = bvh_k.launches
+        t0 = time.perf_counter()
+        want, _ = pt.render(scene, camera, PT_W, PT_H, settings, spp=1,
+                            sampler=pt.Sampler(generator()))
+        sync()
+        render_ms = 1e3 * (time.perf_counter() - t0)
+    if frame.shape != (PT_H, PT_W, 3) or not bool(torch.isfinite(frame).all()):
+        fail("pathtrace_sharded's frame is not a finite 1080p image")
+    if not torch.equal(frame, want):
+        fail(f"pathtrace_sharded differs from render (max "
+             f"{(frame - want).abs().max().item():.3e})")
+    if launches == 0:
+        fail("pathtrace_sharded launched no BVH kernel")
+    dist.destroy_process_group()
+    steps = TRAIN_ENVS * TRAIN_ROLLOUT
+    print(f"distributed (distributed_entry: NCCL at world size 1, "
+          f"{TRAIN_ENVS} envs per rank, rollout {TRAIN_ROLLOUT}, 8 "
+          f"minibatches, 4 epochs; set-up {setup_s:.2f} s): iterations "
+          f"{' / '.join(f'{1e3 * t:.1f}' for t in iter_s)} ms (warm, timed), "
+          f"{steps / iter_s[-1]:.0f} env-steps/s, {TRAIN_ROLLOUT} fused "
+          f"launches each, metrics finite | sharded checkpoint "
+          f"({len(leaves)} leaves) save + load {ckpt_s:.2f} s, the next "
+          f"iteration from it bit-equal to the one from the state never "
+          f"saved | pathtrace_sharded of the atrium {PT_W}x{PT_H}, depth "
+          f"{SHARDED_DEPTH}, 1 spp: {sharded_ms:.1f} ms, {launches} BVH "
+          f"launches, bit-equal to render ({render_ms:.1f} ms) | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    return {"bvh": launches}
+
+
+def raster_options(card, cuda_ms):
+    """The raster-options phase: `raster_showcase_entry` (every option of
+    examples/showcase.py's frame) and `raster_lights_entry` (128 point
+    lights through the Forward+ tile lists) at 1080p, each a warm frame,
+    the best of 3 x 5 frames, stage times, a profiled frame; each option's
+    effect; kernel #4 on the glass slab against its plain version; each
+    entry on the card against the CPU over a 256x144 version of the scene;
+    the three modes of `render_mode`.  Returns the ray kernels' launches on
+    the two entries' timed frames and #4's error on the glass."""
+    import math
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch import entry as entry_mod
+    from d3d12renderer_tpu_torch.core import maths as m
+    from d3d12renderer_tpu_torch.ops import image, raster, ray_trace
+    from d3d12renderer_tpu_torch.render import lights as lights_mod
+    from d3d12renderer_tpu_torch.render import mesh, pipeline, post
+    from d3d12renderer_tpu_torch.render import pathtracer as pt
+    from d3d12renderer_tpu_torch.render.decals import apply_decals
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    bvh_k, brute_k = ray_trace.ray_closest_hit_bvh, ray_trace.ray_closest_hit_brute
+    wrappers = {"bvh": bvh_k, "brute": brute_k, "raster": raster.rasterize_tiles,
+                "blur": image.gaussian_blur, "tonemap": image.tonemap}
+    t_phase = time.perf_counter()
+
+    def run(name, make):
+        t0 = time.perf_counter()
+        fn, state = make(device=dev, width=OPT_W, height=OPT_H)
+        sync()
+        setup_s = time.perf_counter() - t0
+        ldr, state, aux = fn(state)                      # warm frame
+        sync()
+        for k in wrappers.values():
+            k.launches = 0
+        best = math.inf
+        for _ in range(RASTER_RUNS):
+            t0 = time.perf_counter()
+            for _ in range(RASTER_FRAMES):
+                ldr, state, aux = fn(state)
+            sync()
+            best = min(best, (time.perf_counter() - t0) / RASTER_FRAMES)
+        frames = RASTER_RUNS * RASTER_FRAMES
+        counts = {n: k.launches for n, k in wrappers.items()}
+        if ldr.shape != (OPT_H, OPT_W, 3) or not bool(torch.isfinite(ldr).all()):
+            fail(f"{name}: the frame is not a finite 1080p image")
+        mean = ldr.mean().item()
+        if not 0.0 < mean < 1.0:
+            fail(f"{name}: the frame's mean {mean} is not inside (0, 1)")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(state)
+            sync()
+            prof_ms = 1e3 * (time.perf_counter() - t0)
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        _, _, staged = fn(state, profile_stages=True)
+        stages = staged["stage_ms"]
+        top = max(stages, key=stages.get)
+        print(f"{name} ({OPT_W}x{OPT_H}, set-up {setup_s:.2f} s): best of "
+              f"{RASTER_RUNS} runs of {RASTER_FRAMES} frames "
+              f"{1e3 * best:.2f} ms per frame ({1 / best:.1f} fps), ldr mean "
+              f"{mean:.4f} | launches per frame: "
+              + ", ".join(f"{n} {c / frames:g}" for n, c in counts.items())
+              + f" | profiler, one frame: {len(kern)} kernels, device busy "
+              f"{busy:.1f} of {prof_ms:.1f} ms ({100 * busy / prof_ms:.1f}%) "
+              f"| stage ms (CUDA events): "
+              + " ".join(f"{k} {v:.2f}" for k, v in stages.items())
+              + f"; most: {top} | {card}", flush=True)
+        return fn, state, counts, frames
+
+    # The showcase frame.
+    fn, state, counts, frames = run("raster_showcase_entry",
+                                    entry_mod.raster_showcase_entry)
+    if counts["brute"] != frames or counts["bvh"] != 2 * frames:
+        fail(f"showcase: BVH / brute launches {counts['bvh']} / "
+             f"{counts['brute']} in {frames} frames, want 2 (RT reflections"
+             f" closest and any hit) and 1 (the glass) per frame")
+    if counts["raster"] != frames or counts["tonemap"] != frames:
+        fail(f"showcase: launches {counts}")
+    jitter = torch.tensor(OPT_JITTER, device=dev)
+    opts = fn.options
+
+    def frame(**overrides):
+        return fn(state, jitter=jitter, **overrides)
+
+    base_ldr, _, base = frame()
+    gb = base["gbuffer"]
+    hit = gb.hit
+
+    def changed(ldr):
+        return int(((ldr - base_ldr).abs().amax(-1) > SLICE_PIXEL_TOL).sum())
+
+    checks = {}
+    # The spot's cone: pixels the cone reaches are brighter with the spot.
+    spot = opts["spot_lights"]
+    rel = gb.world_pos - spot.position[0]
+    dist_ = torch.linalg.norm(rel, dim=-1)
+    in_cone = hit & (torch.sum(rel * spot.direction[0], -1)
+                     > spot.outer_cos[0] * dist_) & (dist_ < spot.distance[0])
+    _, _, no_spot = frame(spot_lights=None, spot_shadow_maps=None)
+    gain = (base["hdr"] - no_spot["hdr"]).sum(-1)[in_cone]
+    checks["spot"] = (int(in_cone.sum()), gain.mean().item())
+    if checks["spot"][0] < OPT_MIN_PIXELS or not checks["spot"][1] > 0:
+        fail(f"the spot cone ({checks['spot'][0]} pixels) is not brighter "
+             f"with the spot (mean gain {checks['spot'][1]})")
+    # SSS darkens lit pixels.
+    s = opts["settings"]
+    _, _, no_sss = frame(settings=dataclasses.replace(s, enable_sss=False))
+    darker = int(((base["shadow"] < no_sss["shadow"] - 1e-3) & hit).sum())
+    checks["sss"] = darker
+    if darker < OPT_MIN_PIXELS:
+        fail(f"SSS darkened {darker} pixels")
+    # RT reflections fill where SSR's confidence is 0.
+    _, _, no_rt = frame(settings=dataclasses.replace(
+        s, enable_rt_reflections=False))
+    conf0 = base["ssr_confidence"] == 0
+    filled = conf0 & (base["rt_reflections"].abs().amax(-1) > 0)
+    moved = filled & ((base["hdr"] - no_rt["hdr"]).abs().amax(-1) > 0)
+    checks["rt"] = (int(conf0.sum()), int(filled.sum()), int(moved.sum()))
+    if checks["rt"][2] < OPT_MIN_PIXELS:
+        fail(f"RT reflections filled {checks['rt']} (confidence-0, RT "
+             "nonzero, changed) pixels")
+    # The decal's footprint, the glass and the water.
+    footprint = int((apply_decals(gb, opts["decals"]).albedo
+                     != gb.albedo).any(-1).sum())
+    for name, kw in (("decal", {"decals": None}),
+                     ("glass", {"transparent_objects": None}),
+                     ("water", {"water_height": None})):
+        ldr, _, _ = frame(**kw)
+        checks[name] = changed(ldr)
+        if checks[name] < OPT_MIN_PIXELS:
+            fail(f"the {name} changed {checks[name]} pixels of the frame")
+    checks["decal_footprint"] = footprint
+
+    # Kernel #4 at the glass slab's shapes against its plain version: the
+    # camera rays of the frame against the slab's 12-row table.
+    glass = opts["transparent_objects"][0].bvh
+    planes, _ = ray_trace.kernel_tables(glass)
+    rd = m.noz(gb.world_pos - fn.camera.position).reshape(-1, 3).contiguous()
+    ro = fn.camera.position.expand(rd.shape).contiguous()
+    tm = torch.full((ro.shape[0],), 1e30, device=dev)
+    got = brute_k(planes, ro, rd, tm)
+    want = ray_trace.closest_hit_plain(planes, ro, rd, tm)
+    n_bad, outside, dt_rel, glass_err = check_rays("brute", got, want, planes,
+                                                   ro, rd, tm, False)
+    glass_hits = int((want[1] >= 0).sum())
+    glass_ms = cuda_ms(lambda: brute_k(planes, ro, rd, tm), 20)
+    glass_plain_ms = cuda_ms(lambda: ray_trace.closest_hit_plain(
+        planes, ro, rd, tm), 2)
+    if outside or dt_rel > MAX_DT_REL or glass_hits < OPT_MIN_PIXELS:
+        fail(f"brute on the glass slab: {n_bad} differ ({outside} outside "
+             f"margins), |dt| rel {dt_rel:.2e}, {glass_hits} hits")
+    print(f"showcase options (one frame each against the same frame without "
+          f"the option, jitter {OPT_JITTER}): spot cone {checks['spot'][0]} "
+          f"pixels, mean hdr gain {checks['spot'][1]:.4f} | SSS darkened "
+          f"{checks['sss']} lit pixels | RT: {checks['rt'][0]} pixels at SSR "
+          f"confidence 0, {checks['rt'][1]} filled by RT, {checks['rt'][2]} "
+          f"changed | decal footprint {footprint} pixels, {checks['decal']} "
+          f"changed | glass {checks['glass']} | water {checks['water']} "
+          f"pixels changed | brute kernel on the glass slab "
+          f"({planes.shape[0]} rows x {ro.shape[0]} rays, {glass_hits} "
+          f"hits): {n_bad} differ from plain ({outside} outside margins), "
+          f"max |dt| rel {dt_rel:.2e}, {glass_ms:.3f} ms (plain "
+          f"{glass_plain_ms:.1f} ms) | {card}", flush=True)
+
+    # The Forward+ frame: its tiles, some over MAX_LIGHTS_PER_TILE.
+    fn_l, state_l, counts_l, frames_l = run("raster_lights_entry",
+                                            entry_mod.raster_lights_entry)
+    if counts_l["bvh"] or counts_l["brute"] or counts_l["raster"] != frames_l:
+        fail(f"lights: launches {counts_l}")
+    _, _, aux_l = fn_l(state_l)
+    lights = fn_l.options["point_lights"]
+    with torch.inference_mode():
+        _, tile_count = lights_mod.cull_lights_tiled(
+            aux_l["gbuffer"].view_pos, lights, fn_l.camera, OPT_W, OPT_H)
+    over = int((tile_count > lights_mod.MAX_LIGHTS_PER_TILE).sum())
+    if over == 0:
+        fail("no tile of the 128-light frame passes more than "
+             f"{lights_mod.MAX_LIGHTS_PER_TILE} lights")
+
+    # The host cost of the eager loops: kernels of one call (two profiler
+    # sessions of 3 and 2 calls, differenced: a session misses its first
+    # kernels) and CUDA-event time per call.
+    def kernels_per_call(f):
+        counts = []
+        for calls in (3, 2):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    f()
+                sync()
+            counts.append(sum(1 for e in prof.events()
+                              if e.device_type == DeviceType.CUDA))
+        return counts[0] - counts[1]
+
+    gbl = aux_l["gbuffer"]
+    sun_view = m.quat_inv_rotate(fn_l.camera.rotation,
+                                 fn_l.scene.sky.sun_direction)
+    vp_low = post.downsample2(gbl.view_pos)
+    loops = {
+        "cull_lights_tiled": lambda: lights_mod.cull_lights_tiled(
+            gbl.view_pos, lights, fn_l.camera, OPT_W, OPT_H),
+        "shade_point_lights": lambda: lights_mod.shade_point_lights(
+            gbl, lights, tile_lists, fn_l.camera),
+        "screen_space_shadows (half res)": lambda: post.screen_space_shadows(
+            vp_low, sun_view, None, pipeline.RendererSettings().sss),
+    }
+    with torch.inference_mode():
+        tile_lists, _ = loops["cull_lights_tiled"]()
+        loop_rows = [f"{k} {kernels_per_call(f)} kernels, {cuda_ms(f, 5):.2f}"
+                     f" ms" for k, f in loops.items()]
+    print(f"raster_lights_entry tiles: {tile_count.numel()} tiles of "
+          f"{lights_mod.TILE_SIZE}^2, {int((tile_count > 0).sum())} with a "
+          f"light, {over} with more than {lights_mod.MAX_LIGHTS_PER_TILE} "
+          f"(most {int(tile_count.max())}), mean "
+          f"{tile_count.float().mean().item():.2f} | eager loops at "
+          f"{OPT_W}x{OPT_H}, per call: {'; '.join(loop_rows)} | {card}",
+          flush=True)
+
+    # The card against the CPU over a 256x144 version of the scene: the
+    # entries' frames (`_showcase_frames`, `_lights_frames`) of the raster
+    # slice's meshes in the atrium's set-up, every map at OPT_SLICE_MAPS^2.
+    small = slice_meshes(mesh)
+    builders = {"raster_showcase_entry": entry_mod._showcase_frames,
+                "raster_lights_entry": entry_mod._lights_frames}
+    rows = []
+    for name, frames in builders.items():
+        out = []
+        for device in (dev, torch.device("cpu")):
+            scene_s, camera_s = entry_mod._atrium(device, OPT_SLICE_W,
+                                                  OPT_SLICE_H, small)
+            f = frames(scene_s, camera_s, OPT_SLICE_W, OPT_SLICE_H, device,
+                       0, OPT_SLICE_MAPS)
+            st = pipeline.initial_frame_state(OPT_SLICE_W, OPT_SLICE_H,
+                                              device)
+            imgs = []
+            for jit in ((0.25, 0.6), (0.7, 0.3)):
+                img, st, _ = f(st, jitter=torch.tensor(jit, device=device))
+                imgs.append(img.cpu())
+            out.append(imgs)
+        for i, (g, c) in enumerate(zip(*out)):
+            err = (g - c).abs().amax(-1)
+            share = (err <= SLICE_PIXEL_TOL).float().mean().item()
+            rows.append(f"{name} frame {i + 1}: {100 * share:.2f}% within "
+                        f"{SLICE_PIXEL_TOL}, mean {err.mean().item():.2e}")
+            if share < SLICE_SHARE or not err.mean().item() < RASTER_MEAN_TOL:
+                fail(f"{name}: the card's slice frame {i + 1} disagrees "
+                     f"with the CPU ({100 * share:.2f}% within "
+                     f"{SLICE_PIXEL_TOL}, mean {err.mean().item():.2e})")
+    print(f"card vs CPU over the new entries ({OPT_SLICE_W}x{OPT_SLICE_H}, "
+          f"the raster slice's scene, maps {OPT_SLICE_MAPS}^2, two frames "
+          f"with TAA history): {'; '.join(rows)} (bounds "
+          f"{100 * SLICE_SHARE:.0f}%, {RASTER_MEAN_TOL})", flush=True)
+
+    # The three modes of render_mode at 1080p.
+    scene, camera = fn.scene, fn.camera
+    mode_rows = []
+    with torch.inference_mode():
+        for mode in pipeline.RENDER_MODES:
+            t0 = time.perf_counter()
+            img = pipeline.render_mode(
+                scene, camera, OPT_W, OPT_H, mode, spp=MODE_SPP,
+                sampler=pt.Sampler(torch.Generator(device=dev).manual_seed(1)))
+            sync()
+            secs = time.perf_counter() - t0
+            if img.shape != (OPT_H, OPT_W, 3) or not bool(
+                    torch.isfinite(img).all()):
+                fail(f"render_mode {mode}: not a finite 1080p image")
+            mode_rows.append(f"{mode} {secs:.2f} s, mean "
+                             f"{img.mean().item():.4f}")
+    print(f"render_mode at {OPT_W}x{OPT_H} (path traced at {MODE_SPP} spp): "
+          f"{'; '.join(mode_rows)} | phase {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
+    return {"bvh": counts["bvh"] + counts_l["bvh"],
+            "brute": counts["brute"] + counts_l["brute"],
+            "glass_err": glass_err}
+
+
 def main():
     t_script = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2896,6 +3354,12 @@ def main():
     rays = path_tracing(card, cuda_ms)
     images = raster_frame(card, cuda_ms)
     training(card, here)
+    dist_launches = distributed_training(card, cuda_ms)
+    options = raster_options(card, cuda_ms)
+    # Kernels #3 and #4 on the new paths.
+    rays[0]["launches"] += dist_launches["bvh"] + options["bvh"]
+    rays[1]["launches"] += options["brute"]
+    rays[1]["max_abs_err"] = max(rays[1]["max_abs_err"], options["glass_err"])
     # Last: run before the blur's profile, its profiles of ~27,000- and
     # ~97,000-kernel frames left that profile seeing 23 of its 50 calls
     # whole.

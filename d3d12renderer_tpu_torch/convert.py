@@ -3,6 +3,7 @@ numpy (neither side's tensors cross over)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -16,10 +17,13 @@ from .learning.ppo import AdamState, TrainState
 from .physics.types import BodyState, SceneArchetype
 from .render import bvh as bvh_mod
 from .render.camera import Camera
-from .render.lights import PointLights
+from .render.decals import Decals
+from .render.light_probe import LightProbeGrid
+from .render.lights import PointLights, SpotLights
 from .render.pathtracer import Materials, Sky
 from .render.pipeline import FrameState
-from .render.shadows import SunShadowMaps
+from .render.shadows import PointShadowMap, SpotShadowMap, SunShadowMaps
+from .render.transparent import TransparentObject
 
 _DENSE = ("pi_0", "pi_1", "action_head", "vf_0", "vf_1", "value_head")
 _BODY_FIELDS = ("pos", "rot", "vel", "omega", "force", "torque")
@@ -78,6 +82,44 @@ def train_state_from_numpy(src, device="cuda") -> TrainState:
         stats=_fields(EpisodeStats, _get(src, "stats"), device))
 
 
+def distributed_train_state_from_numpy(src, rank: int, world_size: int,
+                                       device="cuda", seed: int = 0
+                                       ) -> TrainState:
+    """Rank `rank`'s `TrainState` of a data-parallel run from the JAX
+    package's global one (`make_distributed_ppo`'s): the parameters, the
+    optimizer state and the episode aggregates whole, this rank's slice of
+    the env state, `last_obs` and the running return and length.  The
+    generators are new, seeded per rank as
+    `data_parallel.make_distributed_ppo`'s init seeds them."""
+    from .parallel.data_parallel import rank_generator
+
+    env, stats = _get(src, "env_state"), _get(src, "stats")
+    rows = np.asarray(_get(src, "last_obs")).shape[0] // world_size
+    part = slice(rank * rows, (rank + 1) * rows)
+
+    def local(x):
+        return np.asarray(x)[part]
+
+    bodies = _get(env, "bodies")
+    local_src = {
+        "params": _get(src, "params"), "opt_state": _get(src, "opt_state"),
+        "env_state": {
+            "bodies": {f: local(_get(bodies, f)) for f in _BODY_FIELDS},
+            "last_action": local(_get(env, "last_action")),
+            "steps": local(_get(env, "steps"))},
+        "last_obs": local(_get(src, "last_obs")),
+        "stats": {**{f: _get(stats, f) for f in (
+            "episode_count", "return_sum", "length_sum", "best_return")},
+            "running_return": local(_get(stats, "running_return")),
+            "running_length": local(_get(stats, "running_length"))}}
+    state = train_state_from_numpy(local_src, device)
+    device = resolve_device(device)
+    env_state = dataclasses.replace(
+        state.env_state, generator=rank_generator(seed, rank, 0, device))
+    return state._replace(env_state=env_state,
+                          rng=rank_generator(seed, rank, 1, device))
+
+
 def _get(src, name):
     """A field of an object or a mapping; None where it has none."""
     return src.get(name) if isinstance(src, Mapping) else getattr(src, name,
@@ -126,6 +168,40 @@ def sky_from_numpy(src, device="cuda") -> Sky:
 
 def point_lights_from_numpy(src, device="cuda") -> PointLights:
     return _fields(PointLights, src, resolve_device(device))
+
+
+def spot_lights_from_numpy(src, device="cuda") -> SpotLights:
+    return _fields(SpotLights, src, resolve_device(device))
+
+
+def spot_shadow_map_from_numpy(src, device="cuda") -> SpotShadowMap:
+    return _fields(SpotShadowMap, src, resolve_device(device))
+
+
+def point_shadow_map_from_numpy(src, device="cuda") -> PointShadowMap:
+    return _fields(PointShadowMap, src, resolve_device(device))
+
+
+def light_probe_grid_from_numpy(src, device="cuda") -> LightProbeGrid:
+    """A probe grid with its irradiance and depth texels."""
+    device = resolve_device(device)
+    return LightProbeGrid(
+        dims=tuple(int(n) for n in _get(src, "dims")),
+        **{f: _tensor(_get(src, f), device)
+           for f in ("origin", "spacing", "irradiance", "depth")})
+
+
+def decals_from_numpy(src, device="cuda") -> Decals:
+    return _fields(Decals, src, resolve_device(device))
+
+
+def transparent_object_from_numpy(src, device="cuda") -> TransparentObject:
+    """A transparent object: its BVH (`bvh_from_numpy`), colour and
+    alpha."""
+    return TransparentObject(
+        bvh=bvh_from_numpy(_get(src, "bvh"), device),
+        color=tuple(float(c) for c in _get(src, "color")),
+        alpha=float(_get(src, "alpha")))
 
 
 def camera_from_numpy(src, device="cuda") -> Camera:

@@ -1,10 +1,13 @@
 """The port's main paths: a policy forward plus one batched ragdoll
 locomotion env step (counterpart of ``__graft_entry__.entry``), PPO
-training, the path tracer, the raster frame, the runtime physics of
-BASELINE configs 1 (the 1k-body stack drop) and 4 (the gear-train
-vehicle), terrain physics (examples/showcase.py's drop with collision
-events, the triangle-exact ridge, the vehicle on terrain) and cloth against
-rigid bodies (BASELINE config 3)."""
+training, alone and data-parallel over `torch.distributed` (counterpart of
+``__graft_entry__.dryrun_multichip``), the path tracer, the raster frame
+(plain, with every option of examples/showcase.py, and the Forward+ frame
+of 128 point lights), the runtime physics of BASELINE configs 1 (the
+1k-body stack drop) and 4 (the gear-train vehicle), terrain physics
+(examples/showcase.py's drop with collision events, the triangle-exact
+ridge, the vehicle on terrain) and cloth against rigid bodies (BASELINE
+config 3)."""
 
 from __future__ import annotations
 
@@ -64,6 +67,27 @@ def train_entry(device="cuda", envs: int = 4096, rollout: int = 32,
                        minibatches=minibatches, epochs=epochs)
     init, train_iteration, _ = make_ppo(env, config)
     return train_iteration, init(seed)
+
+
+def distributed_entry(device="cuda", envs: int = 4096, rollout: int = 32,
+                      minibatches: int = 8, epochs: int = 4):
+    """Data-parallel PPO on the locomotion env, `envs` envs on every rank
+    (BASELINE config 5 per rank at the defaults, as `train_entry`).  Joins
+    the default process group (`data_parallel.join_process_group`: the
+    ranks of `torchrun`'s RANK / WORLD_SIZE / MASTER_ADDR, each on the card
+    of its LOCAL_RANK, or this process alone; NCCL on the card, gloo only
+    for `device="cpu"`), or keeps the one the caller joined (with its own
+    timeout, say).  Returns `make_distributed_ppo`'s `(init, train,
+    policy_apply)`; on a CUDA device every rollout step is one
+    fused-kernel launch per rank."""
+    from .learning.ppo import PPOConfig
+    from .parallel.data_parallel import (join_process_group,
+                                         make_distributed_ppo)
+
+    group, device = join_process_group(resolve_device(device))
+    config = PPOConfig(num_envs=envs, rollout_steps=rollout,
+                       minibatches=minibatches, epochs=epochs)
+    return make_distributed_ppo(LocoEnv(device=device), config, group)
 
 
 # bench.py:392-485 (`bench_physics_scale`): the stack leg steps at 120 Hz
@@ -291,18 +315,12 @@ ATRIUM_METALLIC = [0.0, 0.0, 0.0, 0.0, 1.0, 0.0]
 RASTER_SHADOW_RESOLUTION = 512
 
 
-def pathtrace_entry(device="cuda", width: int = 1920, height: int = 1080,
-                    recursion_depth: int = 3, seed: int = 0):
-    """The path tracer's main path (counterpart of `bench_pt_e2e`'s set-up,
-    `bench.py:356-372`): the 256,798-triangle atrium (`atrium_scene(1.4)`)
-    with its six materials under `default_sky()`, seen by
-    `look_at((8, 6, -14), (0, 3, 0))` at 60 degrees and width/height aspect.
-
-    Returns `(fn, (scene, camera, sampler))`, where
-    `fn(scene, camera, sampler) -> (image (H, W, 3), rays_traced)` renders
-    one frame at one sample per pixel, depth `recursion_depth`, with sun NEE
-    and MIS; each call draws new numbers from `sampler` (a
-    `torch.Generator` seeded with `seed`)."""
+def _atrium(device, width: int, height: int, meshes=None):
+    """`bench_pt_e2e` / `bench_raster_frame`'s set-up (`bench.py:356-372`):
+    the 256,798-triangle atrium (`atrium_scene(1.4)`, or `meshes` with its
+    material ids) with its six materials under `default_sky()`, seen by
+    `look_at((8, 6, -14), (0, 3, 0))` at 60 degrees and width/height
+    aspect.  (scene, camera)."""
     import math
 
     from .render import bvh as bvh_mod
@@ -310,12 +328,11 @@ def pathtrace_entry(device="cuda", width: int = 1920, height: int = 1080,
     from .render.camera import look_at
     from .render.mesh import atrium_scene
 
-    device = resolve_device(device)
-
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
 
-    bvh = bvh_mod.build_bvh(atrium_scene(1.4), device=device)
+    meshes = atrium_scene(1.4) if meshes is None else meshes
+    bvh = bvh_mod.build_bvh(meshes, device=device)
     materials = pt.Materials(albedo=f32(ATRIUM_ALBEDO),
                              emissive=torch.zeros((6, 3), device=device),
                              roughness=f32(ATRIUM_ROUGHNESS),
@@ -324,6 +341,24 @@ def pathtrace_entry(device="cuda", width: int = 1920, height: int = 1080,
                      sky=pt.default_sky(device=device)).with_shading_table()
     camera = look_at((8.0, 6.0, -14.0), (0.0, 3.0, 0.0), device=device,
                      v_fov=math.radians(60), aspect=width / height)
+    return scene, camera
+
+
+def pathtrace_entry(device="cuda", width: int = 1920, height: int = 1080,
+                    recursion_depth: int = 3, seed: int = 0):
+    """The path tracer's main path (counterpart of `bench_pt_e2e`'s set-up,
+    `bench.py:356-372`): the atrium of `_atrium` with its six materials
+    under `default_sky()`.
+
+    Returns `(fn, (scene, camera, sampler))`, where
+    `fn(scene, camera, sampler) -> (image (H, W, 3), rays_traced)` renders
+    one frame at one sample per pixel, depth `recursion_depth`, with sun NEE
+    and MIS; each call draws new numbers from `sampler` (a
+    `torch.Generator` seeded with `seed`)."""
+    from .render import pathtracer as pt
+
+    device = resolve_device(device)
+    scene, camera = _atrium(device, width, height)
     settings = pt.PathTracerSettings(recursion_depth=recursion_depth)
     sampler = pt.Sampler(torch.Generator(device=device).manual_seed(seed))
 
@@ -335,13 +370,55 @@ def pathtrace_entry(device="cuda", width: int = 1920, height: int = 1080,
     return fn, (scene, camera, sampler)
 
 
+def _raster_frames(scene, camera, width: int, height: int, device, seed: int,
+                   options: dict):
+    """`fn(state, profile_stages=False, jitter=None, **overrides) ->
+    (ldr, state, aux)` (with `fn.options`, `fn.scene` and `fn.camera`):
+    one `render_frame` of the scene with the raster
+    primary and half-res effects, TAA history carried (the previous camera
+    is the camera), `options` as its keyword arguments (`overrides`
+    replace them for one frame: another `settings`, or an option set to
+    None), the sub-pixel jitter drawn from a generator seeded `seed` unless
+    given."""
+    from .render.pipeline import RendererSettings, render_frame
+
+    generator = torch.Generator(device=device).manual_seed(seed)
+    options = {"settings": RendererSettings(primary="raster",
+                                            half_res_effects=True),
+               **options}
+
+    @torch.inference_mode()
+    def fn(state, profile_stages: bool = False, jitter=None, **overrides):
+        if jitter is None:
+            jitter = torch.rand(2, generator=generator, device=device)
+        kw = {**options, **overrides}
+        return render_frame(scene, camera, width, height, kw.pop("settings"),
+                            frame_state=state, prev_camera=camera,
+                            jitter=jitter, profile_stages=profile_stages,
+                            **kw)
+
+    fn.options, fn.scene, fn.camera = options, scene, camera
+    return fn
+
+
+def _sun_maps(scene, camera, resolution: int):
+    """The sun's 3 cascades at `resolution`^2, rendered once (static scene
+    and sun)."""
+    from .render.shadows import fit_cascades, render_sun_shadow_maps
+
+    with torch.inference_mode():
+        return render_sun_shadow_maps(
+            scene.bvh, fit_cascades(camera.position, -scene.sky.sun_direction),
+            resolution=resolution)
+
+
 def raster_entry(device="cuda", width: int = 1920, height: int = 1080,
                  seed: int = 0):
     """The raster frame's main path (counterpart of `bench_raster_frame`'s
-    set-up, `bench.py:265-303`): the atrium and materials of
-    `pathtrace_entry`, the same camera, `RendererSettings(primary="raster",
-    half_res_effects=True)`, and 3-cascade sun shadow maps of
-    `RASTER_SHADOW_RESOLUTION`^2 rendered once here (static scene and sun).
+    set-up, `bench.py:265-303`): the atrium, materials and camera of
+    `_atrium`, `RendererSettings(primary="raster", half_res_effects=True)`,
+    and 3-cascade sun shadow maps of `RASTER_SHADOW_RESOLUTION`^2 rendered
+    once here (static scene and sun).
 
     Returns `(fn, state)`: `state` is the initial `FrameState` and
     `fn(state, profile_stages=False) -> (ldr (H, W, 3), state, aux)`
@@ -349,43 +426,179 @@ def raster_entry(device="cuda", width: int = 1920, height: int = 1080,
     camera: no motion).  Each frame's two sub-pixel jitter floats are drawn
     from a `torch.Generator` seeded with `seed`.  `aux` is
     `render_frame`'s."""
-    import math
-
-    from .render import bvh as bvh_mod
-    from .render import pathtracer as pt
-    from .render.camera import look_at
-    from .render.mesh import atrium_scene
-    from .render.pipeline import (RendererSettings, initial_frame_state,
-                                  render_frame)
-    from .render.shadows import fit_cascades, render_sun_shadow_maps
+    from .render.pipeline import initial_frame_state
 
     device = resolve_device(device)
-
-    def f32(x):
-        return torch.tensor(x, dtype=torch.float32, device=device)
-
-    bvh = bvh_mod.build_bvh(atrium_scene(1.4), device=device)
-    materials = pt.Materials(albedo=f32(ATRIUM_ALBEDO),
-                             emissive=torch.zeros((6, 3), device=device),
-                             roughness=f32(ATRIUM_ROUGHNESS),
-                             metallic=f32(ATRIUM_METALLIC))
-    scene = pt.Scene(bvh=bvh, materials=materials,
-                     sky=pt.default_sky(device=device)).with_shading_table()
-    camera = look_at((8.0, 6.0, -14.0), (0.0, 3.0, 0.0), device=device,
-                     v_fov=math.radians(60), aspect=width / height)
-    settings = RendererSettings(primary="raster", half_res_effects=True)
-    with torch.inference_mode():
-        maps = render_sun_shadow_maps(
-            bvh, fit_cascades(camera.position, -scene.sky.sun_direction),
-            resolution=RASTER_SHADOW_RESOLUTION)
-    generator = torch.Generator(device=device).manual_seed(seed)
-
-    @torch.inference_mode()
-    def fn(state, profile_stages: bool = False):
-        jitter = torch.rand(2, generator=generator, device=device)
-        return render_frame(scene, camera, width, height, settings,
-                            shadow_maps=maps, frame_state=state,
-                            prev_camera=camera, jitter=jitter,
-                            profile_stages=profile_stages)
-
+    scene, camera = _atrium(device, width, height)
+    fn = _raster_frames(scene, camera, width, height, device, seed,
+                        {"shadow_maps": _sun_maps(scene, camera,
+                                                  RASTER_SHADOW_RESOLUTION)})
     return fn, initial_frame_state(width, height, device)
+
+
+# raster_showcase_entry: examples/showcase.py:274-363's options, placed
+# where raster_entry's camera sees them: the ground outside the atrium's
+# south wall (x in [-14, 3], z in [-12, -8.6]) and the wall's face.
+SHOWCASE_ATLAS_SIZE = 4096
+SHOWCASE_SPOT = dict(position=(-2.0, 6.0, -13.0), direction=(-2.0, -6.0, 3.5),
+                     color=(45.0, 42.0, 38.0), distance=28.0, inner_cos=0.85,
+                     outer_cos=0.65)
+SHOWCASE_SPOT_RESOLUTION = 256
+SHOWCASE_POINT = dict(position=(4.0, 2.5, -11.0), color=(30.0, 22.0, 12.0),
+                      radius=16.0)
+SHOWCASE_POINT_RESOLUTION = 192
+SHOWCASE_PROBES = dict(origin=(-13.5, 0.5, -13.5), extent=(27.0, 6.0, 27.0),
+                       dims=(5, 3, 5))
+SHOWCASE_PROBE_UPDATES = 2
+SHOWCASE_PROBE_RAYS = 32
+SHOWCASE_DECAL = dict(positions=[(-4.0, 0.0, -10.0)],
+                      rotations=[(0.7071, 0.0, 0.0, 0.7071)],
+                      half_extents=[(1.2, 1.2, 2.0)],
+                      albedos=[(0.05, 0.05, 0.06)])
+SHOWCASE_GLASS_HALF = (1.2, 1.0, 0.08)
+SHOWCASE_GLASS_AT = (0.0, 1.2, -10.0)
+SHOWCASE_GLASS_COLOR = (0.5, 0.8, 0.7)
+SHOWCASE_GLASS_ALPHA = 0.35
+SHOWCASE_WATER_HEIGHT = 0.25
+
+
+def raster_showcase_entry(device="cuda", width: int = 1920, height: int = 1080,
+                          seed: int = 0):
+    """`raster_entry`'s frame with every option of examples/showcase.py's
+    frame (`:274-363`), in the atrium:
+
+    * `enable_sss` and `enable_rt_reflections`;
+    * one `ShadowAtlas(4096)` holding the sun's cascades at
+      RASTER_SHADOW_RESOLUTION^2, a spot light's 256^2 map and a point
+      light's 2 x 192^2 map.  The spot light stands at (-2, 6, -13) and
+      points along (-2, -6, 3.5), at the ground near (-4, 0, -9.5) (cone
+      cosines 0.65 / 0.85, range 28); the point light stands at (4, 2.5,
+      -11), radius 16;
+    * a 5 x 3 x 5 probe grid over the atrium's bounds (x, z in [-13.5,
+      13.5], y in [0.5, 6.5]), updated twice at 32 rays per probe, the
+      rotations drawn from a CPU generator seeded `seed + 1` (the same
+      probes on every device);
+    * a decal of half extents (1.2, 1.2, 2.0) and albedo (0.05, 0.05,
+      0.06) at (-4, 0, -10), projecting straight down;
+    * a glass slab, `box((1.2, 1.0, 0.08))` at (0, 1.2, -10), colour (0.5,
+      0.8, 0.7), alpha 0.35;
+    * water at y = 0.25: the atrium's ground is flat at y = 0, so it covers
+      all the ground and the foot of the walls.
+
+    The shadow maps and probes are made once here.  Returns `(fn, state)`
+    as `raster_entry`; `fn(state, profile_stages=False, jitter=None,
+    **overrides)` takes a frame's jitter or any `render_frame` option in
+    place of the entry's (`fn.options` holds them)."""
+    from .render.pipeline import initial_frame_state
+
+    device = resolve_device(device)
+    scene, camera = _atrium(device, width, height)
+    fn = _showcase_frames(scene, camera, width, height, device, seed)
+    return fn, initial_frame_state(width, height, device)
+
+
+def _showcase_frames(scene, camera, width: int, height: int, device,
+                     seed: int, map_resolution=None):
+    """`raster_showcase_entry`'s frames of `scene`, its maps at the entry's
+    sizes or all at `map_resolution`^2 (`fn.atlas` the atlas)."""
+    from .render import bvh as bvh_mod
+    from .render import mesh
+    from .render.decals import make_decals
+    from .render.light_probe import create_probe_grid, update_probes
+    from .render.lights import make_point_lights, make_spot_lights
+    from .render.pipeline import RendererSettings
+    from .render.shadows import ShadowAtlas
+    from .render.transparent import TransparentObject
+
+    spot, point = SHOWCASE_SPOT, SHOWCASE_POINT
+    sun_res, spot_res, point_res = (
+        (RASTER_SHADOW_RESOLUTION, SHOWCASE_SPOT_RESOLUTION,
+         SHOWCASE_POINT_RESOLUTION) if map_resolution is None
+        else (map_resolution,) * 3)
+    with torch.inference_mode():
+        atlas = ShadowAtlas(SHOWCASE_ATLAS_SIZE, device=device)
+        sun_maps = atlas.update_sun(scene.bvh, camera.position,
+                                    -scene.sky.sun_direction,
+                                    resolution=sun_res)
+        spot_map = atlas.update_spot(
+            scene.bvh, 0, spot["position"], spot["direction"],
+            spot["outer_cos"], spot["distance"], resolution=spot_res)
+        point_map = atlas.update_point(
+            scene.bvh, 0, point["position"], point["radius"],
+            resolution=point_res)
+        grid = create_probe_grid(**SHOWCASE_PROBES, device=device)
+        # The rotations from a CPU generator: the same on every device.
+        turns = torch.rand(SHOWCASE_PROBE_UPDATES,
+                           generator=torch.Generator().manual_seed(seed + 1))
+        for turn in turns:
+            grid = update_probes(grid, scene, rotation=turn,
+                                 rays_per_probe=SHOWCASE_PROBE_RAYS)
+    glass = TransparentObject(
+        bvh=bvh_mod.build_bvh([(mesh.box(SHOWCASE_GLASS_HALF).transformed(
+            translate=SHOWCASE_GLASS_AT), 0)], device=device),
+        color=SHOWCASE_GLASS_COLOR, alpha=SHOWCASE_GLASS_ALPHA)
+    options = dict(
+        settings=RendererSettings(primary="raster", half_res_effects=True,
+                                  enable_sss=True,
+                                  enable_rt_reflections=True),
+        shadow_maps=sun_maps,
+        point_lights=make_point_lights([point["position"]], [point["color"]],
+                                       [point["radius"]], device=device),
+        point_shadow_maps=[point_map],
+        spot_lights=make_spot_lights(
+            [spot["position"]], [spot["direction"]], [spot["color"]],
+            [spot["distance"]], [spot["inner_cos"]], [spot["outer_cos"]],
+            device=device),
+        spot_shadow_maps=[spot_map], probe_grid=grid,
+        decals=make_decals(**SHOWCASE_DECAL, device=device),
+        transparent_objects=[glass], water_height=SHOWCASE_WATER_HEIGHT)
+    fn = _raster_frames(scene, camera, width, height, device, seed, options)
+    fn.atlas = atlas
+    return fn
+
+
+# raster_lights_entry: the Forward+ frame.
+RASTER_LIGHTS = 128
+RASTER_LIGHT_RADIUS = 4.0
+# The lights' box: the atrium's ground (x, z in [-14, 14]) up to its walls'
+# top (y 6.8), from 0.3 above the ground.
+RASTER_LIGHTS_LO = (-14.0, 0.3, -14.0)
+RASTER_LIGHTS_HI = (14.0, 6.8, 14.0)
+
+
+def raster_lights_entry(device="cuda", width: int = 1920, height: int = 1080,
+                        seed: int = 0):
+    """`raster_entry`'s frame with RASTER_LIGHTS unshadowed point lights of
+    radius RASTER_LIGHT_RADIUS, shaded through the Forward+ tile lists
+    (`cull_lights_tiled` / `shade_point_lights`): positions uniform in the
+    atrium's box (RASTER_LIGHTS_LO to RASTER_LIGHTS_HI) and colours uniform
+    in [2, 10) per channel, both from `numpy.random.default_rng(seed)`.
+    Returns `(fn, state)` as `raster_showcase_entry`."""
+    from .render.pipeline import initial_frame_state
+
+    device = resolve_device(device)
+    scene, camera = _atrium(device, width, height)
+    fn = _lights_frames(scene, camera, width, height, device, seed,
+                        RASTER_SHADOW_RESOLUTION)
+    return fn, initial_frame_state(width, height, device)
+
+
+def _lights_frames(scene, camera, width: int, height: int, device,
+                   seed: int, map_resolution: int):
+    """`raster_lights_entry`'s frames of `scene`, the sun's cascades at
+    `map_resolution`^2."""
+    import numpy as np
+
+    from .render.lights import make_point_lights
+
+    rng = np.random.default_rng(seed)
+    positions = rng.uniform(RASTER_LIGHTS_LO, RASTER_LIGHTS_HI,
+                            (RASTER_LIGHTS, 3))
+    colors = rng.uniform(2.0, 10.0, (RASTER_LIGHTS, 3))
+    lights = make_point_lights(positions, colors,
+                               [RASTER_LIGHT_RADIUS] * RASTER_LIGHTS,
+                               device=device)
+    return _raster_frames(scene, camera, width, height, device, seed,
+                          {"shadow_maps": _sun_maps(scene, camera,
+                                                    map_resolution),
+                           "point_lights": lights})

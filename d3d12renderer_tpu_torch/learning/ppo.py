@@ -13,6 +13,11 @@ Every random draw comes from a `torch.Generator` on the device: the action
 noise and the epoch permutations from `TrainState.rng`, the pokes from the
 env state's generator.  `train_iteration(state, draws=...)` takes any of
 them as tensors instead (`Draws`), so that a test can replay JAX's.
+
+With a process group (`make_ppo(..., group=)`, the counterpart of
+`PPOConfig.axis_name`), the advantage statistics and the gradients are
+averaged over the group's ranks (`all_mean`), so that every rank applies
+the same update; `parallel/data_parallel.py` builds on it.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from .loco_env import ACTION_SIZE, STATE_SIZE, EnvState, LocoEnv
@@ -102,17 +108,30 @@ def compute_gae(traj: Transition, last_value, gamma: float, lam: float):
     return advantages, advantages + traj.value
 
 
+def all_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """`jax.lax.pmean`: the sum of `x` over the group's ranks divided by the
+    group's size (gloo has no AVG reduction).  A new tensor; `x` is left as
+    it was."""
+    x = x.detach().clone()
+    dist.all_reduce(x, group=group)
+    return x / dist.get_world_size(group)
+
+
 def ppo_loss(policy_apply, params, batch: Transition, advantages, returns,
-             config: PPOConfig):
+             config: PPOConfig, group=None):
     """(total, (pg_loss, vf_loss, entropy)) of one minibatch: the clipped
-    surrogate with the minibatch's advantages normalised, half the squared
-    value error, the policy's entropy."""
+    surrogate with the minibatch's advantages normalised (their mean and
+    variance averaged over `group`'s ranks when one is given), half the
+    squared value error, the policy's entropy."""
+    def group_mean(x):
+        return x.mean() if group is None else all_mean(x.mean(), group)
+
     mean, log_std, value = policy_apply(params, batch.obs)
     logp = gaussian_logp(batch.action, mean, log_std)
     ratio = torch.exp(logp - batch.logp)
-    adv_mean = advantages.mean()
+    adv_mean = group_mean(advantages)
     adv_std = torch.sqrt(torch.clamp(
-        ((advantages - adv_mean) ** 2).mean(), min=1e-16))
+        group_mean((advantages - adv_mean) ** 2), min=1e-16))
     adv = (advantages - adv_mean) / (adv_std + 1e-8)
     pg1 = ratio * adv
     pg2 = torch.clamp(ratio, 1 - config.clip_eps, 1 + config.clip_eps) * adv
@@ -168,6 +187,13 @@ def clip_and_adam(params, grads, state: AdamState, config: PPOConfig):
     return unflat(new), AdamState(count, unflat(mu), unflat(nu))
 
 
+def _all_mean_tensors(tensors, group):
+    """`all_mean` of every tensor, through one flat buffer (one collective)."""
+    flat = all_mean(torch.cat([t.reshape(-1) for t in tensors]), group)
+    parts = torch.split(flat, [t.numel() for t in tensors])
+    return [p.view(t.shape) for p, t in zip(parts, tensors)]
+
+
 class _PhaseClock:
     """Marks between phases: CUDA events on the card (read after one
     synchronisation at the end), the host clock on the CPU."""
@@ -196,7 +222,7 @@ class _PhaseClock:
         return out
 
 
-def make_ppo(env: LocoEnv, config: PPOConfig = PPOConfig()):
+def make_ppo(env: LocoEnv, config: PPOConfig = PPOConfig(), group=None):
     """(init, train_iteration, policy_apply) on the env's device.
 
     * `init(seed=0) -> TrainState`: the env reset with a generator seeded
@@ -209,7 +235,12 @@ def make_ppo(env: LocoEnv, config: PPOConfig = PPOConfig()):
       tensors, and with `profile_phases` `metrics["phase_ms"]` holds the
       rollout, GAE, update and monitor times (CUDA events on the card).
       The input state's tensors are not changed; its generators advance.
-    * `policy_apply(params, obs) -> (mean, log_std, value)`."""
+    * `policy_apply(params, obs) -> (mean, log_std, value)`.
+
+    `group`: a `torch.distributed` process group whose ranks each run
+    this iteration on their own envs; each minibatch's advantage mean and
+    variance and its gradients are averaged over the ranks (JAX's
+    `axis_name`).  None: this process alone."""
     device = env.device
     network = ActorCritic(STATE_SIZE, ACTION_SIZE).to(device)
 
@@ -275,8 +306,11 @@ def make_ppo(env: LocoEnv, config: PPOConfig = PPOConfig()):
                 leaves = {k: v.detach().requires_grad_(True)
                           for k, v in params.items()}
                 total, losses = ppo_loss(policy_apply, leaves,
-                                         Transition(*batch), adv, ret, config)
+                                         Transition(*batch), adv, ret, config,
+                                         group)
                 grads = torch.autograd.grad(total, list(leaves.values()))
+                if group is not None:
+                    grads = _all_mean_tensors(grads, group)
                 params, opt_state = clip_and_adam(
                     params, dict(zip(leaves, grads)), opt_state, config)
                 aux.append(torch.stack([x.detach() for x in losses]))

@@ -66,6 +66,23 @@ class Materials:
     albedo_texture: Optional[torch.Tensor] = None  # (M,) int32
 
 
+def sample_albedo(materials: Materials, mat, uv):
+    """Per-hit albedo: the material's tint times its texture, sampled
+    nearest with wrapping, where it has one."""
+    base = materials.albedo[mat]
+    if materials.texture_atlas is None:
+        return base
+    ti = materials.albedo_texture[mat]
+    t = torch.clamp(ti, min=0).long()
+    r = materials.texture_atlas.shape[1]
+    u = torch.remainder(uv[..., 0], 1.0)
+    v = torch.remainder(uv[..., 1], 1.0)
+    px = torch.clamp((u * (r - 1)).to(torch.int64), 0, r - 1)
+    py = torch.clamp((v * (r - 1)).to(torch.int64), 0, r - 1)
+    tex = materials.texture_atlas[t, py, px]
+    return torch.where((ti >= 0)[..., None], base * tex, base)
+
+
 @dataclass
 class Sky:
     """Procedural sun disc + gradient, Preetham daylight (`turbidity` set)

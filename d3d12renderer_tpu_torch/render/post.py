@@ -1,20 +1,21 @@
-"""The raster frame's post-processing: HBAO, SSR, TAA, bloom, tonemap,
-sharpen, and their helpers (counterpart of
+"""The raster frame's post-processing: HBAO, screen-space shadows, SSR,
+TAA, bloom, tonemap, sharpen, and their helpers (counterpart of
 ``d3d12renderer_tpu/render/post.py``).
 
 Every pass is an image function on (H, W[, C]) tensors.  The blur and the
 tonemap go through the hand-written kernels of `ops/image.py` on CUDA
-tensors (their plain versions on CPU tensors); the rest is plain PyTorch.
+tensors (their plain versions on CPU tensors); the rest is plain PyTorch,
+`gaussian_blur_matmul` two banded matrix products (XLA matmuls in JAX).
 Settings defaults are the JAX package's (the reference's structs).
-`screen_space_shadows`, `gaussian_blur_matmul` and `dilate` / `erode` /
-`sobel` are not ported.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -99,6 +100,76 @@ def gaussian_blur(img, sigma: float = 2.0):
     kernel on CUDA tensors, its plain version (`image.blur_plain`, JAX's
     `_sep_conv`) on CPU tensors."""
     return image.gaussian_blur(img, gaussian_kernel(sigma))
+
+
+# JAX's `_sep_conv`: the taps down the rows, then along the columns,
+# edge-clamped (the blur kernel's plain version).
+_sep_conv = image.blur_plain
+
+
+@functools.lru_cache(maxsize=32)
+def _banded_blur_matrix(n: int, sigma: float, radius, dtype: torch.dtype,
+                        device: torch.device) -> torch.Tensor:
+    """(n, n) edge-clamped convolution matrix: row i holds the taps centred
+    at i, taps that fall off an edge added onto the edge sample; built on
+    the host in JAX's operation order (float64 taps accumulated into
+    float32)."""
+    radius = radius if radius is not None else max(1, int(3 * sigma))
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    k /= k.sum()
+    b = np.zeros((n, n), np.float32)
+    rows = np.arange(n)
+    for t in range(2 * radius + 1):
+        np.add.at(b, (rows, np.clip(rows + t - radius, 0, n - 1)), k[t])
+    return torch.as_tensor(b).to(device=device, dtype=dtype)
+
+
+def gaussian_blur_matmul(img, sigma: float = 2.0, radius=None,
+                         dtype: torch.dtype = torch.bfloat16):
+    """The separable gaussian as two banded matrix products, Bh @ img @
+    Bw^T, of (H, W) or (H, W, C): operands rounded to `dtype` (bfloat16 by
+    default, as JAX), products summed in float32 (a product of two
+    bfloat16 values is exact in float32), the intermediate rounded to
+    `dtype` again; the result in the input's dtype."""
+    squeeze = img.dim() == 2
+    if squeeze:
+        img = img[..., None]
+    h, w = img.shape[:2]
+    bh = _banded_blur_matrix(h, float(sigma), radius, dtype, img.device)
+    bw = _banded_blur_matrix(w, float(sigma), radius, dtype, img.device)
+    f32 = torch.float32
+    y = torch.einsum("ih,hwc->iwc", bh.to(f32), img.to(dtype).to(f32))
+    out = torch.einsum("jw,iwc->ijc", bw.to(f32), y.to(dtype).to(f32))
+    out = out.to(img.dtype)
+    return out[..., 0] if squeeze else out
+
+
+def _minmax_filter(img, size: int, op):
+    pad = size // 2
+    acc = img
+    for dy in range(-pad, pad + 1):
+        for dx in range(-pad, pad + 1):
+            acc = op(acc, roll2(img, dy, dx))
+    return acc
+
+
+def dilate(img, size: int = 3):
+    """Max over the size x size neighbourhood (wrapping at the edges)."""
+    return _minmax_filter(img, size, torch.maximum)
+
+
+def erode(img, size: int = 3):
+    """Min over the size x size neighbourhood (wrapping at the edges)."""
+    return _minmax_filter(img, size, torch.minimum)
+
+
+def sobel(img):
+    """Edge magnitude of a single-channel image: central differences
+    (wrapping), sqrt(gx^2 + gy^2)."""
+    gx = torch.roll(img, -1, 1) - torch.roll(img, 1, 1)
+    gy = torch.roll(img, -1, 0) - torch.roll(img, 1, 0)
+    return torch.sqrt(gx * gx + gy * gy)
 
 
 def downsample2(img):
@@ -221,6 +292,38 @@ def hbao(view_pos, normal, settings: HBAOSettings = HBAOSettings()):
 # --------------------------------------------------------------------------
 # SSR (reference: ssr_raycast_cs.hlsl, hierarchical-Z march)
 # --------------------------------------------------------------------------
+
+def screen_space_shadows(view_pos, sun_dir_view, depth=None,
+                         settings: SSSSettings = SSSSettings()):
+    """(H, W) shadow factor in [0, 1], 1 lit: each pixel marches
+    `num_steps` steps toward the sun in view space, projects each step to
+    a pixel offset and tests the depth found there; faded out with the
+    distance from the camera.  `depth` is unused, as in JAX."""
+    h, w, _ = view_pos.shape
+    dev = view_pos.device
+    step = settings.ray_distance / settings.num_steps
+    cam_dist = -view_pos[..., 2]
+    base_u = view_pos[..., 0] / torch.clamp(-view_pos[..., 2], min=1e-4)
+    base_v = view_pos[..., 1] / torch.clamp(-view_pos[..., 2], min=1e-4)
+    rows = torch.arange(h, device=dev)[:, None]
+    cols = torch.arange(w, device=dev)[None, :]
+    shadow = torch.ones((h, w), device=dev)
+    for s in range(1, settings.num_steps + 1):
+        # JAX: s.astype(float32) * step, a float32 product.
+        p = view_pos + sun_dir_view * float(np.float32(s) * np.float32(step))
+        u = p[..., 0] / torch.clamp(-p[..., 2], min=1e-4)
+        v = p[..., 1] / torch.clamp(-p[..., 2], min=1e-4)
+        px = torch.clamp(torch.round((u - base_u) * w * 0.5), -w, w).long()
+        py = torch.clamp(torch.round(-(v - base_v) * h * 0.5), -h, h).long()
+        yy = torch.clamp(rows + py, 0, h - 1)
+        xx = torch.clamp(cols + px, 0, w - 1)
+        gap = -p[..., 2] - (-view_pos[yy, xx, 2])
+        blocked = (gap > 0.01) & (gap < settings.thickness * 40)
+        shadow = torch.where(blocked, torch.clamp(shadow, max=0.0), shadow)
+    fade = torch.clamp((settings.max_distance_from_camera - cam_dist)
+                       / settings.distance_fadeout_range, 0.0, 1.0)
+    return 1.0 - (1.0 - shadow) * fade
+
 
 def build_min_depth_pyramid(depth, max_mip: int = 6):
     """Linear-depth MIN pyramid, all levels in one flat vector.  Odd sizes

@@ -228,14 +228,19 @@ def test_header_edit_changes_the_build_dir(tmp_path, monkeypatch):
 def _entry_points():
     from d3d12renderer_tpu_torch import convert, entry
     from d3d12renderer_tpu_torch.physics import builder, cloth, joints
-    from d3d12renderer_tpu_torch.render import bvh, camera, lights, mesh
-    from d3d12renderer_tpu_torch.render import pathtracer, pipeline
+    from d3d12renderer_tpu_torch.render import bvh, camera, decals, lights
+    from d3d12renderer_tpu_torch.render import light_probe, mesh, pathtracer
+    from d3d12renderer_tpu_torch.render import pipeline, shadows
 
     arch = lambda: LocoEnv(device="cpu").arch  # noqa: E731
     return {
         "entry": (entry.entry, lambda f: f()),
         "pathtrace_entry": (entry.pathtrace_entry, lambda f: f()),
         "raster_entry": (entry.raster_entry, lambda f: f()),
+        "raster_showcase_entry": (entry.raster_showcase_entry,
+                                  lambda f: f()),
+        "raster_lights_entry": (entry.raster_lights_entry, lambda f: f()),
+        "distributed_entry": (entry.distributed_entry, lambda f: f()),
         "train_entry": (entry.train_entry, lambda f: f()),
         "stack_drop_entry": (entry.stack_drop_entry, lambda f: f()),
         "vehicle_entry": (entry.vehicle_entry, lambda f: f()),
@@ -268,6 +273,19 @@ def _entry_points():
         "make_point_lights": (lights.make_point_lights,
                               lambda f: f([[0, 1, 0]], [[1, 1, 1]], [2.0])),
         "default_sky": (pathtracer.default_sky, lambda f: f()),
+        "make_spot_lights": (lights.make_spot_lights, lambda f: f(
+            [[0, 3, 0]], [[0, -1, 0]], [[1, 1, 1]], [9.0], [0.9], [0.8])),
+        "make_decals": (decals.make_decals, lambda f: f(
+            [[0, 0, 0]], [[0, 0, 0, 1]], [[1, 1, 1]], [[0, 0, 0]])),
+        "create_probe_grid": (light_probe.create_probe_grid,
+                              lambda f: f((0, 0, 0), (1, 1, 1), (2, 2, 2))),
+        "ShadowAtlas": (shadows.ShadowAtlas.__init__,
+                        lambda f: shadows.ShadowAtlas(64)),
+        "spot_lights_from_numpy": (convert.spot_lights_from_numpy, None),
+        "light_probe_grid_from_numpy": (convert.light_probe_grid_from_numpy,
+                                        None),
+        "distributed_train_state_from_numpy": (
+            convert.distributed_train_state_from_numpy, None),
     }
 
 

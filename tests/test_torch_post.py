@@ -179,6 +179,78 @@ def test_ssr_matches_jax(gbuffer):
         _close(a, b)
 
 
+@pytest.mark.parametrize("sun", [(0.3, 0.8, 0.5), (-0.6, 0.7, -0.4)])
+def test_screen_space_shadows_match_jax(gbuffer, sun):
+    """`screen_space_shadows` on the G-buffer's view positions at the
+    settings' defaults: the march's pixel offsets are rounded, so a step
+    that lands within rounding of a depth test may flip one pixel; at
+    least 99% of pixels within TOL, and some pixels shadowed."""
+    g, _ = gbuffer
+    d = np.array(sun, np.float32)
+    d /= np.linalg.norm(d)
+    want = np.asarray(jpost.screen_space_shadows(
+        jnp.asarray(g["view_pos"]), jnp.asarray(d), jnp.asarray(g["depth"])))
+    got = post.screen_space_shadows(_t(g["view_pos"]), _t(d),
+                                    _t(g["depth"])).numpy()
+    assert got.shape == want.shape == g["depth"].shape
+    assert (np.abs(got - want) <= TOL).mean() >= 0.99
+    assert (want < 1).mean() > 0.01
+
+
+def test_sep_conv_and_kernel_match_jax():
+    """`_sep_conv` (the blur's plain version) with `gaussian_kernel`'s taps,
+    at a given radius too, within TOL."""
+    x = _img(4, (30, 26, 2), 3.0)
+    for sigma, radius in ((2.0, None), (1.2, 2)):
+        taps = post.gaussian_kernel(sigma, radius)
+        _close(taps, jpost.gaussian_kernel(sigma, radius), atol=1e-7,
+               rtol=1e-6)
+        _close(post._sep_conv(_t(x), taps),
+               jpost._sep_conv(jnp.asarray(x), jpost.gaussian_kernel(sigma,
+                                                                     radius)))
+
+
+# One bfloat16 ulp of values below 2 (the images here): the intermediate
+# and the operands are rounded to bfloat16, so a sum taken in another order
+# may round the other way (measured: equal to JAX's bit for bit).
+BF16_TOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("shape", [(24, 36, 3), (20, 17)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gaussian_blur_matmul_matches_jax(shape, dtype):
+    """`gaussian_blur_matmul` at bfloat16 (the default, as JAX) within a
+    bfloat16 tolerance of the image's scale, and at float32 within 1e-5;
+    at float32 also the shift-chain blur within 1e-5 (the same edge
+    handling)."""
+    x = _img(6, shape, 2.0)
+    tdt = getattr(torch, dtype)
+    got = post.gaussian_blur_matmul(_t(x), 1.5, dtype=tdt)
+    want = np.asarray(jpost.gaussian_blur_matmul(jnp.asarray(x), 1.5,
+                                                 dtype=getattr(jnp, dtype)))
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    tol = BF16_TOL if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=0)
+    if dtype == "float32":
+        _close(got, post.gaussian_blur(_t(x), 1.5), atol=1e-5, rtol=1e-5)
+    else:
+        assert np.abs(got.numpy() - x).max() > 0.01    # it does blur
+
+
+@pytest.mark.parametrize("size", [3, 5])
+def test_dilate_erode_sobel_match_jax(size):
+    """Morphology and the Sobel magnitude on a single-channel image with
+    edges: dilate / erode exactly (min and max), sobel within TOL."""
+    x = (_img(7, (21, 30)) > 0.7).astype(np.float32) * _img(8, (21, 30), 3.0)
+    np.testing.assert_array_equal(post.dilate(_t(x), size).numpy(),
+                                  np.asarray(jpost.dilate(jnp.asarray(x),
+                                                          size)))
+    np.testing.assert_array_equal(post.erode(_t(x), size).numpy(),
+                                  np.asarray(jpost.erode(jnp.asarray(x),
+                                                         size)))
+    _close(post.sobel(_t(x)), jpost.sobel(jnp.asarray(x)))
+
+
 def test_bloom_and_sharpen_match_jax():
     x = _img(12, (72, 100, 3), 8.0)
     settings = post.BloomSettings(threshold=3.0, strength=0.3)
