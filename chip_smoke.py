@@ -30,6 +30,12 @@ the paths:
   brute-force ray kernel, water; `entry.raster_lights_entry`: 128 point
   lights through the Forward+ tile lists) and the three modes of
   `render_mode`;
+* examples/showcase.py's whole world (`entry.showcase_world_entry` at
+  1080p: terrain LOD chunks with the splat texture, the drop settled for
+  180 frames through the colored-solver kernel, trees, culled grass, the
+  HDR sky through the image cache, the atlas and probes through the BVH
+  ray kernel, fire particles; its frame runs the ray, raster, tonemap and
+  blur kernels);
 * self-colliding locomotion (`entry(self_collision=True)`: the ragdoll's
   collider pairs through the pair narrowphase, one colored-solver launch per
   step, no fused launch) at 4096 envs, the slider zoo (every joint kind and
@@ -130,6 +136,12 @@ SLICE_MEAN_TOL = 1e-3
 RASTER_W, RASTER_H = 1920, 1080
 RASTER_RUNS, RASTER_FRAMES = 3, 5
 RASTER_REPS = 20
+# The profiler keeps only the device activities whose times fall inside its
+# session's window on the host's clock (kineto's outOfRange filter), so a
+# few ms of skew between the two clocks drops the edges of a session, and
+# all of a session of a few ms: each session's work sits between two host
+# pauses of PROFILE_PAD_S.
+PROFILE_PAD_S = 0.05
 IMAGE_REPS = 50
 # The blur's calls in one frame: HBAO (half res, 1 channel), the five bloom
 # levels (3 channels), sharpen (full res, sigma 1).
@@ -198,7 +210,10 @@ STACK_TOL = 0.05
 # 1,000 bodies x 8 scenes for 300 frames of 1/60 s, checked every
 # PHYS_CHECK_EVERY frames (the clock paused): heights above STACK_1K_FLOOR
 # and |pos| under STACK_1K_BOUND (examples/stack_drop_1k.py's asserts),
-# active rows within the 3,072 budget, and no sweep overflow at rest.  Then
+# active rows within the 3,072 budget, and no sweep overflow at rest.  Each
+# check prints the piles' state (mean speed, mean height, sweep overflow):
+# they are still spreading at frame 400 (mean speed 0.20 m/s), so no check
+# before frame 300 finds them at rest and the run is not cut.  Then
 # the settled piles go on for STACK_GS_STEPS frames in runtime_gs mode (128
 # colors x 30 iterations x 2 substeps of eager row solves a frame, 30-50 s
 # on the card), as tools/jax_stack_drop_reference.py runs them on the CPU
@@ -279,6 +294,24 @@ OPT_JITTER = (0.3, 0.6)
 # SLICE_PIXEL_TOL against the frame without it.
 OPT_MIN_PIXELS = 500
 MODE_SPP = 8
+# The showcase-world phase: showcase_world_entry at OPT_W x OPT_H (the
+# drop's frames at batch 1, two colored launches a frame), the raster
+# phases' frame counts and OPT_MIN_PIXELS.  The committed examples/data/
+# studio.hdr is assets.envmap's demo map at 128 rows: its peak is the
+# circumsolar glow (8.31), the 0.53-degree sun disc (1,800) falling between
+# texel centres 1.4 degrees apart.  The cubemap samples the equirect's
+# nearest texels, so its peak must be the equirect's own (and above 1, HDR
+# beyond the LDR range).  Card
+# against CPU: the world at OPT_SLICE_W x OPT_SLICE_H cut to WORLD_SLICE
+# (a 17 x 17 map and 8 x 8 blades, ~2,900 triangles: the CPU's plain RT
+# reflections take ~20 s a frame over 5,200 and ~47 over the full world's
+# 16,852; 2 physics frames, the bodies still in the air, since 180 frames
+# of a chaotic drop part the two devices' piles; maps OPT_SLICE_MAPS^2).
+WORLD_SLICE = dict(resolution=17, grass_per_side=8, physics_frames=2,
+                   sun_resolution=OPT_SLICE_MAPS,
+                   spot_resolution=OPT_SLICE_MAPS,
+                   point_resolution=OPT_SLICE_MAPS,
+                   atlas_size=4 * OPT_SLICE_MAPS)
 TRAIN_ENVS, TRAIN_ROLLOUT = 4096, 32
 TRAIN_ITERS = 3
 EVAL_SIZE, EVAL_SPP = 256, 8
@@ -1033,8 +1066,10 @@ def raster_frame(card, cuda_ms):
     def kernel_events(fn):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             fn()
             sync()
+            time.sleep(PROFILE_PAD_S)
         return sorted((e for e in prof.events()
                        if e.device_type == DeviceType.CUDA),
                       key=lambda e: e.time_range.start)
@@ -1060,8 +1095,8 @@ def raster_frame(card, cuda_ms):
                     fn()
                 sep()
 
-            calls, cur = [], None
-            for e in kernel_events(run):
+            calls, cur, events = [], None, kernel_events(run)
+            for e in events:
                 if e.name in sep_names[kind]:
                     if cur:
                         calls.append(cur)
@@ -1073,7 +1108,7 @@ def raster_frame(card, cuda_ms):
                      if sizes and len(c) == max(set(sizes), key=sizes.count)]
             if len(whole) < reps // 2:
                 fail(f"the profiler saw {len(whole)} of {reps} timed calls "
-                     f"whole ({kind})")
+                     f"whole ({kind}; {len(events)} kernels in the session)")
             out[kind] = sum(map(sum, whole)) / len(whole) / 1e3
         return out["cold"], out["warm"]
 
@@ -1693,6 +1728,7 @@ def stack_drop_1k(card):
     no_cap = dataclasses.replace(arch, sap_row_cap=0)
     st, secs = st0, 0.0
     worst = dict(ymin=1e9, pos=0.0, overflow=0, capped=0, active=0)
+    rest = []
     with torch.inference_mode():
         for done in range(0, STACK_1K_STEPS, PHYS_CHECK_EVERY):
             t0 = time.perf_counter()
@@ -1707,6 +1743,12 @@ def stack_drop_1k(card):
                 (broadphase.overflow_count(arch, st) - spill).max()))
             worst["active"] = max(worst["active"], int(
                 collide.generate_contacts(arch, st).active.sum(-1).max()))
+            rest.append((min(done + PHYS_CHECK_EVERY, STACK_1K_STEPS),
+                         round(st.vel.norm(dim=-1).mean().item(), 4),
+                         round(st.pos[..., 1].mean().item(), 4),
+                         int(spill.max())))
+    print("stack drop 1k, the piles at each check (frame, mean |vel| m/s, "
+          f"mean height m, sweep overflow): {rest}", flush=True)
     if not finite(st):
         fail("stack drop 1k: non-finite state")
     ys = st.pos[..., 1]
@@ -2881,6 +2923,244 @@ def raster_options(card, cuda_ms):
             "glass_err": glass_err}
 
 
+def showcase_world(card, cuda_ms):
+    """examples/showcase.py's whole world through `showcase_world_entry` at
+    1080p: the set-up (the drop's 180 frames through kernel #1, the atlas
+    and probes through #3), a warm frame and the best of 3 x 5 frames
+    (#3 RT reflections, #4 glass, #5 raster, #6 tonemap, #7 blur), stage
+    times, a profiled frame and its kernels; the world's checks; kernels
+    #1, #3, #4 and #5 against their plain versions at this path's shapes;
+    the card against the CPU at 256x144.  Returns the launches and errors
+    this path adds to the kernels line."""
+    import math
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch import convert
+    from d3d12renderer_tpu_torch.core import maths as m
+    from d3d12renderer_tpu_torch.entry import showcase_world_entry
+    from d3d12renderer_tpu_torch.models import world as world_mod
+    from d3d12renderer_tpu_torch.ops import image, raster, ray_trace
+    from d3d12renderer_tpu_torch.physics import solver_cuda, step
+    from d3d12renderer_tpu_torch.physics.types import PhysicsSettings
+    from d3d12renderer_tpu_torch.render import pipeline
+    from d3d12renderer_tpu_torch.terrain.heightmap import (
+        sample_height_bilinear)
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    wrappers = {"colored": solver_cuda.colored_solve_cuda,
+                "bvh": ray_trace.ray_closest_hit_bvh,
+                "brute": ray_trace.ray_closest_hit_brute,
+                "raster": raster.rasterize_tiles,
+                "tonemap": image.tonemap, "blur": image.gaussian_blur}
+    t_phase = time.perf_counter()
+
+    # The main path: set-up, a warm frame, the timed frames.
+    for k in wrappers.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    fn, state = showcase_world_entry(device=dev, width=OPT_W, height=OPT_H)
+    sync()
+    setup_s = time.perf_counter() - t0
+    setup = {n: k.launches for n, k in wrappers.items()}
+    ldr, state, aux = fn(state)
+    sync()
+    best = math.inf
+    for _ in range(RASTER_RUNS):
+        t0 = time.perf_counter()
+        for _ in range(RASTER_FRAMES):
+            ldr, state, aux = fn(state)
+        sync()
+        best = min(best, (time.perf_counter() - t0) / RASTER_FRAMES)
+    counts = {n: k.launches for n, k in wrappers.items()}
+    frames = 1 + RASTER_RUNS * RASTER_FRAMES
+    per_frame = {n: (counts[n] - setup[n]) / frames for n in counts}
+    world = fn.world
+    drop_frames = world_mod.WorldConfig().physics_frames
+    if counts["colored"] != 2 * drop_frames:
+        fail(f"showcase world: {counts['colored']} colored launches in the "
+             f"drop's {drop_frames} frames, want 2 a frame")
+    for n in ("raster", "tonemap", "bvh", "brute", "blur"):
+        if not per_frame[n] >= 1:
+            fail(f"showcase world: kernel {n} launched {per_frame[n]} times "
+                 "a frame")
+    if ldr.shape != (OPT_H, OPT_W, 3) or not bool(torch.isfinite(ldr).all()):
+        fail("showcase world: the frame is not a finite 1080p image")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(state)
+        sync()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    _, _, staged = fn(state, profile_stages=True)
+    stages = staged["stage_ms"]
+    c = world.counts
+    print(f"showcase world (showcase_world_entry, {OPT_W}x{OPT_H}): set-up "
+          f"{setup_s:.2f} s (launches {json.dumps(setup)}) | "
+          f"{c['triangles']} triangles in {c['meshes']} meshes, "
+          f"{c['chunks']} terrain chunks at LODs {c['chunk_lods']}, "
+          f"{c['trees']} placed trees ({c['tree_meshes']} tree meshes), "
+          f"{c['visible_blades']} visible blades in {c['visible_chunks']} "
+          f"chunks (LOD0 {c['lod0_blades']} / LOD1 {c['lod1_blades']}), "
+          f"{int(world.fire.alive.sum())} fire particles alive | best of "
+          f"{RASTER_RUNS} runs of {RASTER_FRAMES} frames {1e3 * best:.2f} ms "
+          f"per frame ({1 / best:.1f} fps) | launches per frame: "
+          + ", ".join(f"{n} {v:g}" for n, v in per_frame.items())
+          + f" | profiler, one frame: {len(kern)} kernels, device busy "
+          f"{busy:.1f} of {prof_ms:.1f} ms ({100 * busy / prof_ms:.1f}%), "
+          f"most device time: "
+          + "; ".join(f"{n[:48]} {v:.2f} ms" for n, v in top)
+          + " | stage ms (CUDA events): "
+          + " ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f"; most: {max(stages, key=stages.get)} | {card}", flush=True)
+
+    # The world's checks.
+    cell = world_mod.WORLD_SIZE / (world.heights.shape[0] - 1)
+    pos = world.bodies.pos[0].cpu()
+    under, _ = sample_height_bilinear(world.heights, world_mod.WORLD_ORIGIN,
+                                      cell, pos[:, 0], pos[:, 2])
+    clearance = (pos[:, 1] - under).min().item()
+    cube = world.scene.sky.cubemap
+    peak = cube.max().item()
+    jitter = torch.tensor(OPT_JITTER, device=dev)
+    base, _, base_aux = fn(state, jitter=jitter)
+    procedural = dataclasses.replace(
+        world.scene, sky=world_mod.load_sky(dev, 1, None)[0])
+    proc, _, _ = fn(state, jitter=jitter, scene=procedural)
+
+    def changed(a, b):
+        return int(((a - b).abs().amax(-1) > SLICE_PIXEL_TOL).sum())
+
+    sky_px, splat_px = changed(base, proc), changed(base, base_aux["frame_ldr"])
+    print(f"showcase world checks: bodies at least {clearance:.4f} m above "
+          f"the terrain under them (bound {TERRAIN_CLEARANCE}) | cubemap "
+          f"{tuple(cube.shape)} peak {peak:.4f} (equirect peak "
+          f"{c['envmap_peak']:.4f}, which it must equal) | the HDR sky "
+          f"changes {sky_px} pixels against the procedural sky, the particle "
+          f"splat {splat_px} (bound {OPT_MIN_PIXELS} each) | main path and "
+          f"checks {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if not clearance > TERRAIN_CLEARANCE:
+        fail(f"showcase world: a body rests {clearance:.4f} m above the "
+             "terrain")
+    if not (peak == c["envmap_peak"] and peak > 1.0):
+        fail(f"showcase world: the cubemap's peak {peak} is not the HDR "
+             f"equirect's {c['envmap_peak']}")
+    if sky_px < OPT_MIN_PIXELS or splat_px < OPT_MIN_PIXELS:
+        fail(f"showcase world: the sky changed {sky_px} and the splat "
+             f"{splat_px} pixels")
+
+    # Kernels #1, #3, #4 and #5 at this path's shapes against their plain
+    # versions (these launches are not counted).
+    t_check = time.perf_counter()
+    gb = base_aux["gbuffer"]
+    cam = fn.camera
+    errs = {}
+    with torch.inference_mode():
+        settings = PhysicsSettings()
+        sp = step.substep_prep(world.arch, world.bodies,
+                               1.0 / settings.frame_rate, settings)
+        solver = solver_cuda.ColoredSolver(
+            world.arch, sp.contacts.body_a.shape[0], ITERATIONS, "kernel")
+        sargs = (sp.joint_preps, sp.contact_prep, sp.vel1, sp.omega1)
+        kv, kw = solver(*sargs)
+        pv, pw = solver.plain(*sargs)
+        colored_errs = ((kv - pv).abs().max().item(),
+                        (kw - pw).abs().max().item())
+        errs["colored"] = max(colored_errs)
+        rd = m.noz(gb.world_pos - cam.position).reshape(-1, 3)
+        step_ = max(1, rd.shape[0] // RAY_SUBSET)
+        rd = rd[::step_][:RAY_SUBSET].contiguous()
+        ro = cam.position.expand(rd.shape).contiguous()
+        tm = torch.full((ro.shape[0],), 1e30, device=dev)
+        for name, b in (("bvh", world.scene.bvh),
+                        ("brute", fn.options["transparent_objects"][0].bvh)):
+            planes, nodes = ray_trace.kernel_tables(b)
+            got = (ray_trace.ray_closest_hit_bvh(planes, nodes, ro, rd, tm)
+                   if name == "bvh" else
+                   ray_trace.ray_closest_hit_brute(planes, ro, rd, tm))
+            want = ray_trace.closest_hit_plain(planes, ro, rd, tm)
+            n_bad, outside, dt_rel, err = check_rays(
+                name, got, want, planes, ro, rd, tm, False)
+            if outside or dt_rel > MAX_DT_REL:
+                fail(f"showcase world: kernel {name} disagrees with plain on "
+                     f"the frame's rays ({n_bad} differ, {outside} outside "
+                     f"the margins, |dt| rel {dt_rel:.2e})")
+            errs[name] = err
+        wp = OPT_W + (-OPT_W) % raster.TILE_X
+        hp = OPT_H + (-OPT_H) % raster.TILE_Y
+        b = world.scene.bvh
+        mat, attr = raster.perspective_rows(cam, OPT_W, OPT_H)
+        planes, rect, q_tri = raster.project_planes(
+            b.tri_v0, b.tri_e1, b.tri_e2, b.tri_valid, mat, attr, wp, hp)
+        pair_tri, seg = raster.bin_pairs(rect, q_tri, wp, hp)
+        rargs = (planes, pair_tri, seg, jitter, wp, hp)
+        rgot, rwant = raster.rasterize_tiles(*rargs), \
+            raster.rasterize_plain(*rargs)
+        if not all(torch.equal(a, w) for a, w in zip(rgot, rwant)):
+            fail("showcase world: the raster kernel differs from its plain "
+                 "version on the world's 1080p tiles")
+        errs["raster"] = 0.0
+    if not (colored_errs[0] <= VEL_TOL and colored_errs[1] <= OMEGA_TOL):
+        fail(f"showcase world: the colored kernel disagrees with its plain "
+             f"version: {colored_errs}")
+    print(f"showcase world kernels vs plain: colored (batch 1, the drop's "
+          f"terrain rows) |dvel|, |domega| {colored_errs}; BVH ({b.tri_valid.shape[0]} "
+          f"rows) and brute (the glass) on {ro.shape[0]} camera rays, max "
+          f"|dt| {errs['bvh']:.3e} / {errs['brute']:.3e}; raster "
+          f"({int(pair_tri.shape[0])} pairs at {wp}x{hp}) bit-equal | "
+          f"{time.perf_counter() - t_check:.1f} s", flush=True)
+
+    # The card against the CPU over a 256x144 world (maps and physics cut),
+    # the CPU's fire pool copied from the card run.
+    t_slice = time.perf_counter()
+    cfg = dataclasses.replace(world_mod.WorldConfig(), **WORLD_SLICE)
+    out = []
+    pool = None
+    for device in (dev, torch.device("cpu")):
+        f, st = showcase_world_entry(device=device, width=OPT_SLICE_W,
+                                     height=OPT_SLICE_H, config=cfg)
+        if pool is None:
+            pool = f.world.fire
+        else:
+            f.world.fire = convert.particle_pool_from_numpy(
+                {k: getattr(pool, k).cpu().numpy() for k in (
+                    "position", "velocity", "age", "lifetime", "alive",
+                    "emit_carry")} | {"data": {k: v.cpu().numpy() for k, v
+                                               in pool.data.items()}},
+                torch.Generator(), "cpu")
+        imgs = []
+        for jit in ((0.25, 0.6), (0.7, 0.3)):
+            img, st, _ = f(st, jitter=torch.tensor(jit, device=device))
+            imgs.append(img.cpu())
+        out.append(imgs)
+    rows = []
+    for i, (g, cpu_img) in enumerate(zip(*out)):
+        err = (g - cpu_img).abs().amax(-1)
+        share = (err <= SLICE_PIXEL_TOL).float().mean().item()
+        rows.append(f"frame {i + 1}: {100 * share:.2f}% within "
+                    f"{SLICE_PIXEL_TOL}, mean {err.mean().item():.2e}")
+        if share < SLICE_SHARE or not err.mean().item() < RASTER_MEAN_TOL:
+            fail(f"showcase world: the card's slice frame {i + 1} disagrees "
+                 f"with the CPU ({rows[-1]})")
+    print(f"card vs CPU over the world ({OPT_SLICE_W}x{OPT_SLICE_H}, "
+          f"{json.dumps(WORLD_SLICE)}, the fire pool copied from the card, "
+          f"two frames with TAA history): {'; '.join(rows)} (bounds "
+          f"{100 * SLICE_SHARE:.0f}%, {RASTER_MEAN_TOL}) | "
+          f"{time.perf_counter() - t_slice:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": counts, "errs": errs}
+
+
 def main():
     t_script = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3350,22 +3630,51 @@ def main():
     if bool(fell.any()) or not mean_reward > 0.5:
         fail("the ragdolls did not stand")
 
-    pairs = collision_physics(card, cuda_ms, max_err)
-    rays = path_tracing(card, cuda_ms)
-    images = raster_frame(card, cuda_ms)
-    training(card, here)
-    dist_launches = distributed_training(card, cuda_ms)
-    options = raster_options(card, cuda_ms)
+    # Seconds per phase (host clock), printed before the total.
+    phase_s = {"build, kernels and locomotion": time.perf_counter()
+               - t_script}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    pairs = timed("collision_physics", collision_physics, card, cuda_ms,
+                  max_err)
+    rays = timed("path_tracing", path_tracing, card, cuda_ms)
+    images = timed("raster_frame", raster_frame, card, cuda_ms)
+    timed("training", training, card, here)
+    dist_launches = timed("distributed_training", distributed_training,
+                          card, cuda_ms)
+    options = timed("raster_options", raster_options, card, cuda_ms)
+    world = timed("showcase_world", showcase_world, card, cuda_ms)
     # Kernels #3 and #4 on the new paths.
-    rays[0]["launches"] += dist_launches["bvh"] + options["bvh"]
-    rays[1]["launches"] += options["brute"]
-    rays[1]["max_abs_err"] = max(rays[1]["max_abs_err"], options["glass_err"])
+    rays[0]["launches"] += (dist_launches["bvh"] + options["bvh"]
+                            + world["launches"]["bvh"])
+    rays[1]["launches"] += options["brute"] + world["launches"]["brute"]
+    rays[0]["max_abs_err"] = max(rays[0]["max_abs_err"], world["errs"]["bvh"])
+    rays[1]["max_abs_err"] = max(rays[1]["max_abs_err"], options["glass_err"],
+                                 world["errs"]["brute"])
+    # Kernels #5-#7 on the world's frames.
+    for row, key in zip(images, ("raster", "tonemap", "blur")):
+        row["launches"] += world["launches"][key]
     # Last: run before the blur's profile, its profiles of ~27,000- and
     # ~97,000-kernel frames left that profile seeing 23 of its 50 calls
     # whole.
-    runtime_physics(card)
-    terrain_cloth = terrain_and_cloth(card, cuda_ms, max_err)
+    timed("runtime_physics", runtime_physics, card)
+    terrain_cloth = timed("terrain_and_cloth", terrain_and_cloth, card,
+                          cuda_ms, max_err)
+    # Kernel #1 on the world's drop (batch 1): the terrain drop's row.
+    for row in terrain_cloth:
+        if row["name"] == "colored_solver_terrain_drop":
+            row["launches"] += world["launches"]["colored"]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     world["errs"]["colored"])
 
+    print("seconds per phase: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in phase_s.items()),
+          flush=True)
     print(f"chip_smoke total: {time.perf_counter() - t_script:.1f} s",
           flush=True)
     # Kernel #1's line: this slice's path, the self-colliding locomotion;

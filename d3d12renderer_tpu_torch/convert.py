@@ -359,3 +359,20 @@ def archetype_from_numpy(flat: Mapping[str, np.ndarray],
         **kw, contact_buckets=tuple(buckets), joints=tuple(joints),
         contact_color_indices=listed("contact_color_"),
         joint_color_indices=tuple(joint_colors))
+
+
+def particle_pool_from_numpy(src, generator: torch.Generator,
+                             device=None):
+    """A `particles.ParticlePool` from the JAX package's (or any object or
+    mapping with position / velocity / age / lifetime / alive / data /
+    emit_carry), on `device` (default: the generator's), drawing from
+    `generator` (the JAX pool's PRNG key is not carried over)."""
+    from .particles.particles import ParticlePool
+
+    device = resolve_device(device if device is not None
+                            else generator.device)
+    fields = {f: _tensor(_get(src, f), device)
+              for f in ("position", "velocity", "age", "lifetime", "alive",
+                        "emit_carry")}
+    data = {k: _tensor(v, device) for k, v in (_get(src, "data") or {}).items()}
+    return ParticlePool(data=data, generator=generator, **fields)

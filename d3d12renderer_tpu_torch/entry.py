@@ -6,8 +6,8 @@ training, alone and data-parallel over `torch.distributed` (counterpart of
 of 128 point lights), the runtime physics of BASELINE configs 1 (the
 1k-body stack drop) and 4 (the gear-train vehicle), terrain physics
 (examples/showcase.py's drop with collision events, the triangle-exact
-ridge, the vehicle on terrain) and cloth against rigid bodies (BASELINE
-config 3)."""
+ridge, the vehicle on terrain), cloth against rigid bodies (BASELINE
+config 3) and examples/showcase.py's whole world."""
 
 from __future__ import annotations
 
@@ -379,7 +379,7 @@ def _raster_frames(scene, camera, width: int, height: int, device, seed: int,
     is the camera), `options` as its keyword arguments (`overrides`
     replace them for one frame: another `settings`, or an option set to
     None), the sub-pixel jitter drawn from a generator seeded `seed` unless
-    given."""
+    given; `scene=` renders another scene with the same maps and probes."""
     from .render.pipeline import RendererSettings, render_frame
 
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -392,7 +392,8 @@ def _raster_frames(scene, camera, width: int, height: int, device, seed: int,
         if jitter is None:
             jitter = torch.rand(2, generator=generator, device=device)
         kw = {**options, **overrides}
-        return render_frame(scene, camera, width, height, kw.pop("settings"),
+        return render_frame(kw.pop("scene", scene), camera, width, height,
+                            kw.pop("settings"),
                             frame_state=state, prev_camera=camera,
                             jitter=jitter, profile_stages=profile_stages,
                             **kw)
@@ -602,3 +603,48 @@ def _lights_frames(scene, camera, width: int, height: int, device,
                           {"shadow_maps": _sun_maps(scene, camera,
                                                     map_resolution),
                            "point_lights": lights})
+
+
+def showcase_world_entry(device="cuda", width: int = 1920, height: int = 1080,
+                         seed: int = 0, **world):
+    """examples/showcase.py's whole world (`models.world.build_world`,
+    built once here): the 65 x 65 terrain in LOD chunks with its splat
+    texture, the six bodies settled on it for 180 frames (each substep one
+    colored-solver launch on the card), placed trees, grass culled against
+    this frame's camera (width / height aspect), the HDR sky from
+    examples/data/studio.hdr through the image cache and a 128^2 cubemap,
+    one 4096 shadow atlas (sun 384, spot 256, point 192), 5 x 3 x 5 probes
+    updated twice at 32 rays, a decal, a glass slab, water at 0.9, and 256
+    fire particles stepped 45 times.  `world` goes to `build_world`:
+    `config` (a `WorldConfig`), `envmap` (None: the procedural sky),
+    `draws`, `heights`.
+
+    Returns `(fn, state)`: `fn(state, profile_stages=False, jitter=None,
+    **overrides) -> (ldr, state, aux)` renders one frame (raster primary,
+    half-res effects, SSS, RT reflections, every light, map, probe, decal,
+    glass and water) and adds the fire particles onto the tonemapped frame
+    (`particles.systems.splat_particles`); `aux["frame_ldr"]` is the frame
+    before the splat.  `fn.world` holds the world, `fn.options` the frame's
+    options."""
+    from .models.world import PARTICLE_COLOR, build_world
+    from .particles.systems import splat_particles
+    from .render.pipeline import initial_frame_state
+
+    device = resolve_device(device)
+    world = build_world(device, width, height, seed, **world)
+    frame = _raster_frames(world.scene, world.camera, width, height, device,
+                           seed, world.options)
+    color = torch.tensor(PARTICLE_COLOR, device=device)
+
+    @torch.inference_mode()
+    def fn(state, profile_stages: bool = False, jitter=None, **overrides):
+        ldr, state, aux = frame(state, profile_stages=profile_stages,
+                                jitter=jitter, **overrides)
+        fire = world.fire
+        aux["frame_ldr"] = ldr
+        return (splat_particles(ldr, world.camera, fire.position, fire.alive,
+                                color), state, aux)
+
+    fn.world, fn.options = world, world.options
+    fn.scene, fn.camera = world.scene, world.camera
+    return fn, initial_frame_state(width, height, device)

@@ -195,19 +195,20 @@ def _height_at(heights, origin, cell, x, z) -> float:
     return float(h)
 
 
-def add_terrain_drop(b, heights):
+def add_terrain_drop(b, heights, cell_size: float = TERRAIN_DROP_CELL):
     """examples/showcase.py:110-123's physics: the heightmap (friction
-    0.7) and TERRAIN_DROP_BODIES bodies at numpy `default_rng(0)` x / z in
-    [-6, 6], 3 m + 0.5 m per body above the ground, alternating boxes and
-    spheres of TERRAIN_DROP_HALF (friction 0.7).  Finalize with the
-    defaults (bilinear terrain rows)."""
-    b.add_terrain(heights, origin=TERRAIN_DROP_ORIGIN,
-                  cell_size=TERRAIN_DROP_CELL, friction=0.7)
+    0.7; its samples `cell_size` apart from TERRAIN_DROP_ORIGIN) and
+    TERRAIN_DROP_BODIES bodies at numpy `default_rng(0)` x / z in [-6, 6],
+    3 m + 0.5 m per body above the ground, alternating boxes and spheres
+    of TERRAIN_DROP_HALF (friction 0.7).  Finalize with the defaults
+    (bilinear terrain rows)."""
+    b.add_terrain(heights, origin=TERRAIN_DROP_ORIGIN, cell_size=cell_size,
+                  friction=0.7)
     rng = np.random.default_rng(0)
     bodies = []
     for i in range(TERRAIN_DROP_BODIES):
         x, z = rng.uniform(-6, 6, 2)
-        y = _height_at(heights, TERRAIN_DROP_ORIGIN, TERRAIN_DROP_CELL, x, z)
+        y = _height_at(heights, TERRAIN_DROP_ORIGIN, cell_size, x, z)
         body = b.add_body(position=(x, y + 3.0 + i * 0.5, z))
         if i % 2 == 0:
             b.add_box_collider(body, (TERRAIN_DROP_HALF,) * 3, friction=0.7)

@@ -230,7 +230,8 @@ def _entry_points():
     from d3d12renderer_tpu_torch.physics import builder, cloth, joints
     from d3d12renderer_tpu_torch.render import bvh, camera, decals, lights
     from d3d12renderer_tpu_torch.render import light_probe, mesh, pathtracer
-    from d3d12renderer_tpu_torch.render import pipeline, shadows
+    from d3d12renderer_tpu_torch.render import instances, pipeline, resources
+    from d3d12renderer_tpu_torch.render import shadows
 
     arch = lambda: LocoEnv(device="cpu").arch  # noqa: E731
     return {
@@ -240,6 +241,11 @@ def _entry_points():
         "raster_showcase_entry": (entry.raster_showcase_entry,
                                   lambda f: f()),
         "raster_lights_entry": (entry.raster_lights_entry, lambda f: f()),
+        "showcase_world_entry": (entry.showcase_world_entry, lambda f: f()),
+        "default_white": (resources.default_white, lambda f: f()),
+        "brdf_lookup": (resources.brdf_lookup, lambda f: f()),
+        "build_instanced": (instances.build_instanced, lambda f: f(
+            [(mesh.quad(), 0)], [0])),
         "distributed_entry": (entry.distributed_entry, lambda f: f()),
         "train_entry": (entry.train_entry, lambda f: f()),
         "stack_drop_entry": (entry.stack_drop_entry, lambda f: f()),
