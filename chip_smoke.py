@@ -312,6 +312,30 @@ WORLD_SLICE = dict(resolution=17, grass_per_side=8, physics_frames=2,
                    spot_resolution=OPT_SLICE_MAPS,
                    point_resolution=OPT_SLICE_MAPS,
                    atlas_size=4 * OPT_SLICE_MAPS)
+# The characters phase: character_entry at OPT_W x OPT_H (16 skinned
+# characters, the raster's group path with its occlusion feedback), one
+# warm frame, CHAR_FRAMES consecutive frames at seeded jitters (each held
+# against the pair path on its own BVH), the best of RASTER_RUNS x
+# CHAR_FRAMES frames, a profiled and a staged frame; the overlays change at
+# least CHAR_MIN_PIXELS pixels; the group kernel against its plain version
+# on the first frame's tables, with and without feedback; card against CPU
+# at OPT_SLICE_W x OPT_SLICE_H over the raster slice's meshes with
+# CHAR_SLICE_CROWD coarse characters (570 triangles each: the full ones'
+# sub-pixel triangles put 1.7% of that frame's pixels off the CPU's, their
+# float32 planes rounding otherwise on the two devices; the coarse ones'
+# 2-pixel triangles still 0.8%, so the mean error is held to the path
+# tracer's slice bound, SLICE_MEAN_TOL, not the raster frame's) and
+# OPT_SLICE_MAPS^2 cascades; the fitted
+# ragdolls dropped through character_ragdoll_entry for CHAR_DROP_FRAMES
+# frames at CHAR_DROP_BATCH scenes: every body finite, above CHAR_FLOOR and
+# within CHAR_BOUND of the origin (tests/test_ragdoll_from_skeleton.py:
+# 171-175).  A stale feedback comes from CHAR_STALE_EYE.
+CHAR_FRAMES = 8
+CHAR_MIN_PIXELS = 200
+CHAR_SLICE_CROWD = 4
+CHAR_DROP_BATCH, CHAR_DROP_FRAMES = 4096, 120
+CHAR_FLOOR, CHAR_BOUND = -0.5, 10.0
+CHAR_STALE_EYE, CHAR_STALE_TARGET = (-6.0, 4.0, -17.0), (-2.0, 1.0, -9.0)
 TRAIN_ENVS, TRAIN_ROLLOUT = 4096, 32
 TRAIN_ITERS = 3
 EVAL_SIZE, EVAL_SPP = 256, 8
@@ -3161,6 +3185,439 @@ def showcase_world(card, cuda_ms):
     return {"launches": counts, "errs": errs}
 
 
+def characters(card, cuda_ms, max_err):
+    """Skinned characters through `character_entry` at 1080p: set-up (the
+    static atrium's 3 cascades through kernel #3), CHAR_FRAMES frames
+    through the group path with feedback (kernel #5's group mode), each
+    against the pair path on its own BVH, the frame's times, profile and
+    stages; the overlays; the group kernel against its plain version with
+    and without feedback, garbage and stale feedback against none, its
+    time beside the pair kernel's on the same frame and its bound; card
+    against CPU; then the fitted ragdolls' drop through kernel #2 (or #1)
+    against plain.  Returns the launches, errors and the group kernel's
+    line for the kernels line."""
+    import math
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch import entry as entry_mod
+    from d3d12renderer_tpu_torch.entry import (character_entry,
+                                               character_ragdoll_entry)
+    from d3d12renderer_tpu_torch.ops import image, raster, ray_trace
+    from d3d12renderer_tpu_torch.physics import collide, solver_cuda, step
+    from d3d12renderer_tpu_torch.physics import substep_cuda
+    from d3d12renderer_tpu_torch.physics.types import PhysicsSettings
+    from d3d12renderer_tpu_torch.render import camera as cam_mod
+    from d3d12renderer_tpu_torch.render import mesh as mesh_mod
+    from d3d12renderer_tpu_torch.render.skinned_instances import (
+        build_frame_bvh)
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    wrappers = {"groups": raster.rasterize_groups,
+                "pairs": raster.rasterize_tiles,
+                "bvh": ray_trace.ray_closest_hit_bvh,
+                "tonemap": image.tonemap, "blur": image.gaussian_blur,
+                "fused": substep_cuda.fused_substep_cuda,
+                "colored": solver_cuda.colored_solve_cuda}
+    gen = torch.Generator().manual_seed(11)
+    jitters = torch.rand((CHAR_FRAMES, 2), generator=gen).to(dev)
+
+    # The main path: set-up, a warm frame, CHAR_FRAMES frames.
+    for k in wrappers.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    fn, state = character_entry(device=dev, width=OPT_W, height=OPT_H)
+    sync()
+    setup_s = time.perf_counter() - t0
+    setup = {n: k.launches for n, k in wrappers.items()}
+    ldr, state, aux = fn(state)
+    frames = []
+    t0 = time.perf_counter()
+    for i in range(CHAR_FRAMES):
+        ldr, state, aux = fn(state, jitter=jitters[i])
+        frames.append((aux["bvh"], aux["visits"], ldr, aux["frame_ldr"]))
+    sync()
+    frames_ms = 1e3 * (time.perf_counter() - t0) / CHAR_FRAMES
+    best = math.inf
+    for _ in range(RASTER_RUNS):
+        t0 = time.perf_counter()
+        for _ in range(CHAR_FRAMES):
+            ldr, state, aux = fn(state)
+        sync()
+        best = min(best, (time.perf_counter() - t0) / CHAR_FRAMES)
+    counts = {n: k.launches for n, k in wrappers.items()}
+    n_frames = 1 + CHAR_FRAMES * (1 + RASTER_RUNS)
+    per_frame = {n: (counts[n] - setup[n]) / n_frames for n in counts}
+    if setup["bvh"] < 1 or counts["pairs"] or not per_frame["groups"] >= 1 \
+            or not per_frame["tonemap"] >= 1 or not per_frame["blur"] >= 1:
+        fail(f"characters: launches {json.dumps(counts)} (set-up "
+             f"{json.dumps(setup)}): want the sun's cascades through kernel "
+             "#3 (one launch), every frame through the group kernel, the tonemap and the "
+             "blur, and no pair-kernel launch")
+    if ldr.shape != (OPT_H, OPT_W, 3) or not bool(torch.isfinite(ldr).all()):
+        fail("characters: the frame is not a finite 1080p image")
+    # What the occlusion feedback is worth: runs of CHAR_FRAMES frames
+    # without it (the carried tile_qmin dropped before each frame: one
+    # launch over every visit) in turns with runs with it, best of
+    # RASTER_RUNS each; after the main path's counts are read.
+    fb_ms = {"with": math.inf, "without": math.inf}
+    for _ in range(RASTER_RUNS):
+        for mode in ("without", "with"):
+            t0 = time.perf_counter()
+            for _ in range(CHAR_FRAMES):
+                if mode == "without":
+                    state = entry_mod.CharacterState(state.frame, None,
+                                                     state.time)
+                ldr, state, aux = fn(state)
+            sync()
+            fb_ms[mode] = min(fb_ms[mode], 1e3 * (time.perf_counter() - t0)
+                              / CHAR_FRAMES)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(state)
+        sync()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    _, _, staged = fn(state, profile_stages=True)
+    stages = staged["stage_ms"]
+    rows = frames[0][0].tri_v0.shape[0]
+    skinned_rows = rows - fn.rigid.v0.shape[0]
+    print(f"characters (character_entry, {OPT_W}x{OPT_H}, "
+          f"{len(fn.skinned)} characters): set-up {setup_s:.2f} s (launches "
+          f"{json.dumps(setup)}) | {rows} rows a frame ({skinned_rows} "
+          f"skinned, {rows // raster.GROUP} groups) | {CHAR_FRAMES} frames "
+          f"{frames_ms:.2f} ms each, best of {RASTER_RUNS} runs of "
+          f"{CHAR_FRAMES} {1e3 * best:.2f} ms per frame | in turns, best of "
+          f"{RASTER_RUNS} runs of {CHAR_FRAMES}: {fb_ms['with']:.2f} ms a "
+          f"frame with the feedback, {fb_ms['without']:.2f} without | "
+          f"visits per frame "
+          f"(phase 1, phase 2, dirty tiles): "
+          + " ".join(f"{v['phase1']}/{v['phase2']}/{v['dirty']}"
+                     for _, v, _, _ in frames)
+          + " | launches per frame: "
+          + ", ".join(f"{n} {v:g}" for n, v in per_frame.items())
+          + f" | profiler, one frame: {len(kern)} kernels, device busy "
+          f"{busy:.1f} of {prof_ms:.1f} ms ({100 * busy / prof_ms:.1f}%), "
+          "most device time: "
+          + "; ".join(f"{n[:40]} {v:.2f} ms" for n, v in top)
+          + " | stage ms (CUDA events): "
+          + " ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f" | {card}", flush=True)
+
+    # Each of the CHAR_FRAMES frames against the pair path on its BVH: t
+    # equal everywhere, and every pixel whose winner differs a tie (both
+    # triangles give the pixel the same q; each path keeps its own order).
+    # The overlays change pixels.
+    t_check = time.perf_counter()
+    cam = fn.camera
+    wp = OPT_W + (-OPT_W) % raster.TILE_X
+    hp = OPT_H + (-OPT_H) % raster.TILE_Y
+    ties = 0
+    with torch.inference_mode():
+        for i, (bvh, _, out, base_ldr) in enumerate(frames):
+            jit = jitters[i]
+            g = raster.closest_hit_raster(bvh, cam, OPT_W, OPT_H, jitter=jit,
+                                          binning="group")
+            p = raster.closest_hit_raster(bvh, cam, OPT_W, OPT_H, jitter=jit)
+            if not torch.equal(g["t"], p["t"]):
+                fail(f"characters: frame {i}: t differs between the group "
+                     f"and pair paths at "
+                     f"{int((g['t'] != p['t']).sum())} pixels")
+            same = g["tri"] == p["tri"]
+            if not torch.equal(g["uv"][same], p["uv"][same]):
+                fail(f"characters: frame {i}: uv differs where tri agrees")
+            diff = torch.nonzero(~same)[:, 0]
+            if not diff.numel():
+                continue
+            mat, attr = raster.perspective_rows(cam, OPT_W, OPT_H)
+            planes, _, _ = raster.project_planes(
+                bvh.tri_v0, bvh.tri_e1, bvh.tri_e2, bvh.tri_valid, mat, attr,
+                wp, hp)
+            x = (diff % OPT_W).float() + jit[0]
+            y = (diff // OPT_W).float() + jit[1]
+
+            def q_of(tri):
+                r = planes[tri.long()]
+                return (r[:, 9] * x + r[:, 10] * y) + r[:, 11]
+
+            tie = q_of(g["tri"][diff]) == q_of(p["tri"][diff])
+            if not bool(tie.all()):
+                fail(f"characters: frame {i}: {int((~tie).sum())} pixels' "
+                     "winners differ between the group and pair paths "
+                     "without a tie")
+            ties += int(tie.sum())
+        overlay = [int((out != b).any(-1).sum()) for _, _, out, b in frames]
+        moved = (build_frame_bvh(None, None, None, fn.skinned, fn.phases.to(
+            dev)).tri_v0 - build_frame_bvh(None, None, None, fn.skinned,
+                                           fn.phases.to(dev) + 1.0).tri_v0)
+        moved = moved.abs().amax().item()
+    if min(overlay) < CHAR_MIN_PIXELS or not moved > 0.05:
+        fail(f"characters: overlays changed {overlay} pixels, the skinned "
+             f"rows moved {moved} between t = 0 and 1")
+
+    # The group kernel against its plain version on the first frame's
+    # tables, without and with feedback (its own, 1e6, another camera's);
+    # these launches are not the main path's.
+    bvh = frames[0][0]
+    jit = jitters[0]
+    mat, attr = raster.perspective_rows(cam, OPT_W, OPT_H)
+    tables = raster.build_frame_tables(bvh.tri_v0, bvh.tri_e1, bvh.tri_e2,
+                                       bvh.tri_valid, mat, attr, wp, hp)
+    other = cam_mod.look_at(CHAR_STALE_EYE, CHAR_STALE_TARGET, device=dev,
+                            v_fov=math.radians(60), aspect=OPT_W / OPT_H)
+    kernel_fn = raster.rasterize_groups
+
+    def run(plain, **kw):
+        raster.rasterize_groups = (
+            (lambda pl, plan, j, w, h, base=None, stats=None:
+             raster.rasterize_groups_plain(pl, plan, j, w, h, base))
+            if plain else kernel_fn)
+        try:
+            return raster.closest_hit_raster(bvh, cam, OPT_W, OPT_H,
+                                             jitter=jit, **kw)
+        finally:
+            raster.rasterize_groups = kernel_fn
+
+    with torch.inference_mode():
+        none_k = run(False, binning="group")
+        stale_fb = raster.closest_hit_raster(bvh, other, OPT_W, OPT_H,
+                                             jitter=jit,
+                                             binning="group")["tile_qmin"]
+        feedback = {"none": None, "own": none_k["tile_qmin"],
+                    "garbage": torch.full_like(none_k["tile_qmin"], 1e6),
+                    "stale": stale_fb}
+        plain_t0 = time.perf_counter()
+        results = {}
+        for name, fb in feedback.items():
+            k = none_k if fb is None else run(False, tile_qmin=fb)
+            pl = run(True, binning="group", tile_qmin=fb)
+            results[name] = (k, pl)
+            for key in ("t", "tri", "uv", "tile_qmin"):
+                if not torch.equal(k[key], pl[key]):
+                    fail(f"characters: the group kernel differs from its "
+                         f"plain version ({name} feedback, {key})")
+            if not all(torch.equal(k[key], none_k[key])
+                       for key in ("t", "tri", "uv")):
+                fail(f"characters: {name} feedback changes the frame")
+        plain_s = time.perf_counter() - plain_t0
+        # The query (tables, plan, launches, host reads) without and with
+        # this frame's own feedback.
+        q_ms = {"without": cuda_ms(lambda: raster.closest_hit_raster(
+                    bvh, cam, OPT_W, OPT_H, jitter=jit, binning="group"),
+                    RASTER_RUNS),
+                "own": cuda_ms(lambda: raster.closest_hit_raster(
+                    bvh, cam, OPT_W, OPT_H, jitter=jit,
+                    tile_qmin=feedback["own"]), RASTER_RUNS)}
+        plan = raster.visit_plan(tables, wp, hp, jit)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        kernel_fn(tables, plan, jit, wp, hp, stats=stats)
+        run_v, skip_v = stats.tolist()
+        planes, rect, q_tri = raster.project_planes(
+            bvh.tri_v0, bvh.tri_e1, bvh.tri_e2, bvh.tri_valid, mat, attr,
+            wp, hp)
+        pair_tri, seg = raster.bin_pairs(rect, q_tri, wp, hp)
+        g_ms = cuda_ms(lambda: kernel_fn(tables, plan, jit, wp, hp),
+                       RASTER_REPS)
+        p_ms = cuda_ms(lambda: raster.rasterize_tiles(planes, pair_tri, seg,
+                                                      jit, wp, hp),
+                       RASTER_REPS)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        sync()
+        start.record()
+        want = raster.rasterize_groups_plain(tables, plan, jit, wp, hp)
+        end.record()
+        sync()
+        g_plain_ms = start.elapsed_time(end)
+        # The visits any exact cull must run: those whose bound (the
+        # largest q the group's triangles of the tile give any sample of
+        # it, exact) exceeds the tile's least final q; and their triangles
+        # binned to the tile, the ones the kernel tests.
+        least = raster.tile_min(want[0], wp, hp)
+        must = plan.bound > least[plan.visit_tile]
+        needed = int(must.sum())
+        needed_tris = int(raster.visit_cover(
+            tables, plan.visit_tile[must], plan.group[must], wp).sum())
+        per_tile = (plan.seg[1:] - plan.seg[:-1]).long()
+        jax_drops = int(torch.clamp(per_tile - raster.VISIT_CAP, min=0).sum())
+    fb_visits = {n: r[0]["visits"] for n, r in results.items()}
+    g_bound = bound(tables.planes.numel() * 4 + tables.tri_tiles.numel() * 4
+                    + plan.visits * 8 + plan.seg.numel() * 4
+                    + plan.tiles.numel() * 4 + 8 + wp * hp * 8,
+                    needed_tris * raster.PX * RASTER_PAIR_FLOP)
+    print(f"characters: group path vs pair path over the {CHAR_FRAMES} "
+          f"frames: t equal, uv equal where tri is, tri equal but at "
+          f"{ties} pixels of exact ties | overlays changed {overlay} pixels (bound "
+          f"{CHAR_MIN_PIXELS}) | skinned rows moved {moved:.3f} between "
+          f"t = 0 and 1 | group kernel vs plain, frame 1 at {wp}x{hp}: t, "
+          f"tri, uv and tile_qmin bit-equal with feedback none / own / "
+          f"1e6 / stale, each equal to none; visits (phase 1, phase 2, "
+          f"dirty) {json.dumps(fb_visits)} ({plain_s:.1f} s) | "
+          f"{plan.visits} visits over {plan.tiles.numel()} tiles (at most "
+          f"{int(per_tile.max())} a tile; JAX's cap of {raster.VISIT_CAP} "
+          f"would drop {jax_drops}), "
+          f"{run_v} run, {skip_v} skipped by the early-out, {needed} any "
+          f"exact cull must run ({needed_tris} (visit, triangle) tests) | "
+          f"the query {q_ms['without']:.3f} ms without feedback, "
+          f"{q_ms['own']:.3f} with its own (CUDA events) | group kernel {g_ms:.3f} ms, pair kernel "
+          f"{p_ms:.3f} ms ({int(pair_tri.shape[0])} pairs) on the same "
+          f"frame (CUDA events), plain {g_plain_ms:.1f} ms, bound "
+          f"{g_bound[0]:.4f} ms ({g_bound[1]}) | {card} | "
+          f"{time.perf_counter() - t_check:.1f} s", flush=True)
+
+    # The card against the CPU over 256x144: the raster slice's meshes,
+    # CHAR_SLICE_CROWD characters, OPT_SLICE_MAPS^2 cascades, two frames
+    # with feedback carried.
+    t_slice = time.perf_counter()
+    saved = (mesh_mod.atrium_scene, entry_mod.RASTER_SHADOW_RESOLUTION)
+    mesh_mod.atrium_scene = lambda detail: slice_meshes(mesh_mod)
+    entry_mod.RASTER_SHADOW_RESOLUTION = OPT_SLICE_MAPS
+    try:
+        imgs = []
+        for device in (dev, torch.device("cpu")):
+            f, st = character_entry(device=device, width=OPT_SLICE_W,
+                                    height=OPT_SLICE_H,
+                                    crowd=CHAR_SLICE_CROWD, coarse=True)
+            out = []
+            for jit_ in ((0.25, 0.6), (0.7, 0.3)):
+                img, st, _ = f(st, jitter=torch.tensor(jit_, device=device))
+                out.append(img.cpu())
+            imgs.append(out)
+    finally:
+        mesh_mod.atrium_scene, entry_mod.RASTER_SHADOW_RESOLUTION = saved
+    rows_ = []
+    for i, (g_img, c_img) in enumerate(zip(*imgs)):
+        err = (g_img - c_img).abs().amax(-1)
+        share = (err <= SLICE_PIXEL_TOL).float().mean().item()
+        rows_.append(f"frame {i + 1}: {100 * share:.2f}% within "
+                     f"{SLICE_PIXEL_TOL}, mean {err.mean().item():.2e}")
+        if share < SLICE_SHARE or not err.mean().item() < SLICE_MEAN_TOL:
+            fail(f"characters: the card's slice frame {i + 1} disagrees "
+                 f"with the CPU ({rows_[-1]})")
+    print(f"card vs CPU over the characters ({OPT_SLICE_W}x{OPT_SLICE_H}, "
+          f"the raster slice's meshes, {CHAR_SLICE_CROWD} coarse characters, "
+          f"cascades {OPT_SLICE_MAPS}^2, feedback carried): "
+          f"{'; '.join(rows_)} (bounds {100 * SLICE_SHARE:.0f}%, "
+          f"{SLICE_MEAN_TOL}) | {time.perf_counter() - t_slice:.1f} s",
+          flush=True)
+
+    # The fitted ragdolls' drop.
+    t_drop = time.perf_counter()
+    for k in wrappers.values():
+        k.launches = 0
+    dfn, (arch, dstate, fitted) = character_ragdoll_entry(
+        device=dev, batch=CHAR_DROP_BATCH)
+    settings = PhysicsSettings(frame_rate=entry_mod.RAGDOLL_FRAME_RATE)
+    reason = substep_cuda.support_reason(arch, settings)
+    st = dstate
+    with torch.inference_mode():
+        st, _ = dfn(st, 1)
+        sync()
+        t0 = time.perf_counter()
+        st, _ = dfn(st, CHAR_DROP_FRAMES - 1)
+        sync()
+    drop_s = time.perf_counter() - t0
+    launches = {"fused": wrappers["fused"].launches,
+                "colored": wrappers["colored"].launches}
+    pos = st.pos
+    finite = all(bool(torch.isfinite(getattr(st, f)).all())
+                 for f in ("pos", "rot", "vel", "omega"))
+    low, far = pos[..., 1].min().item(), pos.abs().max().item()
+    kernel = "fused" if reason is None else "colored"
+    if launches[kernel] != CHAR_DROP_FRAMES or not finite \
+            or not low > CHAR_FLOOR or not far < CHAR_BOUND:
+        fail(f"characters: the ragdoll drop: launches {launches} in "
+             f"{CHAR_DROP_FRAMES} frames (kernel {kernel}), finite {finite}, "
+             f"lowest {low:.3f}, farthest {far:.3f}")
+    # Kernel against plain on one step: the first frame's state (in the
+    # air, spinning) and the fitted pose lowered until its lowest capsule is
+    # 2 cm into the plane, falling at 1 m/s (active plane rows, every joint
+    # far from its limits).  The landed heap at frame CHAR_DROP_FRAMES is
+    # reported without a bound: its resting contacts and its joints held
+    # at their limits sit on a knife edge where the kernel's contracted
+    # multiply-adds flip a row on or off (ROADMAP Queue 3); the kernel's
+    # source built without contraction matches plain on such a heap at
+    # the physics tests' bars (tests/test_torch_characters.py::
+    # test_host_kernel_matches_plain_on_the_landed_heap).
+    plain_set = PhysicsSettings(frame_rate=entry_mod.RAGDOLL_FRAME_RATE,
+                                fused_substep="off", solver_backend="plain")
+    dt = 1.0 / entry_mod.RAGDOLL_FRAME_RATE
+    errs = dict.fromkeys(("pos", "rot", "vel", "omega"), 0.0)
+    down = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    low0 = entry_mod.fitted_lowest(fitted, arch.local_cog.cpu(),
+                                   dstate.pos[0].cpu(), dstate.rot[0].cpu())
+    pose0 = dstate.pos[:1] - (low0 + 0.02) * down
+    touch = dstate.replace(
+        pos=pose0.expand_as(dstate.pos).contiguous(),
+        rot=dstate.rot[:1].expand_as(dstate.rot).contiguous(),
+        vel=(-down).expand_as(dstate.vel).contiguous(),
+        omega=torch.zeros_like(dstate.omega))
+    with torch.inference_mode():
+        active = int(collide.generate_contacts(arch, touch).active.sum())
+        per_state = []
+        for s0 in (dstate, touch, st):
+            kst, _ = step.physics_step(arch, s0, settings, dt)
+            pst, _ = step.physics_step(arch, s0, plain_set, dt)
+            per_state.append({k: max_err(getattr(kst, k), getattr(pst, k))
+                              for k in errs})
+        for k in errs:
+            errs[k] = max(per_state[0][k], per_state[1][k])
+        if reason is None:
+            consts = substep_cuda.pack_consts(arch, settings, dt, {}, 0, dev)
+            k_ms = cuda_ms(lambda: wrappers["fused"](st, None, consts), 20)
+        else:
+            k_ms = cuda_ms(lambda: step.physics_step(arch, st, settings, dt),
+                           5)
+        pl_ms = cuda_ms(lambda: step.physics_step(arch, st, plain_set, dt), 1)
+    if not (errs["pos"] <= POSE_TOL and errs["rot"] <= POSE_TOL
+            and errs["vel"] <= VEL_TOL and errs["omega"] <= OMEGA_TOL):
+        fail(f"characters: kernel {kernel} disagrees with plain on the "
+             f"ragdoll (in the air; pressed into the plane): "
+             f"{json.dumps(per_state[:2])}")
+    cq = arch.vs_plane_collider.shape[0]
+    tables_ = solver_cuda.ColoredSolver(arch, cq, ITERATIONS, "kernel").tables
+    r_bound = bound(4 * CHAR_DROP_BATCH * 2 * 19 * pos.shape[1],
+                    solve_flop(tables_, CHAR_DROP_BATCH, active, ITERATIONS))
+    print(f"characters: fitted ragdoll drop (character_ragdoll_entry, "
+          f"{CHAR_DROP_BATCH} scenes, {len(fitted.bodies)} capsules, "
+          f"{len(fitted.hinge_joint_ids)} hinges, "
+          f"{len(fitted.cone_twist_joint_ids)} cone-twists, the fused "
+          f"family: {'yes' if reason is None else 'no: ' + reason}): "
+          f"{CHAR_DROP_FRAMES} frames, launches {json.dumps(launches)}, "
+          f"finite, lowest body {low:.3f} m, farthest {far:.3f} m | "
+          f"{CHAR_DROP_BATCH * (CHAR_DROP_FRAMES - 1) / drop_s:.0f} "
+          f"scene-steps/s | kernel {kernel} vs plain on one step, max err "
+          f"in the air {json.dumps(per_state[0])}, pressed into the plane "
+          f"({active} active plane rows) {json.dumps(per_state[1])} (bounds "
+          f"{POSE_TOL} / {VEL_TOL} / {OMEGA_TOL}); the landed heap, no "
+          f"bound (knife edge) {json.dumps(per_state[2])} | "
+          f"{k_ms:.4f} ms by events, plain step "
+          f"{pl_ms:.1f} ms, bound {r_bound[0]:.5f} ({r_bound[1]}) | "
+          f"{time.perf_counter() - t_drop:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": counts, "drop_launches": launches, "kernel": kernel,
+            "drop_err": max(errs.values()), "drop": dict(
+                ms=k_ms, plain_ms=pl_ms, bound=r_bound),
+            "groups": {
+                "name": "raster_groups", "route": "cuda",
+                "source": "d3d12renderer_tpu_torch/csrc/raster.cu",
+                "replaces": "d3d12renderer_tpu/ops/raster_pallas.py:329",
+                "launches": counts["groups"], "max_abs_err": 0.0,
+                "ms": g_ms, "plain_ms": g_plain_ms, "bound_ms": g_bound[0],
+                "bound_by": g_bound[1], "library_ms": None}}
+
+
 def main():
     t_script = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3252,6 +3709,7 @@ def main():
     # The blur has one instance per radius and channel count; the frame's
     # are r = 4 (sigma 1.5) with C = 1 and 3, and r = 3 (sigma 1.0), C = 3.
     print(f"raster and image kernels: {ptxas_summary(log, 'raster_tiles')} | "
+          f"{ptxas_summary(log, 'raster_groups')} | "
           + " | ".join(ptxas_entries(log, f"gaussian_blurILi{r}ELi{c}E")[0]
                        for r, c in ((4, 1), (4, 3), (3, 3)))
           + f" | {ptxas_summary(log, 'tonemap')}", flush=True)
@@ -3649,6 +4107,7 @@ def main():
                           card, cuda_ms)
     options = timed("raster_options", raster_options, card, cuda_ms)
     world = timed("showcase_world", showcase_world, card, cuda_ms)
+    chars = timed("characters", characters, card, cuda_ms, max_err)
     # Kernels #3 and #4 on the new paths.
     rays[0]["launches"] += (dist_launches["bvh"] + options["bvh"]
                             + world["launches"]["bvh"])
@@ -3659,6 +4118,16 @@ def main():
     # Kernels #5-#7 on the world's frames.
     for row, key in zip(images, ("raster", "tonemap", "blur")):
         row["launches"] += world["launches"][key]
+    # The characters' path: #3 in its set-up, #6 and #7 in its frames, #5's
+    # group mode, and the ragdoll drop through #2 (or #1).
+    launch_terms = {"ray_closest_hit_bvh": [rays[0]["launches"]],
+                    "tonemap": [images[1]["launches"]],
+                    "gaussian_blur": [images[2]["launches"]]}
+    rays[0]["launches"] += chars["launches"]["bvh"]
+    launch_terms["ray_closest_hit_bvh"].append(chars["launches"]["bvh"])
+    for row, key in zip(images[1:], ("tonemap", "blur")):
+        row["launches"] += chars["launches"][key]
+        launch_terms[row["name"]].append(chars["launches"][key])
     # Last: run before the blur's profile, its profiles of ~27,000- and
     # ~97,000-kernel frames left that profile seeing 23 of its 50 calls
     # whole.
@@ -3672,6 +4141,14 @@ def main():
             row["max_abs_err"] = max(row["max_abs_err"],
                                      world["errs"]["colored"])
 
+    drop_kernel = "fused_substep" if chars["kernel"] == "fused" else \
+        "colored_solver"
+    drop_launches = chars["drop_launches"][chars["kernel"]]
+    print("kernels line, this phase's launches added: " + "; ".join(
+        f"{name} {sum(t)} = {' + '.join(str(x) for x in t)}"
+        for name, t in launch_terms.items())
+        + f"; {drop_kernel} + {drop_launches} (the ragdoll drop); "
+        f"raster_groups {chars['groups']['launches']}", flush=True)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in phase_s.items()),
           flush=True)
@@ -3679,12 +4156,18 @@ def main():
           flush=True)
     # Kernel #1's line: this slice's path, the self-colliding locomotion;
     # the plane-only ragdoll's numbers are on phase 3's line.
+    colored_extra = drop_launches if drop_kernel == "colored_solver" else 0
+    fused_extra = drop_launches if drop_kernel == "fused_substep" else 0
+    if fused_extra:
+        fused_err = max(fused_err, chars["drop_err"])
+    else:
+        colored_err = max(colored_err, chars["drop_err"])
     print(json.dumps({"kernels": [{
         "name": "colored_solver",
         "route": "cuda",
         "source": "d3d12renderer_tpu_torch/csrc/colored_solver.cu",
         "replaces": "d3d12renderer_tpu/physics/solver_pallas.py:619",
-        "launches": pairs["launches"],
+        "launches": pairs["launches"] + colored_extra,
         "max_abs_err": max(colored_err, pairs["max_abs_err"]),
         "ms": pairs["ms"],
         "plain_ms": pairs["plain_ms"],
@@ -3696,14 +4179,14 @@ def main():
         "route": "cuda",
         "source": "d3d12renderer_tpu_torch/csrc/fused_substep.cu",
         "replaces": "d3d12renderer_tpu/physics/substep_pallas.py:1026",
-        "launches": f_launch,
+        "launches": f_launch + fused_extra,
         "max_abs_err": fused_err,
         "ms": min(f_ms),
         "plain_ms": min(p_ms),
         "bound_ms": fused_bound[0],
         "bound_by": fused_bound[1],
         "library_ms": None,
-    }] + rays + images + terrain_cloth}))
+    }] + rays + images + [chars["groups"]] + terrain_cloth}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -376,3 +376,33 @@ def particle_pool_from_numpy(src, generator: torch.Generator,
                         "emit_carry")}
     data = {k: _tensor(v, device) for k, v in (_get(src, "data") or {}).items()}
     return ParticlePool(data=data, generator=generator, **fields)
+
+
+def model_asset_from_numpy(src):
+    """The port's host `ModelAsset` from the JAX package's (or any object
+    with its fields): meshes, materials, skeletons, clips and skins copied
+    as numpy arrays."""
+    from .assets import loaders
+    from .render.mesh import MeshData
+
+    def arr(x):
+        return None if x is None else np.array(x)
+
+    return loaders.ModelAsset(
+        meshes=[MeshData(arr(m.positions), arr(m.normals), arr(m.uvs),
+                         arr(m.indices)) for m in src.meshes],
+        materials=[loaders.LoadedMaterial(**dataclasses.asdict(m))
+                   for m in src.materials],
+        mesh_material=list(src.mesh_material),
+        skeletons=[loaders.LoadedSkeleton(
+            names=list(s.names), parents=list(s.parents),
+            bind_local_pos=arr(s.bind_local_pos),
+            bind_local_rot=arr(s.bind_local_rot)) for s in src.skeletons],
+        animations=[loaders.LoadedClip(
+            name=c.name, positions=arr(c.positions),
+            rotations=arr(c.rotations), scales=arr(c.scales),
+            duration=float(c.duration), looping=bool(c.looping))
+            for c in src.animations],
+        mesh_skin=[None if s is None else loaders.SkinData(
+            joint_indices=arr(s.joint_indices),
+            joint_weights=arr(s.joint_weights)) for s in src.mesh_skin])

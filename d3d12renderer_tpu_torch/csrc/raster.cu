@@ -1,10 +1,13 @@
-// The tile rasterizer's kernel: primary visibility of a pinhole camera by
-// 2D-homogeneous edge functions, one block per row band of a 64x32-pixel
-// screen tile.
+// The tile rasterizer's kernels: primary visibility of a pinhole camera by
+// 2D-homogeneous edge functions over 64x32-pixel screen tiles.
+// `raster_tiles` (below) is the pair path, one block per row band of a
+// tile; `raster_groups` (at the end of the file) the group path with its
+// early-out, one block per tile.
 //
 // Replaces the JAX package's Pallas kernel
-// d3d12renderer_tpu/ops/raster_pallas.py:329 `_raster_kernel` on its pair
-// path (`rasterize_pairs`, binning="tri").  What it computes is the same:
+// d3d12renderer_tpu/ops/raster_pallas.py:329 `_raster_kernel`, on its pair
+// path (`rasterize_pairs`, binning="tri") and on its group path
+// (`rasterize`, binning="group" and the occlusion feedback).  What it computes is the same:
 // per pixel p = (x + jitter_x, y + jitter_y, 1) and per triangle of its tile,
 // the edge values e_i = E_i . p and the depth attribute q = Q . p (q = 1/view
 // depth); the triangle covers the pixel in front of the camera when
@@ -215,6 +218,161 @@ extern "C" int raster_launch(const RasterArgs* args, int device, void* stream) {
                          dim3(a.n_tiles * RASTER_BANDS),
                          dim3(RASTER_BAND_PX / RASTER_PPT), params, 0,
                          (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The group path: kernel #5's port on JAX's `rasterize` (binning="group",
+// raster_pallas.py:733, `_raster_kernel` over group visits, `:329`).
+//
+// The planes are read in groups of RASTER_GROUP consecutive rows (the BVH's
+// leaf order; padding rows are NaN).  Each tile's visits are (tile, group)
+// pairs sorted front to back by the group's quantised bound (visit_plan in
+// ops/raster.py, as JAX sorts its visit words); the block of a tile walks
+// them in order.  Before each visit it takes the least q of the tile's
+// pixels (warp shuffles, then the warps' minima in shared memory) and skips
+// the visit unless that least q is below the visit's bound: JAX's early-out
+// (raster_pallas.py:415-418), on an exact bound (`visit_bounds` in
+// ops/raster.py: each plane's q at the tile's corner sample, as the pair
+// path's cull), where JAX's bound from the vertices' q does not hold for
+// the float32 planes of small triangles.
+// Otherwise the group's 128 plane rows are staged in shared memory, with
+// each row's tile range (the tiles the pair path bins the triangle to), and
+// each thread tests in order the rows whose range holds the tile against
+// its pixels, a candidate replacing the pixel's best only with a strictly
+// larger q: the first of equal q in the visit order wins (JAX's packed key
+// drops q's low 7 bits instead).  JAX tests all 128 rows, and the float32
+// plane of a sub-pixel triangle then wins pixels far outside its rect; with
+// the ranges a tile tests the pair path's triangles, so the frame is the
+// pair path's wherever the winner is unique.
+//
+// One block per tile (the early-out reads the whole tile's least q, so a
+// tile is not split into bands here); the launch covers the tiles of
+// `tiles`, so the repair phase of the occlusion feedback runs only its
+// dirty tiles, writing their pixels over the first phase's.
+//
+// Bound on the H100: 4 two-term dots and 6 compares per (triangle, pixel)
+// of the tile's triangles in every visit that runs, 2048 pixels a
+// triangle, over 67 TFLOP/s; it reads 6.5 KB of planes and ranges a visit
+// and writes 8 bytes a pixel.  The visits that run are the bound's count
+// (PERF.md's kernel table, row 5).
+
+constexpr int RASTER_GROUP = 128;
+
+struct RasterGroupArgs {
+  const float* planes;      // (groups * RASTER_GROUP, RASTER_PLANE_COLS)
+  const int* tri_tiles;     // (groups * RASTER_GROUP, 4) tx0, ty0, tx1, ty1
+  const int* tiles;         // (n_blocks,) the tile of each block
+  const int* seg;           // (n_blocks + 1,) block b's visits [seg[b], seg[b+1])
+  const int* group;         // (V,) each visit's group, front to back per tile
+  const float* bound;       // (V,) the largest q each visit can give
+  const float* jitter;      // (2,) sub-pixel sample offset
+  float* q_out;             // (rows * row_pixels,) row-major, 0 on a miss
+  int* tri_out;             // -1 on a miss
+  unsigned long long* stats;  // null, or (2,) += visits run, visits skipped
+  int ntx;
+  int n_blocks;
+  int row_pixels;
+};
+
+namespace {
+
+template <int PPT>
+__global__ void __launch_bounds__(RASTER_PX / PPT) raster_groups(const RasterGroupArgs A) {
+  __shared__ float4 s_plane[RASTER_GROUP * 3];
+  __shared__ bool s_keep[RASTER_GROUP];
+  // Double-buffered by the visit's parity: a warp may write the next
+  // visit's minimum while another still reads this one's.
+  __shared__ float s_warp_min[2][RASTER_PX / RASTER_PPT / 32];
+  const int tile = A.tiles[blockIdx.x];
+  const int tx = tile % A.ntx, ty = tile / A.ntx;
+  const int tx0 = tx * RASTER_TILE_X;
+  const int ty0 = ty * RASTER_TILE_Y;
+  const float jx = A.jitter[0], jy = A.jitter[1];
+  float px[PPT], py[PPT], best_q[PPT];
+  int best_tri[PPT];
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    const int r = threadIdx.x + j * blockDim.x;
+    px[j] = rn_add((float)(tx0 + r % RASTER_TILE_X), jx);
+    py[j] = rn_add((float)(ty0 + r / RASTER_TILE_X), jy);
+    best_q[j] = 0.0f;
+    best_tri[j] = -1;
+  }
+  const float4* planes = reinterpret_cast<const float4*>(A.planes);
+  const int begin = A.seg[blockIdx.x], end = A.seg[blockIdx.x + 1];
+  const int warps = (int)(blockDim.x + 31) / 32;
+  int run = 0;
+  for (int v = begin; v < end; ++v) {
+    float least = best_q[0];
+#pragma unroll
+    for (int j = 1; j < PPT; ++j) least = fminf(least, best_q[j]);
+    least = warp_min(least);
+    const int slot = (v - begin) & 1;
+    if (threadIdx.x % 32 == 0) s_warp_min[slot][threadIdx.x / 32] = least;
+    __syncthreads();                     // also: the last visit's rows consumed
+    least = s_warp_min[slot][0];
+    for (int w = 1; w < warps; ++w) least = fminf(least, s_warp_min[slot][w]);
+    if (!(least < A.bound[v])) continue;   // the same for the whole block
+    ++run;
+    const int g = A.group[v];
+    const float4* rows = planes + (size_t)g * RASTER_GROUP * 3;
+    for (int i = threadIdx.x; i < RASTER_GROUP * 3; i += blockDim.x) s_plane[i] = rows[i];
+    for (int i = threadIdx.x; i < RASTER_GROUP; i += blockDim.x) {
+      const int* r = A.tri_tiles + ((size_t)g * RASTER_GROUP + i) * 4;
+      s_keep[i] = r[0] <= tx && tx <= r[2] && r[1] <= ty && ty <= r[3];
+    }
+    __syncthreads();
+    for (int k = 0; k < RASTER_GROUP; ++k) {
+      if (!s_keep[k]) continue;           // the same for the whole block
+      const float* p = reinterpret_cast<const float*>(s_plane + 3 * k);
+      const int tri = g * RASTER_GROUP + k;
+#pragma unroll
+      for (int j = 0; j < PPT; ++j) {
+        const float e0 = edge(p[0], p[1], p[2], px[j], py[j]);
+        const float e1 = edge(p[3], p[4], p[5], px[j], py[j]);
+        const float e2 = edge(p[6], p[7], p[8], px[j], py[j]);
+        const float q = edge(p[9], p[10], p[11], px[j], py[j]);
+        // NaN planes (degenerate and padding triangles) fail every compare.
+        if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && q > 0.0f && q <= FLT_MAX &&
+            q > best_q[j]) {
+          best_q[j] = q;
+          best_tri[j] = tri;
+        }
+      }
+    }
+  }
+  if (A.stats != nullptr && threadIdx.x == 0) {
+    atomicAdd(A.stats, (unsigned long long)run);
+    atomicAdd(A.stats + 1, (unsigned long long)(end - begin - run));
+  }
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    const int r = threadIdx.x + j * blockDim.x;
+    const size_t o = (size_t)(ty0 + r / RASTER_TILE_X) * A.row_pixels + tx0 +
+                     r % RASTER_TILE_X;
+    A.q_out[o] = best_q[j];
+    A.tri_out[o] = best_tri[j];
+  }
+}
+
+}  // namespace
+
+extern "C" int raster_group_args_size() { return (int)sizeof(RasterGroupArgs); }
+
+// Launches one block per entry of `tiles` on `stream`; returns
+// cudaGetLastError() after the launch (0 = ok).
+extern "C" int raster_groups_launch(const RasterGroupArgs* args, int device,
+                                    void* stream) {
+  if (args->n_blocks == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const RasterGroupArgs a = *args;
+  void* params[] = {(void*)&a};
+  err = cudaLaunchKernel((const void*)raster_groups<RASTER_PPT>,
+                         dim3(a.n_blocks), dim3(RASTER_PX / RASTER_PPT), params,
+                         0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,9 @@
   `csrc/*.cu` and `csrc/*.cuh`, so an edit to a shared header rebuilds.
   nvcc's output, ptxas register / stack / spill counts of every kernel
   included, is kept in `build.log` beside the library.
-* The host builder of the BVH: `csrc/bvh_build.cpp`, built with g++ into
-  `build/torch_native/<hash>/` (`load_host_library`).
+* The host library: the BVH builder (`csrc/bvh_build.cpp`) and the mesh
+  import helpers (`csrc/mesh_ops.cpp`: weld, normals, OBJ scan), built
+  with g++ into `build/torch_native/<hash>/` (`load_host_library`).
 
 Nothing is built when a module is imported.  A failed build raises.
 """
@@ -34,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LIBRARY_NAME = "libd3d12_torch_kernels.so"
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
-HOST_SOURCE = "bvh_build.cpp"
+HOST_SOURCES = ("bvh_build.cpp", "mesh_ops.cpp")
 HOST_LIBRARY_NAME = "libd3d12_torch_host.so"
 
 
@@ -53,8 +54,9 @@ def _nvcc() -> str:
 def _gxx() -> str:
     found = shutil.which("g++")
     if found is None:
-        raise RuntimeError("g++ not found: the native BVH builder "
-                           f"(csrc/{HOST_SOURCE}) needs a C++ compiler")
+        raise RuntimeError("g++ not found: the host library "
+                           f"(csrc/{', '.join(HOST_SOURCES)}) needs a C++ "
+                           "compiler")
     return found
 
 
@@ -125,10 +127,10 @@ def build_library() -> Path:
 
 
 def build_host_library() -> Path:
-    """Compile csrc/bvh_build.cpp with g++ unless a build exists."""
-    src = CSRC_DIR / HOST_SOURCE
-    out_dir = _hashed_dir(HOST_BUILD_DIR, HOST_FLAGS, [src])
-    return _compile([_gxx(), *HOST_FLAGS, str(src)], out_dir,
+    """Compile the HOST_SOURCES with g++ unless a build exists."""
+    srcs = [CSRC_DIR / name for name in HOST_SOURCES]
+    out_dir = _hashed_dir(HOST_BUILD_DIR, HOST_FLAGS, srcs)
+    return _compile([_gxx(), *HOST_FLAGS, *(str(s) for s in srcs)], out_dir,
                     HOST_LIBRARY_NAME, "g++")
 
 
@@ -170,11 +172,12 @@ def load_library() -> ctypes.CDLL:
         lib.ray_max_stack.restype = i32
         # The raster kernel (ops/raster.py) and the image kernels
         # (ops/image.py): an argument struct by address, device, stream.
-        for name in ("raster_launch", "gaussian_blur_launch",
-                     "tonemap_launch"):
+        for name in ("raster_launch", "raster_groups_launch",
+                     "gaussian_blur_launch", "tonemap_launch"):
             getattr(lib, name).argtypes = [ptr, i32, ptr]
             getattr(lib, name).restype = i32
-        for name in ("raster_args_size", "blur_args_size",
+        for name in ("raster_args_size", "raster_group_args_size",
+                     "blur_args_size",
                      "tonemap_args_size", "blur_max_radius"):
             getattr(lib, name).restype = i32
         _library = lib
@@ -191,15 +194,23 @@ def launcher(name: str, device: torch.device):
 
 
 def load_host_library() -> ctypes.CDLL:
-    """Build (at first use) and load the native BVH builder."""
+    """Build (at first use) and load the host library."""
     global _host_library
     if _host_library is None:
         lib = ctypes.CDLL(str(build_host_library()))
-        ptr = ctypes.c_void_p
-        lib.bvh_build.argtypes = [ptr, ptr, ptr, ctypes.c_int64,
-                                  ctypes.c_int32, ctypes.c_int64,
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.bvh_build.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int32, i64,
                                   ptr, ptr, ptr, ptr, ptr, ptr]
-        lib.bvh_build.restype = ctypes.c_int64
+        lib.bvh_build.restype = i64
+        # The mesh import helpers (assets/native.py).
+        lib.weld_vertices.argtypes = [ptr, i64, ctypes.c_float, ptr]
+        lib.weld_vertices.restype = i64
+        lib.generate_normals.argtypes = [ptr, i64, ptr, i64, ptr]
+        lib.generate_normals.restype = None
+        lib.obj_count.argtypes = [ctypes.c_char_p, i64, ptr, ptr]
+        lib.obj_count.restype = i64
+        lib.obj_parse.argtypes = [ctypes.c_char_p, i64, ptr, ptr]
+        lib.obj_parse.restype = i64
         _host_library = lib
     return _host_library
 

@@ -7,10 +7,14 @@ of 128 point lights), the runtime physics of BASELINE configs 1 (the
 1k-body stack drop) and 4 (the gear-train vehicle), terrain physics
 (examples/showcase.py's drop with collision events, the triangle-exact
 ridge, the vehicle on terrain), cloth against rigid bodies (BASELINE
-config 3) and examples/showcase.py's whole world."""
+config 3), examples/showcase.py's whole world, and skinned characters:
+a crowd in the raster frame and ragdolls fitted from their skeleton."""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from .cuda_build import resolve_device
@@ -648,3 +652,435 @@ def showcase_world_entry(device="cuda", width: int = 1920, height: int = 1080,
     fn.world, fn.options = world, world.options
     fn.scene, fn.camera = world.scene, world.camera
     return fn, initial_frame_state(width, height, device)
+
+
+# The skinned character of character_entry and character_ragdoll_entry,
+# generated here and written to FBX (as tests/test_fbx_skin_anim.py and
+# tests/test_ragdoll_from_skeleton.py make theirs): the 19-joint rig of
+# tests/test_ragdoll_from_skeleton.py:24-38 with spine_2, neck, the
+# clavicles, hands and feet added; (name, parent, local translation, local
+# Euler degrees), every joint's local +Y along its bone.
+CHARACTER_JOINTS = (
+    ("pelvis", -1, (0.0, 0.95, 0.0), (0.0, 0.0, 0.0)),
+    ("spine", 0, (0.0, 0.2, 0.0), (0.0, 0.0, 0.0)),
+    ("spine_2", 1, (0.0, 0.2, 0.0), (0.0, 0.0, 0.0)),
+    ("neck", 2, (0.0, 0.22, 0.0), (0.0, 0.0, 0.0)),
+    ("head", 3, (0.0, 0.1, 0.0), (0.0, 0.0, 0.0)),
+    # The left arm along -X: Rz(+90) maps +Y to -X.
+    ("left_clavicle", 2, (-0.04, 0.17, 0.0), (0.0, 0.0, 90.0)),
+    ("left_upper_arm", 5, (0.0, 0.14, 0.0), (0.0, 0.0, 0.0)),
+    ("left_lower_arm", 6, (0.0, 0.28, 0.0), (0.0, 0.0, 0.0)),
+    ("left_hand", 7, (0.0, 0.26, 0.0), (0.0, 0.0, 0.0)),
+    ("right_clavicle", 2, (0.04, 0.17, 0.0), (0.0, 0.0, -90.0)),
+    ("right_upper_arm", 9, (0.0, 0.14, 0.0), (0.0, 0.0, 0.0)),
+    ("right_lower_arm", 10, (0.0, 0.28, 0.0), (0.0, 0.0, 0.0)),
+    ("right_hand", 11, (0.0, 0.26, 0.0), (0.0, 0.0, 0.0)),
+    # The legs along -Y (Rz(180)), the feet forward along +Z (Rx(90)).
+    ("left_upper_leg", 0, (-0.1, 0.0, 0.0), (0.0, 0.0, 180.0)),
+    ("left_lower_leg", 13, (0.0, 0.42, 0.0), (0.0, 0.0, 0.0)),
+    ("left_foot", 14, (0.0, 0.42, 0.0), (90.0, 0.0, 0.0)),
+    ("right_upper_leg", 0, (0.1, 0.0, 0.0), (0.0, 0.0, 180.0)),
+    ("right_lower_leg", 16, (0.0, 0.42, 0.0), (0.0, 0.0, 0.0)),
+    ("right_foot", 17, (0.0, 0.42, 0.0), (90.0, 0.0, 0.0)),
+)
+# Each joint's tube: its length along the bone and its radius.
+CHARACTER_TUBES = (
+    (0.2, 0.13), (0.2, 0.12), (0.22, 0.13), (0.1, 0.05), (0.22, 0.1),
+    (0.14, 0.05), (0.28, 0.05), (0.26, 0.045), (0.12, 0.04),
+    (0.14, 0.05), (0.28, 0.05), (0.26, 0.045), (0.12, 0.04),
+    (0.42, 0.07), (0.42, 0.055), (0.18, 0.045),
+    (0.42, 0.07), (0.42, 0.055), (0.18, 0.045),
+)
+# (rings, segments) of a tube: 19 x 416 = 7,904 control points and
+# 19 x (12 x 32 x 2 + 2 x 32) = 15,808 triangles; coarse for the CPU tests,
+# 570 triangles.
+CHARACTER_TUBE_GRID = (13, 32)
+CHARACTER_COARSE_GRID = (3, 5)
+# The clip: one 2 s loop keyed at 30 fps, a rotation track on every joint
+# and a translation track on the root.
+CHARACTER_CLIP_SECONDS = 2.0
+CHARACTER_FPS = 30
+# character_entry's frame time and materials: the crowd, character 0 and
+# the meta-balls prop, after the atrium's six.
+CHARACTER_FRAME_DT = 1.0 / 30.0
+CHARACTER_ALBEDO = [[0.25, 0.45, 0.7], [0.85, 0.3, 0.2], [0.4, 0.75, 0.35]]
+CHARACTER_ROUGHNESS = [0.5, 0.45, 0.3]
+CROWD_MATERIAL, CHARACTER0_MATERIAL, PROP_MATERIAL = 6, 7, 8
+# The crowd stands on the ground outside the atrium's south wall, facing
+# raster_entry's camera, in rows from CROWD_FRONT back by CROWD_DEPTH, each
+# row centred at x = CROWD_CENTRE[0] + CROWD_CENTRE[1] * (its fraction of
+# the depth) and CROWD_SPAN[0] - CROWD_SPAN[1] * (the same) wide on either
+# side: the ground that a standing character's feet and head are both in
+# the 16:9 frame is a trapezoid, z from -9 (x in [-10, 2]) to -11.5
+# (x in [-3, -2]).  Character 0 takes the slot nearest CROWD_HERO.
+CROWD_FRONT, CROWD_DEPTH = -9.1, 1.5
+CROWD_CENTRE = (-3.0, -0.5)
+CROWD_SPAN = (3.5, 1.8)
+CROWD_HERO = (-3.2, -9.8)
+PROP_CENTERS = ((0.0, 0.0, 0.0), (0.45, 0.25, 0.1), (-0.35, 0.3, -0.2))
+PROP_RADII = (0.5, 0.38, 0.33)
+PROP_AT = (-8.3, 0.7, -9.5)
+BONE_COLOR = (0.1, 1.0, 0.3)
+
+
+def _character_mesh(grid):
+    """Control points (V, 3), triangles (T, 3) and per-joint clusters of the
+    tube mesh in its bind pose.  A vertex at fraction s of its joint's
+    tube blends towards the parent below s = 0.3 and the first child above
+    0.7 (up to half each), and keeps 0.02 on the grandparent: at most 4
+    influences."""
+    from .assets.fbx import _euler_deg_to_quat
+    from .models.ragdoll import _bind_world, _quat_to_mat
+
+    rings, segs = grid
+    parents = [j[1] for j in CHARACTER_JOINTS]
+    bp = np.array([j[2] for j in CHARACTER_JOINTS], np.float64)
+    br = np.stack([_euler_deg_to_quat(j[3]) for j in CHARACTER_JOINTS])
+    wp, wr = _bind_world(parents, bp, br)
+    children = {}
+    for i, p in enumerate(parents):
+        if p >= 0:
+            children.setdefault(p, i)
+    points, tris = [], []
+    weights = [dict() for _ in CHARACTER_JOINTS]     # joint -> {cp: w}
+    ang = 2.0 * math.pi * np.arange(segs) / segs
+    for j, (length, radius) in enumerate(CHARACTER_TUBES):
+        rot = _quat_to_mat(wr[j])
+        p = parents[j] if parents[j] >= 0 else j
+        c = children.get(j, j)
+        gp = parents[p] if parents[p] >= 0 else p
+        base = len(points)
+        for r, s in enumerate(np.linspace(0.0, 1.0, rings)):
+            for a in ang:
+                local = np.array([radius * math.cos(a), s * length,
+                                  radius * math.sin(a)])
+                points.append(wp[j] + rot @ local)
+                up = 0.5 * max(0.0, 0.3 - s) / 0.3 if p != j else 0.0
+                down = 0.5 * max(0.0, s - 0.7) / 0.3 if c != j else 0.0
+                cp = len(points) - 1
+                for joint, w in ((j, 1.0 - up - down - 0.02), (p, up),
+                                 (c, down), (gp, 0.02)):
+                    if w > 0.0:
+                        weights[joint][cp] = weights[joint].get(cp, 0.0) + w
+        for r in range(rings - 1):
+            for k in range(segs):
+                a0 = base + r * segs + k
+                a1 = base + r * segs + (k + 1) % segs
+                b0, b1 = a0 + segs, a1 + segs
+                tris += [(a0, b0, a1), (a1, b0, b1)]
+        for end, s in ((0, 0.0), (rings - 1, 1.0)):
+            centre = len(points)
+            points.append(wp[j] + rot @ np.array([0.0, s * length, 0.0]))
+            weights[j][centre] = 1.0
+            ring0 = base + end * segs
+            for k in range(segs):
+                a0, a1 = ring0 + k, ring0 + (k + 1) % segs
+                tris.append((centre, a1, a0) if end == 0 else
+                            (centre, a0, a1))
+    clusters = [(j, sorted(w), [w[i] for i in sorted(w)])
+                for j, w in enumerate(weights) if w]
+    return np.asarray(points), np.asarray(tris, np.int32), clusters
+
+
+def _character_tracks():
+    """The walk-like clip: (rotation tracks {joint: (times, Euler degrees
+    (K, 3))}, translation tracks {0: (times, (K, 3))}).  Each track is the
+    bind Euler plus a swing of period CHARACTER_CLIP_SECONDS, so key 0 and
+    the last key agree and the clip loops."""
+    k = int(round(CHARACTER_CLIP_SECONDS * CHARACTER_FPS)) + 1
+    times = np.arange(k) / CHARACTER_FPS
+    ph = 2.0 * math.pi * times / CHARACTER_CLIP_SECONDS
+    swing = {   # joint: (axis, degrees, phase)
+        "left_upper_leg": (0, 28.0, 0.0), "right_upper_leg": (0, 28.0, math.pi),
+        "left_lower_leg": (0, -22.0, 0.5), "right_lower_leg": (0, -22.0, 0.5 + math.pi),
+        "left_upper_arm": (2, 18.0, math.pi), "right_upper_arm": (2, 18.0, 0.0),
+        "left_lower_arm": (1, 15.0, math.pi), "right_lower_arm": (1, 15.0, 0.0),
+        "pelvis": (1, 6.0, 0.0), "spine_2": (1, -8.0, 0.0),
+    }
+    rot = {}
+    for j, (name, _, _, euler) in enumerate(CHARACTER_JOINTS):
+        axis, deg, phase = swing.get(name, (j % 3, 3.0, 0.3 * j))
+        e = np.tile(np.asarray(euler, np.float64), (k, 1))
+        e[:, axis] += deg * np.sin(ph + phase)
+        rot[j] = (times, e)
+    root = np.tile(np.asarray(CHARACTER_JOINTS[0][2], np.float64), (k, 1))
+    root[:, 1] += 0.03 * np.sin(2.0 * ph)
+    return rot, {0: (times, root)}
+
+
+def write_character(path: str, coarse: bool = False):
+    """Write the generated character (mesh, skin, skeleton, clip) to a
+    binary FBX at `path` with the port's writer."""
+    from .assets.fbx import write_fbx_skinned
+
+    points, tris, clusters = _character_mesh(
+        CHARACTER_COARSE_GRID if coarse else CHARACTER_TUBE_GRID)
+    rot, pos = _character_tracks()
+    write_fbx_skinned(path, points, tris, CHARACTER_JOINTS, clusters, rot,
+                      fps=CHARACTER_FPS, anim_pos_tracks=pos)
+
+
+def load_character(coarse: bool = False):
+    """The character written to a temporary directory, read back through
+    the asynchronous loader and `load_fbx`: a `ModelAsset`."""
+    import tempfile
+
+    from .assets.async_loader import AsyncLoader
+    from .assets.fbx import load_fbx
+
+    loader = AsyncLoader(workers=1)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/character.fbx"
+            write_character(path, coarse)
+            return loader.submit(path, load_fbx).wait(timeout=600)
+    finally:
+        loader.shutdown()
+
+
+def placed_clip(clip, x: float, z: float, yaw: float):
+    """The loaded clip (host arrays) with its root turned by `yaw` radians
+    about +Y and moved to (x, z): one crowd member's clip."""
+    from .assets.loaders import LoadedClip
+    from .physics.builder import _quat_mul_np
+
+    q = np.array([0.0, math.sin(yaw / 2), 0.0, math.cos(yaw / 2)])
+    c, s = math.cos(yaw), math.sin(yaw)
+    pos = clip.positions.astype(np.float64).copy()
+    rots = clip.rotations.astype(np.float64).copy()
+    p0 = pos[0].copy()
+    pos[0, :, 0] = c * p0[:, 0] + s * p0[:, 2] + x
+    pos[0, :, 2] = -s * p0[:, 0] + c * p0[:, 2] + z
+    rots[0] = np.stack([_quat_mul_np(q, r) for r in rots[0]])
+    return LoadedClip(name=clip.name, positions=pos.astype(np.float32),
+                      rotations=rots.astype(np.float32), scales=clip.scales,
+                      duration=clip.duration, looping=clip.looping)
+
+
+def crowd_slots(crowd: int):
+    """(x, z) of each crowd member: CROWD_* rows, character 0 nearest
+    CROWD_HERO."""
+    cols = math.ceil(math.sqrt(crowd))
+    rows = math.ceil(crowd / cols)
+    slots = []
+    for i in range(crowd):
+        f = (i // cols) / max(rows - 1, 1)
+        fx = (i % cols + 0.5) / cols
+        slots.append((CROWD_CENTRE[0] + CROWD_CENTRE[1] * f
+                      + (CROWD_SPAN[0] - CROWD_SPAN[1] * f) * (2 * fx - 1),
+                      CROWD_FRONT - CROWD_DEPTH * f))
+    hero = min(range(crowd), key=lambda i: math.hypot(
+        slots[i][0] - CROWD_HERO[0], slots[i][1] - CROWD_HERO[1]))
+    return [slots[hero]] + slots[:hero] + slots[hero + 1:]
+
+
+class CharacterState:
+    """character_entry's carried state: the frame's temporal resources,
+    the raster primary's occlusion feedback and the clip time."""
+
+    def __init__(self, frame, tile_qmin, time: float):
+        self.frame, self.tile_qmin, self.time = frame, tile_qmin, time
+
+
+def character_entry(device="cuda", width: int = 1920, height: int = 1080,
+                    crowd: int = 16, seed: int = 0, coarse: bool = False):
+    """Skinned characters in the raster frame (the reference's animated
+    render split, renderAnimatedObjects, scene_rendering.cpp:548): the
+    atrium of `_atrium` as a rigid `InstancedScene` at identity poses, a
+    `metaballs_mesh` prop (resolution 32, generated on the CPU) as a second
+    rigid instance, and
+    `crowd` instances of the generated character (`load_character`: FBX
+    through the asynchronous loader) standing outside the atrium's south
+    wall facing the camera, each with its own clip phase and placement
+    (`placed_clip`), character 0 in its own material.  The sun's 3
+    cascades at `RASTER_SHADOW_RESOLUTION`^2 are rendered once from the
+    static atrium through kernel #3: the characters receive the sun's
+    shadow but cast none.  Phases and yaws come from a CPU generator
+    seeded `seed`; the frames' jitter from one on `device`.
+
+    Returns `(fn, state)`: `fn(state, profile_stages=False, jitter=None,
+    **overrides) -> (image, state, aux)` renders the frame at the state's
+    clip time and advances it by CHARACTER_FRAME_DT: `build_frame_bvh`
+    (the rigid rows, then every character's skinned rows), `render_frame`
+    with `RendererSettings(primary="raster", half_res_effects=True)` (no RT
+    reflections and no glass: a per-frame one-leaf shell over every row
+    would make each traced ray test them all) through the raster's group
+    path with last frame's `tile_qmin` fed back, then, on the tonemapped
+    frame, `draw_outlines` of character 0's material and `rasterize_lines`
+    of its bones.  `overrides` replace `render_frame`'s options for one
+    frame.  aux is `render_frame`'s plus "frame_ldr" (before the
+    overlays), "bvh" and "visits" (the raster's phase-1 and phase-2 visits
+    and dirty tiles).  `fn.skinned`, `fn.rigid`, `fn.rigid_pose`,
+    `fn.camera`, `fn.phases` (CPU), `fn.materials` and `fn.sky` hold the
+    set-up."""
+    from .animation.animation import forward_kinematics, sample_clip
+    from .render import mesh as mesh_mod
+    from .render import pathtracer as pt
+    from .render.debug_viz import draw_outlines, rasterize_lines
+    from .render.geometry_gen import metaballs_mesh
+    from .render.instances import build_instanced
+    from .render.pipeline import (RendererSettings, initial_frame_state,
+                                  render_frame)
+    from .render.skinned_instances import (build_frame_bvh, from_model_asset,
+                                           with_clip)
+
+    device = resolve_device(device)
+    meshes = mesh_mod.atrium_scene(1.4)
+    static, camera = _atrium(device, width, height, meshes)
+    maps = _sun_maps(static, camera, RASTER_SHADOW_RESOLUTION)
+    # The prop's mesh is host data: generated on the CPU, so that every
+    # device renders the same surface (a field rounded otherwise can flip
+    # a cell's crossing).
+    prop = metaballs_mesh(PROP_CENTERS, PROP_RADII, resolution=32,
+                          device="cpu")
+    rigid = build_instanced(list(meshes) + [(prop, PROP_MATERIAL)],
+                            range(len(meshes) + 1), device=device)
+    n_inst = len(meshes) + 1
+    rigid_pos = torch.zeros((n_inst, 3), device=device)
+    rigid_pos[-1] = torch.tensor(PROP_AT, device=device)
+    rigid_rot = torch.zeros((n_inst, 4), device=device)
+    rigid_rot[:, 3] = 1.0
+
+    asset = load_character(coarse)
+    base = from_model_asset(asset, material=CROWD_MATERIAL, device=device)
+    gen = torch.Generator().manual_seed(seed)
+    clip = asset.animations[0]
+    phases = torch.rand(crowd, generator=gen) * clip.duration
+    yaws = math.pi + (torch.rand(crowd, generator=gen) - 0.5) * 0.8
+    skinned = []
+    for i, (x, z) in enumerate(crowd_slots(crowd)):
+        placed = placed_clip(clip, x, z, float(yaws[i]))
+        skinned.append(with_clip(
+            base, placed.to_clip(device),
+            CHARACTER0_MATERIAL if i == 0 else CROWD_MATERIAL))
+    atrium_mats = static.materials
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    materials = pt.Materials(
+        albedo=torch.cat([atrium_mats.albedo, f32(CHARACTER_ALBEDO)]),
+        emissive=torch.cat([atrium_mats.emissive,
+                            torch.zeros((3, 3), device=device)]),
+        roughness=torch.cat([atrium_mats.roughness, f32(CHARACTER_ROUGHNESS)]),
+        metallic=torch.cat([atrium_mats.metallic,
+                            torch.zeros(3, device=device)]))
+    phases_dev = phases.to(device)
+    parents = [j[1] for j in CHARACTER_JOINTS]
+    bone_child = torch.tensor([j for j, p in enumerate(parents) if p >= 0],
+                              device=device)
+    bone_parent = torch.tensor([p for p in parents if p >= 0], device=device)
+    settings = RendererSettings(primary="raster", half_res_effects=True)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    sky = static.sky
+
+    @torch.inference_mode()
+    def fn(state, profile_stages: bool = False, jitter=None, **overrides):
+        if jitter is None:
+            jitter = torch.rand(2, generator=generator, device=device)
+        times = phases_dev + state.time
+        bvh = build_frame_bvh(rigid, rigid_pos, rigid_rot, skinned, times)
+        scene = pt.Scene(bvh=bvh, materials=materials,
+                         sky=sky).with_shading_table()
+        kw = {"shadow_maps": maps, "settings": settings, **overrides}
+        ldr, frame, aux = render_frame(
+            scene, camera, width, height, kw.pop("settings"),
+            frame_state=state.frame, prev_camera=camera, jitter=jitter,
+            profile_stages=profile_stages, binning="group",
+            tile_qmin=state.tile_qmin, **kw)
+        out = draw_outlines(ldr, aux["gbuffer"].object_id,
+                            CHARACTER0_MATERIAL)
+        first = skinned[0]
+        joints, _ = forward_kinematics(first.skeleton,
+                                       sample_clip(first.clip, times[0]))
+        out = rasterize_lines(out, torch.stack(
+            [joints[bone_parent], joints[bone_child]], 1), BONE_COLOR,
+            camera)
+        aux.update(frame_ldr=ldr, bvh=bvh, visits=aux["gbuffer"].visits)
+        return out, CharacterState(frame, aux["tile_qmin"],
+                                   state.time + CHARACTER_FRAME_DT), aux
+
+    fn.skinned, fn.rigid, fn.camera = skinned, rigid, camera
+    fn.phases, fn.materials, fn.sky = phases, materials, sky
+    fn.rigid_pose = (rigid_pos, rigid_rot)
+    return fn, CharacterState(initial_frame_state(width, height, device),
+                              None, 0.0)
+
+
+# character_ragdoll_entry: the drop's heights above the plane (lowest
+# capsule point) and spins (rad/s about each axis), per scene.
+RAGDOLL_DROP = (0.3, 2.0)
+RAGDOLL_SPIN = 2.0
+RAGDOLL_FRAME_RATE = 60
+
+
+def fitted_lowest(fitted, local_cog, pos, rot) -> float:
+    """The lowest point of a fitted ragdoll's capsules for one scene's
+    body centres of mass `pos` (N, 3) and rotations `rot` (N, 4) (CPU
+    tensors; `local_cog` the archetype's): each capsule's ends, less its
+    radius."""
+    from .core import maths as m
+
+    low = math.inf
+    for limb, body in fitted.bodies.items():
+        f = fitted.fits[limb]
+        origin = pos[body] - m.quat_rotate(rot[body], local_cog[body])
+        for y in (f.min_y, f.max_y):
+            end = origin + m.quat_rotate(rot[body], torch.tensor(
+                [f.x_off, y, f.z_off], dtype=torch.float32))
+            low = min(low, float(end[1]) - f.radius)
+    return low
+
+
+def character_ragdoll_entry(device="cuda", batch: int = 4096, seed: int = 0,
+                            coarse: bool = False):
+    """A physics ragdoll fitted from the generated character's skeleton and
+    skin (`models.ragdoll.from_fbx_asset`: 14 capsules, 4 hinges and 9
+    cone-twists in one no-collide group; reference animation.h:100-152)
+    over a static plane, `batch` copies, each lifted to its own drop
+    height in RAGDOLL_DROP and spun as one rigid body at up to
+    RAGDOLL_SPIN rad/s about each axis (a CPU generator seeded `seed`),
+    stepped with `physics_step` at RAGDOLL_FRAME_RATE Hz: one substep a
+    frame, the fused whole-substep kernel where the archetype is in its
+    family (kernel #2), else the unfused step with the colored solver.
+
+    Returns `(fn, (arch, state, fitted))`: `fn(state, steps=1) -> (state,
+    contacts)` advances every scene by `steps` frames of
+    1 / RAGDOLL_FRAME_RATE s."""
+    from .models.ragdoll import from_fbx_asset
+    from .physics.builder import SceneBuilder
+    from .physics.step import physics_step
+
+    device = resolve_device(device)
+    asset = load_character(coarse)
+    b = SceneBuilder()
+    b.add_static_plane((0.0, 1.0, 0.0), 0.0, friction=1.0)
+    fitted = from_fbx_asset(b, asset)
+    arch, state = b.finalize(device=device)
+    state = _batched(state, batch)
+    gen = torch.Generator().manual_seed(seed)
+    lift = RAGDOLL_DROP[0] + torch.rand(batch, generator=gen) * (
+        RAGDOLL_DROP[1] - RAGDOLL_DROP[0])
+    spin = (torch.rand((batch, 3), generator=gen) * 2 - 1) * RAGDOLL_SPIN
+    pos = state.pos.cpu()
+    lowest = fitted_lowest(fitted, arch.local_cog.cpu(), pos[0],
+                           state.rot[0].cpu())
+    pos[:, :, 1] += (lift - lowest)[:, None]
+    com = pos.mean(1, keepdim=True)
+    vel = torch.cross(spin[:, None, :].expand_as(pos), pos - com, dim=-1)
+    state = state.replace(pos=pos.to(device),
+                          vel=vel.to(device=device, dtype=torch.float32),
+                          omega=spin[:, None, :].expand_as(pos).to(
+                              device=device, dtype=torch.float32)
+                          .contiguous())
+    settings = PhysicsSettings(frame_rate=RAGDOLL_FRAME_RATE)
+
+    @torch.inference_mode()
+    def fn(state, steps: int = 1):
+        contacts = None
+        for _ in range(steps):
+            state, contacts = physics_step(arch, state, settings,
+                                           1.0 / RAGDOLL_FRAME_RATE)
+        return state, contacts
+
+    return fn, (arch, state, fitted)

@@ -25,15 +25,41 @@ Counterpart of ``d3d12renderer_tpu/ops/raster_pallas.py`` on its pair path
 * `closest_hit_raster`: `{t, tri, uv, hit, overflow, tile_qmin}`, t from q
   in closed form (`:838-847`).
 
-The group binning with two-phase occlusion feedback (`rasterize` `:733`,
-`closest_hit_raster(binning="group", tile_qmin=...)`) is not ported: it
-raises `NotImplementedError`.
+And on its group path (`closest_hit_raster(binning="group")` or
+`tile_qmin=`, `rasterize` `:733`):
+
+* `build_frame_tables` (`:212`): the planes in groups of GROUP (128)
+  consecutive rows, each group's screen rect and largest q;
+  `geometric_needed` (`:255`) the (tile, group) overlaps;
+  `visit_plan` (`:274`) each tile's visits sorted front to back by JAX's
+  quantised bound (`_visit_bits`, `q_up = ceil(qhi / scale)`), then by
+  group.  The list is sized from the frame's own count: no visit is
+  dropped (JAX keeps VISIT_CAP per tile), so `overflow` is 0.  Each visit
+  carries an exact bound (`visit_bounds`): the largest q its planes give
+  at a sample of the tile.  JAX's bound from the vertices is not one for
+  the float32 planes of small triangles (PERF.md's kernel table, row 5),
+  so its early-out and its feedback would drop pixels' winners.
+* `rasterize_groups` (kernel #5's group mode, `raster_groups` in
+  `csrc/raster.cu`; `rasterize_groups_plain` on CPU tensors): per tile the
+  visits in order, each skipped where the tile's least q is not below its
+  bound (JAX's early-out, on the exact bound), each testing only the
+  triangles the pair path bins to the tile (JAX tests all 128, so the
+  float32 plane of a sub-pixel triangle wins pixels outside its rect), the
+  largest q winning, the first in visit order on a tie: the pair path's
+  frame wherever the winner is unique.
+* `rasterize`: one pass, or with last frame's `tile_qmin` the two phases
+  of JAX's exact occlusion feedback: phase 1 runs the visits that the
+  feedback does not cull, and phase 2 re-rasterizes, from scratch, only
+  the tiles where a culled visit could still beat phase 1's least q.
+  The group branch's barycentrics are the winner's e / q at the sample,
+  as the pair path's (JAX's come from the dense rows, `:857-877`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Dict
 
 import torch
@@ -50,6 +76,12 @@ W_EPS = 1e-6
 BANDS = 2                # blocks per tile, one per row band
 # (tiles x pairs x pixels) elements per step of the plain version.
 PLAIN_BLOCK = 1 << 24
+# The group path: triangles per group (raster_pallas.py GROUP), JAX's
+# per-tile visit cap (the port keeps every visit; the tests compare with
+# JAX where JAX dropped none) and the occlusion feedback's margin.
+GROUP = 128
+VISIT_CAP = 128
+FB_MARGIN = 1.0 - 1e-5
 
 
 class RasterArgs(ctypes.Structure):
@@ -59,6 +91,16 @@ class RasterArgs(ctypes.Structure):
         "planes", "pair_tri", "seg", "jitter", "q_out", "tri_out", "u_out",
         "v_out", "stats")] + [(name, ctypes.c_int) for name in (
             "ntx", "n_tiles", "row_pixels")]
+
+
+class RasterGroupArgs(ctypes.Structure):
+    """raster.cu `RasterGroupArgs`."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "planes", "tri_tiles", "tiles", "seg", "group", "bound", "jitter",
+        "q_out",
+        "tri_out", "stats")] + [(name, ctypes.c_int) for name in (
+            "ntx", "n_blocks", "row_pixels")]
 
 
 # --------------------------------------------------------------------------
@@ -143,17 +185,13 @@ def project_planes(tri_v0, tri_e1, tri_e2, tri_valid, mat, attr, width: int,
     return planes, (x0, y0, x1, y1), q_tri
 
 
-def bin_pairs(rect, q_tri, width: int, height: int):
-    """Exact per-triangle tile binning at TILE_X x TILE_Y (width, height
-    multiples of the tile): (pair_tri (P,) int32, seg (n_tiles + 1,) int32),
-    the pairs of tile t being pair_tri[seg[t]:seg[t + 1]], front to back by
-    the quantised bound of `visit_plan_pairs`, then by triangle id.  Reads
-    the pair count P to the host."""
-    assert width % TILE_X == 0 and height % TILE_Y == 0, (width, height)
+def tile_ranges(rect, q_tri, width: int, height: int):
+    """Per triangle the tiles its rect overlaps, as `visit_plan_pairs`
+    bins them: the first tile column and row tx0, ty0, the column and row
+    counts cx, cy (int64, (T,) each) and `vis`, false for a triangle in no
+    tile."""
     x0, y0, x1, y1 = rect
     ntx, nty = width // TILE_X, height // TILE_Y
-    n_tiles = ntx * nty
-    dev = q_tri.device
 
     def tile_index(f, n):
         # NaN rects (degenerate triangles) fail `vis`; 0 keeps the cast
@@ -168,6 +206,20 @@ def bin_pairs(rect, q_tri, width: int, height: int):
            & (y0 < height))
     cx = torch.clamp(tx1 - tx0 + 1, min=1)
     cy = torch.clamp(ty1 - ty0 + 1, min=1)
+    return tx0, ty0, cx, cy, vis
+
+
+def bin_pairs(rect, q_tri, width: int, height: int):
+    """Exact per-triangle tile binning at TILE_X x TILE_Y (width, height
+    multiples of the tile): (pair_tri (P,) int32, seg (n_tiles + 1,) int32),
+    the pairs of tile t being pair_tri[seg[t]:seg[t + 1]], front to back by
+    the quantised bound of `visit_plan_pairs`, then by triangle id.  Reads
+    the pair count P to the host."""
+    assert width % TILE_X == 0 and height % TILE_Y == 0, (width, height)
+    ntx, nty = width // TILE_X, height // TILE_Y
+    n_tiles = ntx * nty
+    dev = q_tri.device
+    tx0, ty0, cx, cy, vis = tile_ranges(rect, q_tri, width, height)
     counts = torch.where(vis, cx * cy, 0)
 
     # Quantised front-to-back bound (visit_plan_pairs `:493-501`): qq
@@ -348,6 +400,401 @@ rasterize_tiles.launches = 0
 
 
 # --------------------------------------------------------------------------
+# The group path: tables, visit plan, kernel and plain version
+# --------------------------------------------------------------------------
+
+@dataclass
+class FrameTables:
+    """One frame's tables for the group path."""
+
+    planes: torch.Tensor   # (G * GROUP, 12) the plane rows, NaN padding rows
+    tri_tiles: torch.Tensor  # (G * GROUP, 4) int32 each row's tiles
+    #   tx0, ty0, tx1, ty1 (inclusive), those the pair path bins it to;
+    #   0, 0, -1, -1 for a row in no tile and for padding
+    rect: torch.Tensor     # (4, G) each group's screen rect x0, y0, x1, y1
+    qhi: torch.Tensor      # (G,) each group's largest q (+inf unbounded)
+    n_tris: int            # rows before the padding
+
+
+@dataclass
+class VisitPlan:
+    """Per launched tile its visits, front to back: block b runs tile
+    `tiles[b]` over visits `seg[b]:seg[b + 1]` of `group` / `bound`."""
+
+    tiles: torch.Tensor    # (L,) int32
+    seg: torch.Tensor      # (L + 1,) int32
+    group: torch.Tensor    # (V,) int32
+    bound: torch.Tensor    # (V,) f32, the largest q the visit can give
+    qq: torch.Tensor       # (V,) int64, JAX's quantised bound (the order)
+    visit_tile: torch.Tensor  # (V,) int64, each visit's tile
+    scale: torch.Tensor    # (1,) f32, JAX's dequantiser
+    q_bits: int
+    n_tiles: int
+
+    @property
+    def visits(self) -> int:
+        return int(self.group.shape[0])
+
+    def select(self, keep, tile_keep=None) -> "VisitPlan":
+        """The visits where `keep` (V,), in order, over all of this plan's
+        tiles, or only the tiles where `tile_keep` (n_tiles,) (this plan
+        must cover every tile then).  Reads the tile count to the host."""
+        dev = self.group.device
+        if tile_keep is None:
+            tiles = self.tiles.long()
+            slot_of = torch.full((self.n_tiles,), -1, dtype=torch.int64,
+                                 device=dev)
+            slot_of[tiles] = torch.arange(tiles.shape[0], device=dev)
+        else:
+            keep = keep & tile_keep[self.visit_tile]
+            tiles = torch.nonzero(tile_keep)[:, 0]
+            slot_of = torch.cumsum(tile_keep.long(), 0) - 1
+        idx = torch.nonzero(keep)[:, 0]
+        vt = self.visit_tile[idx]
+        seg = torch.zeros(tiles.shape[0] + 1, dtype=torch.int64, device=dev)
+        seg[1:] = torch.cumsum(torch.bincount(slot_of[vt],
+                                              minlength=tiles.shape[0]), 0)
+        return VisitPlan(tiles=tiles.to(torch.int32), seg=seg.to(torch.int32),
+                         group=self.group[idx], bound=self.bound[idx],
+                         qq=self.qq[idx], visit_tile=vt, scale=self.scale,
+                         q_bits=self.q_bits, n_tiles=self.n_tiles)
+
+
+def build_frame_tables(tri_v0, tri_e1, tri_e2, tri_valid, mat, attr,
+                       width: int, height: int) -> FrameTables:
+    """The planes of every triangle, padded with NaN rows to whole groups
+    of GROUP, each triangle's tiles (the pair path's), and each group's
+    screen rect and largest q (`:212`)."""
+    planes, (x0, y0, x1, y1), q_tri = project_planes(
+        tri_v0, tri_e1, tri_e2, tri_valid, mat, attr, width, height)
+    t = planes.shape[0]
+    pad = (-t) % GROUP
+    dev = planes.device
+    planes = torch.cat([planes, torch.full((pad, PLANE_COLS), torch.nan,
+                                           device=dev)])
+    tx0, ty0, cx, cy, vis = tile_ranges((x0, y0, x1, y1), q_tri, width,
+                                        height)
+    empty = torch.tensor([0, 0, -1, -1], device=dev)
+    tiles = torch.where(vis[:, None], torch.stack(
+        [tx0, ty0, tx0 + cx - 1, ty0 + cy - 1], 1), empty)
+    tiles = torch.cat([tiles, empty.expand(pad, 4)]).to(torch.int32)
+
+    def grouped(x, fill):
+        return torch.cat([x, torch.full((pad,), fill, device=dev)]).reshape(
+            -1, GROUP)
+
+    inf = torch.inf
+    rect = torch.stack([grouped(x0, inf).amin(1), grouped(y0, inf).amin(1),
+                        grouped(x1, -inf).amax(1), grouped(y1, -inf).amax(1)])
+    return FrameTables(planes=planes.contiguous(),
+                       tri_tiles=tiles.contiguous(), rect=rect,
+                       qhi=grouped(q_tri, -inf).amax(1), n_tris=t)
+
+
+def visit_bits(n_tiles: int, n_groups: int):
+    """JAX's visit word widths (`_visit_bits` `:247`): (tile, q, group)
+    bits.  The port keeps no such word, but its quantised bound has JAX's
+    q bits, so that the early-out skips the same visits."""
+    tile_bits = max(n_tiles - 1, 1).bit_length()
+    group_bits = max(n_groups - 1, 1).bit_length()
+    q_bits = 31 - tile_bits - group_bits
+    if q_bits < 6:
+        raise ValueError(f"{n_tiles} tiles and {n_groups} groups leave "
+                         f"{q_bits} bits of quantised bound (JAX needs 6)")
+    return tile_bits, q_bits, group_bits
+
+
+def geometric_needed(tables: FrameTables, width: int, height: int):
+    """(n_tiles, G) bool: the group's screen rect overlaps the tile and
+    its q bound is positive (`:255`); tiles in row-major tile order."""
+    ntx, nty = width // TILE_X, height // TILE_Y
+    dev = tables.qhi.device
+    tx0 = (torch.arange(ntx, dtype=torch.float32, device=dev)
+           * TILE_X).repeat(nty)[:, None]
+    ty0 = (torch.arange(nty, dtype=torch.float32, device=dev)
+           * TILE_Y).repeat_interleave(ntx)[:, None]
+    r = tables.rect
+    return ((r[0][None, :] < tx0 + TILE_X) & (r[2][None, :] > tx0)
+            & (r[1][None, :] < ty0 + TILE_Y) & (r[3][None, :] > ty0)
+            & (tables.qhi[None, :] > 0.0))
+
+
+def group_bounds(tables: FrameTables, q_bits: int):
+    """Each group's quantised bound qq (int64; 0 for an unbounded group)
+    and its dequantiser, as JAX computes them (`:296-301`): the visits'
+    front-to-back order."""
+    qhi = tables.qhi
+    qmax_q = (1 << q_bits) - 1
+    finite = torch.isfinite(qhi) & (qhi > 0)
+    scale = torch.clamp(torch.where(finite, qhi, 0.0).max(), min=1e-30) \
+        / torch.tensor(qmax_q - 1, dtype=torch.float32, device=qhi.device)
+    q_up = torch.ceil(qhi / scale)
+    qq = torch.where(torch.isfinite(qhi),
+                     torch.clamp(qmax_q - q_up, 1, qmax_q - 1), 0.0)
+    return qq.to(torch.int64), scale
+
+
+def visit_cover(tables: FrameTables, visit_tile, group, width: int):
+    """(V, GROUP) bool: the triangles of each (tile, group) visit that the
+    pair path bins to its tile (`tri_tiles`), the only ones the visit
+    tests.  The float32 plane of a sub-pixel triangle also covers samples
+    far outside its rect; testing it there would let it win pixels the
+    pair path never gives it."""
+    ntx = width // TILE_X
+    r = tables.tri_tiles.reshape(-1, GROUP, 4)[group.long()]
+    tx = (visit_tile % ntx)[:, None]
+    ty = (visit_tile // ntx)[:, None]
+    return ((r[..., 0] <= tx) & (tx <= r[..., 2]) & (r[..., 1] <= ty)
+            & (ty <= r[..., 3]))
+
+
+def visit_bounds(tables: FrameTables, visit_tile, group, jitter,
+                 width: int):
+    """(V,) the largest q each (tile, group) visit can give a sample of its
+    tile, exactly: per triangle of the visit (`visit_cover`) its plane's q
+    at the tile's corner sample that the signs of qx and qy pick (each
+    rounded operation is monotone in px and py, so no sample of the tile
+    gives more: the argument of the pair kernel's cull), the largest over
+    them; NaN planes and triangles not tested count -inf.  JAX's bound,
+    the vertices' largest q quantised up, is not one for the float32
+    planes of small triangles."""
+    ntx = width // TILE_X
+    qp = tables.planes.reshape(-1, GROUP, PLANE_COLS)[group.long()][..., 9:12]
+    tx0 = (visit_tile % ntx * TILE_X)[:, None]
+    ty0 = (visit_tile // ntx * TILE_Y)[:, None]
+    x = torch.where(qp[..., 0] >= 0, tx0 + TILE_X - 1, tx0).to(
+        torch.float32) + jitter[0]
+    y = torch.where(qp[..., 1] >= 0, ty0 + TILE_Y - 1, ty0).to(
+        torch.float32) + jitter[1]
+    q = (qp[..., 0] * x + qp[..., 1] * y) + qp[..., 2]
+    live = visit_cover(tables, visit_tile, group, width) & ~torch.isnan(q)
+    return torch.where(live, q, -torch.inf).amax(1)
+
+
+def visit_plan(tables: FrameTables, width: int, height: int, jitter,
+               needed=None, tiles=None) -> VisitPlan:
+    """The visits of `needed` ((n_tiles, G), default `geometric_needed`),
+    each tile's sorted by JAX's quantised bound qq ascending (its bound
+    descending), then by group, as JAX's visit words sort (`:274-331`),
+    each with its exact bound at `jitter` (`visit_bounds`); over every
+    tile, or the tiles `tiles`.  Every visit is kept (JAX caps a tile at
+    VISIT_CAP).  Reads the visit count to the host."""
+    ntx, nty = width // TILE_X, height // TILE_Y
+    n_tiles = ntx * nty
+    dev = tables.qhi.device
+    _, q_bits, _ = visit_bits(n_tiles, tables.qhi.shape[0])
+    qmax_q = (1 << q_bits) - 1
+    if needed is None:
+        needed = geometric_needed(tables, width, height)
+    qq_g, scale = group_bounds(tables, q_bits)
+    tile, grp = torch.nonzero(needed, as_tuple=True)      # one host read
+    order = torch.sort(tile * (qmax_q + 1) + qq_g[grp], stable=True).indices
+    tile, grp = tile[order], grp[order]
+    seg = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+    seg[1:] = torch.cumsum(torch.bincount(tile, minlength=n_tiles), 0)
+    plan = VisitPlan(
+        tiles=torch.arange(n_tiles, dtype=torch.int32, device=dev),
+        seg=seg.to(torch.int32), group=grp.to(torch.int32),
+        bound=visit_bounds(tables, tile, grp, jitter, width).contiguous(),
+        qq=qq_g[grp], visit_tile=tile, scale=scale.reshape(1),
+        q_bits=q_bits, n_tiles=n_tiles)
+    if tiles is None:
+        return plan
+    tile_keep = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+    tile_keep[tiles.long()] = True
+    return plan.select(torch.ones_like(tile, dtype=torch.bool), tile_keep)
+
+
+def _scatter_tiles(dst, tiles, x, ntx: int, width: int):
+    """Write tile-major (L, PX) values of `tiles` into a row-major image."""
+    r = torch.arange(PX, device=x.device)
+    t = tiles.long()[:, None]
+    idx = ((t // ntx) * TILE_Y + r // TILE_X) * width \
+        + (t % ntx) * TILE_X + r % TILE_X
+    dst[idx.reshape(-1)] = x.reshape(-1)
+
+
+def rasterize_groups_plain(tables: FrameTables, plan: VisitPlan, jitter,
+                           width: int, height: int, base=None):
+    """The group kernel's function as tensor ops, in its order: one visit
+    rank at a time across the launched tiles that have one (the early-out
+    reads each tile's least q before the visit), each visit testing the
+    triangles binned to its tile (`visit_cover`), the first largest q of a
+    visit winning and a visit replacing a pixel's best only with a larger
+    q.  (q, tri) row-major (height * width,); the pixels of tiles not
+    launched are `base`'s (default 0 and -1)."""
+    ntx = width // TILE_X
+    planes = tables.planes
+    dev = planes.device
+    n = width * height
+    if base is None:
+        q_out = torch.zeros(n, device=dev)
+        tri_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    else:
+        q_out, tri_out = base[0].clone(), base[1].clone()
+    n_launch = plan.tiles.shape[0]
+    if n_launch == 0:
+        return q_out, tri_out
+    seg = plan.seg.to(torch.int64)
+    counts = seg[1:] - seg[:-1]
+    counts_h = counts.cpu()
+    by_count = torch.sort(counts_h, descending=True, stable=True)
+    order = by_count.indices.to(dev)
+    chunk = max(1, PLAIN_BLOCK // (GROUP * PX))
+    px, py = _tile_pixels(ntx, int(plan.tiles.max()) + 1, jitter)
+    px, py = px[plan.tiles.long()], py[plan.tiles.long()]
+    best_q = torch.zeros((n_launch, PX), device=dev)
+    best_tri = torch.full((n_launch, PX), -1, dtype=torch.int32, device=dev)
+    rows_g = planes.reshape(-1, GROUP, PLANE_COLS)
+    cols = torch.arange(GROUP, device=dev)[None, :, None]
+    for k in range(int(by_count.values[0])):
+        live = order[:int((counts_h > k).sum())]
+        for c0 in range(0, live.shape[0], chunk):
+            slots = live[c0:c0 + chunk]
+            v = seg[slots] + k
+            g = plan.group[v].long()
+            run = best_q[slots].amin(1) < plan.bound[v]          # (A,)
+            cover = visit_cover(tables, plan.visit_tile[v], g, width)
+            rows = rows_g[g]                                     # (A, G, 12)
+            x, y = px[slots][:, None, :], py[slots][:, None, :]
+
+            def edge(c):
+                return ((rows[..., c, None] * x + rows[..., c + 1, None] * y)
+                        + rows[..., c + 2, None])
+
+            e0, e1, e2, q = edge(0), edge(3), edge(6), edge(9)
+            ok = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (q > 0)
+                  & (q < torch.inf) & cover[..., None])
+            qm = torch.where(ok, q, -1.0)
+            q_max = qm.max(dim=1).values                         # (A, PX)
+            first = torch.where(qm == q_max[:, None], cols, GROUP).min(
+                dim=1).values
+            better = run[:, None] & (q_max > best_q[slots])
+            best_q[slots] = torch.where(better, q_max, best_q[slots])
+            best_tri[slots] = torch.where(
+                better, (g[:, None] * GROUP + first).to(torch.int32),
+                best_tri[slots])
+    _scatter_tiles(q_out, plan.tiles, best_q, ntx, width)
+    _scatter_tiles(tri_out, plan.tiles, best_tri, ntx, width)
+    return q_out, tri_out
+
+
+def launch_groups(launch_fn, tables: FrameTables, plan: VisitPlan, jitter,
+                  width: int, height: int, base=None, stats=None):
+    """Checks the inputs, allocates the row-major outputs (q, tri) (copies
+    of `base`, or 0 and -1, where tiles are not launched), calls
+    `launch_fn(RasterGroupArgs*)` and raises if it reports an error.
+    `stats`, a (2,) int64 tensor, receives the visits run and skipped
+    (added to it)."""
+    planes = tables.planes
+    dev = planes.device
+    _check("planes", planes, torch.float32, PLANE_COLS, dev)
+    _check("tri_tiles", tables.tri_tiles, torch.int32, 4, dev)
+    for name in ("tiles", "seg", "group"):
+        _check(name, getattr(plan, name), torch.int32, None, dev)
+    _check("bound", plan.bound, torch.float32, None, dev)
+    _check("jitter", jitter, torch.float32, None, dev)
+    if stats is not None:
+        _check("stats", stats, torch.int64, None, dev)
+    ntx, nty = width // TILE_X, height // TILE_Y
+    n_launch = plan.tiles.shape[0]
+    if width % TILE_X or height % TILE_Y or planes.shape[0] % GROUP \
+            or tables.tri_tiles.shape[0] != planes.shape[0] \
+            or plan.seg.shape != (n_launch + 1,) \
+            or plan.bound.shape != plan.group.shape or jitter.shape != (2,) \
+            or (stats is not None and stats.shape != (2,)):
+        raise ValueError(f"bad group raster shapes: {width}x{height}, planes "
+                         f"{tuple(planes.shape)}, seg {tuple(plan.seg.shape)} "
+                         f"for {n_launch} tiles")
+    if planes.data_ptr() % 16:
+        raise ValueError("planes must be 16-byte aligned")
+    n = width * height
+    if base is None:
+        q = torch.zeros(n, dtype=torch.float32, device=dev)
+        tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    else:
+        q, tri = base[0].clone(), base[1].clone()
+    args = RasterGroupArgs(
+        planes.data_ptr(), tables.tri_tiles.data_ptr(), plan.tiles.data_ptr(),
+        plan.seg.data_ptr(),
+        plan.group.data_ptr(), plan.bound.data_ptr(), jitter.data_ptr(),
+        q.data_ptr(), tri.data_ptr(),
+        0 if stats is None else stats.data_ptr(), ntx, n_launch, width)
+    err = launch_fn(ctypes.byref(args))
+    if err != 0:
+        raise RuntimeError(f"group raster kernel launch failed: error {err}")
+    return q, tri
+
+
+def rasterize_groups(tables: FrameTables, plan: VisitPlan, jitter,
+                     width: int, height: int, base=None, stats=None):
+    """Kernel #5's group mode on CUDA tensors, the plain version on CPU
+    tensors: (q, tri) row-major (height * width,).  Counts its launches in
+    `rasterize_groups.launches` (a repair phase without a dirty tile
+    launches nothing); `base` / `stats`: see `launch_groups`."""
+    if not tables.planes.is_cuda:
+        return rasterize_groups_plain(tables, plan, jitter, width, height,
+                                      base)
+    if plan.tiles.numel() == 0 and base is not None:   # nothing to launch
+        return base[0].clone(), base[1].clone()
+    out = launch_groups(launcher("raster_groups_launch",
+                                 tables.planes.device),
+                        tables, plan, jitter, width, height, base, stats)
+    rasterize_groups.launches += 1
+    return out
+
+
+rasterize_groups.launches = 0
+
+
+def tile_min(q, width: int, height: int):
+    """(n_tiles,) each tile's least q of a row-major (height * width,)
+    image, tiles in row-major tile order (JAX's `tile_qmin`)."""
+    return q.reshape(height // TILE_Y, TILE_Y, width // TILE_X, TILE_X).amin(
+        dim=(1, 3)).reshape(-1)
+
+
+def rasterize(tables: FrameTables, width: int, height: int, jitter,
+              tile_qmin=None):
+    """The group path over `tables` at width x height (tile multiples):
+    (q, tri, overflow, tile_qmin_out, visits), q / tri row-major.
+
+    With last frame's `tile_qmin`, JAX's two phases (`:733-808`), on the
+    visits' exact bounds where JAX reads its groups' vertex bounds: phase
+    1 runs the visits whose bound is above the feedback (times
+    FB_MARGIN); a tile is dirty where a culled visit's bound is above
+    phase 1's least q (times FB_MARGIN); phase 2 rasterizes only the dirty
+    tiles anew over the visits whose bound is above that least q, and
+    their pixels replace phase 1's.  With exact bounds the result is the
+    run without feedback's, bit for bit.  `visits`: the visits of phase 1
+    and phase 2 and the dirty tiles.
+
+    The feedback is JAX's contract, kept as such: the visits it culls are
+    those the kernel's early-out skips anyway, and on the character crowd
+    at 1080p a frame with it takes as long as one without (PERF.md)."""
+    plan = visit_plan(tables, width, height, jitter)
+    zero = torch.zeros((), dtype=torch.int64, device=tables.qhi.device)
+    if tile_qmin is None:
+        q, tri = rasterize_groups(tables, plan, jitter, width, height)
+        return (q, tri, zero, tile_min(q, width, height),
+                {"phase1": plan.visits, "phase2": 0, "dirty": 0})
+    margin = m.constant((FB_MARGIN,), torch.float32, tables.qhi.device)
+    vt = plan.visit_tile
+    cull1 = plan.bound <= tile_qmin[vt] * margin
+    plan1 = plan.select(~cull1)
+    q1, tri1 = rasterize_groups(tables, plan1, jitter, width, height)
+    above = plan.bound > (tile_min(q1, width, height) * margin)[vt]
+    dirty = torch.zeros(plan.n_tiles, dtype=torch.bool, device=vt.device)
+    dirty[vt[cull1 & above]] = True
+    plan2 = plan.select(above, tile_keep=dirty)
+    q, tri = rasterize_groups(tables, plan2, jitter, width, height,
+                              base=(q1, tri1))
+    return (q, tri, zero, tile_min(q, width, height),
+            {"phase1": plan1.visits, "phase2": plan2.visits,
+             "dirty": int(plan2.tiles.shape[0])})
+
+
+# --------------------------------------------------------------------------
 # The query
 # --------------------------------------------------------------------------
 
@@ -357,17 +804,19 @@ def closest_hit_raster(bvh, camera, width: int, height: int, jitter=None,
     """Primary visibility of `camera` at width x height, sampled at pixel +
     `jitter` ((2,), default the pixel centres): the contract of
     `bvh.closest_hit` over `generate_rays(offset=jitter)` rays, row-major:
-    t (+inf on a miss), tri (-1), uv (0) and hit, plus `overflow` (pairs
-    dropped: always 0), `tile_qmin` (each padded tile's least q) and
-    `pairs` (the frame's (tile, triangle) pair count).  Only JAX's
-    `binning="tri"` is ported; the group binning and its occlusion feedback
-    (`tile_qmin=`, last frame's `tile_qmin`) raise."""
+    t (+inf on a miss), tri (-1), uv (0) and hit, plus `overflow` (always
+    0: nothing is dropped) and `tile_qmin` (each padded tile's least q, the
+    next frame's occlusion feedback).
+
+    `binning="tri"` (JAX's default) bins each triangle's own rect: adds
+    `pairs` (the frame's (tile, triangle) pairs).  `binning="group"`, or
+    any `tile_qmin=` (last frame's `tile_qmin`), takes the group path with
+    its two-phase occlusion feedback: adds `visits` (`rasterize`'s); the
+    barycentrics are the winner's e1 / q and e2 / q at the sample, as the
+    pair path's (JAX's group branch takes them from the dense rows at the
+    hit point, which float32's t puts off small far triangles)."""
     if binning not in ("tri", "group"):
         raise ValueError(f"unknown binning {binning!r}")
-    if binning == "group" or tile_qmin is not None:
-        raise NotImplementedError(
-            "the group binning and its tile_qmin occlusion feedback are not "
-            "ported to the PyTorch rasterizer yet (ROADMAP.md, Queue 2)")
     dev = bvh.tri_v0.device
     if jitter is None:
         jitter = (0.5, 0.5)
@@ -377,17 +826,27 @@ def closest_hit_raster(bvh, camera, width: int, height: int, jitter=None,
     # The projection maps to UNPADDED pixel coordinates (as generate_rays);
     # the padding tiles extrapolate the linear edge functions.
     mat, attr = perspective_rows(camera, width, height)
-    planes, rect, q_tri = project_planes(bvh.tri_v0, bvh.tri_e1, bvh.tri_e2,
-                                         bvh.tri_valid, mat, attr, wp, hp)
-    pair_tri, seg = bin_pairs(rect, q_tri, wp, hp)
-    q, tri, u, v = rasterize_tiles(planes, pair_tri, seg, jit2, wp, hp)
-    tile_qmin = q.reshape(hp // TILE_Y, TILE_Y, wp // TILE_X, TILE_X).amin(
-        dim=(1, 3)).reshape(-1)
+    group = binning == "group" or tile_qmin is not None
+    if group:
+        tables = build_frame_tables(bvh.tri_v0, bvh.tri_e1, bvh.tri_e2,
+                                    bvh.tri_valid, mat, attr, wp, hp)
+        q, tri, overflow, qmin_out, visits = rasterize(
+            tables, wp, hp, jit2, tile_qmin=tile_qmin)
+        extra = {"visits": visits}
+    else:
+        planes, rect, q_tri = project_planes(bvh.tri_v0, bvh.tri_e1,
+                                             bvh.tri_e2, bvh.tri_valid, mat,
+                                             attr, wp, hp)
+        pair_tri, seg = bin_pairs(rect, q_tri, wp, hp)
+        q, tri, u, v = rasterize_tiles(planes, pair_tri, seg, jit2, wp, hp)
+        qmin_out = tile_min(q, wp, hp)
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
+        extra = {"pairs": int(pair_tri.shape[0])}
 
     def crop(x):
         return x.reshape(hp, wp)[:height, :width].reshape(-1)
 
-    q, tri, u, v = crop(q), crop(tri), crop(u), crop(v)
+    q, tri = crop(q), crop(tri)
     hit = tri >= 0
     # t from q = 1/w in closed form: the unit ray through the sample has
     # view-space -z component w / t, so t = |dir_cam| w.
@@ -398,7 +857,22 @@ def closest_hit_raster(bvh, camera, width: int, height: int, jitter=None,
     ndc_y = (1.0 - y / height * 2.0) * th
     norm = torch.sqrt(1.0 + ndc_x[None, :] ** 2 + ndc_y[:, None] ** 2).reshape(-1)
     t = torch.where(hit, norm / torch.clamp(q, min=1e-30), torch.inf)
+    if group:
+        # The winner's perspective-correct barycentrics at the sample, from
+        # its plane rows, as the pair kernel computes them (the same bits
+        # where both paths pick the same triangle).  JAX's group branch
+        # (`:857-877`) takes them from the dense rows at o + t d instead:
+        # t comes from q, whose float32 plane is off by up to ~1e-3 of a
+        # small far triangle's depth, and that point lies off the triangle
+        # by up to its size.
+        rows = tables.planes[torch.clamp(tri, min=0).long()]
+        px = x[None, :].expand(height, width).reshape(-1)
+        py = y[:, None].expand(height, width).reshape(-1)
+        qs = torch.clamp(q, min=1e-30)
+        u = ((rows[:, 3] * px + rows[:, 4] * py) + rows[:, 5]) / qs
+        v = ((rows[:, 6] * px + rows[:, 7] * py) + rows[:, 8]) / qs
+    else:
+        u, v = crop(u), crop(v)
     uv = torch.where(hit[:, None], torch.stack([u, v], -1), 0.0)
-    return {"t": t, "tri": tri, "uv": uv, "hit": hit,
-            "overflow": torch.zeros((), dtype=torch.int64, device=dev),
-            "tile_qmin": tile_qmin, "pairs": int(pair_tri.shape[0])}
+    return {"t": t, "tri": tri, "uv": uv, "hit": hit, "overflow": overflow,
+            "tile_qmin": qmin_out, **extra}

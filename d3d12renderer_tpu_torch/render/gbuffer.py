@@ -35,10 +35,15 @@ class GBuffer:
     object_id: torch.Tensor    # (H, W) int32 material id, -1 on sky
     motion: torch.Tensor       # (H, W, 2) pixel offset to the previous frame
     hit: torch.Tensor          # (H, W) bool
-    # The raster primary's pairs dropped (always 0) and pair count; None for
-    # the ray primary.
+    # The raster primary's pairs dropped (always 0) and pair count (binning
+    # "tri"); None for the ray primary.
     overflow: Optional[torch.Tensor] = None
     pairs: Optional[int] = None
+    # Not fields (the JAX package's G-buffer has neither): the raster
+    # primary's group-path visits and each tile's least q (the next
+    # frame's occlusion feedback), set by `render_gbuffer`.
+    visits = None
+    tile_qmin = None
 
 
 def world_to_view(camera: Camera, p):
@@ -55,14 +60,18 @@ def view_to_pixel(camera: Camera, v, width: int, height: int):
 
 def render_gbuffer(scene, camera: Camera, width: int, height: int,
                    prev_camera: Optional[Camera] = None, jitter=None,
-                   sampler=None, primary: str = "ray") -> GBuffer:
+                   sampler=None, primary: str = "ray", binning: str = "tri",
+                   tile_qmin=None) -> GBuffer:
     """primary="raster": the tile rasterizer sampled at pixel + `jitter`
-    ((2,), default the pixel centres).  primary="ray": rays through pixel +
-    a per-pixel (H, W, 2) draw of `sampler` (pixel centres without one).
-    Motion vectors against `prev_camera` (zero without one)."""
+    ((2,), default the pixel centres), with `binning` and `tile_qmin` (last
+    frame's, the group path's occlusion feedback) as
+    `raster.closest_hit_raster` takes them.  primary="ray": rays through
+    pixel + a per-pixel (H, W, 2) draw of `sampler` (pixel centres without
+    one).  Motion vectors against `prev_camera` (zero without one)."""
     if primary == "raster":
         res = raster.closest_hit_raster(scene.bvh, camera, width, height,
-                                        jitter=jitter)
+                                        jitter=jitter, binning=binning,
+                                        tile_qmin=tile_qmin)
         o, d = generate_rays(camera, width, height,
                              offset=(0.5, 0.5) if jitter is None else jitter)
     elif primary == "ray":
@@ -92,7 +101,7 @@ def render_gbuffer(scene, camera: Camera, width: int, height: int,
     def img(x, ch=None):
         return x.reshape((height, width) if ch is None else (height, width, ch))
 
-    return GBuffer(
+    gb = GBuffer(
         depth=img(torch.where(hit, -vp[:, 2], torch.inf)),
         world_pos=img(wp, 3),
         view_pos=img(vp, 3),
@@ -107,3 +116,5 @@ def render_gbuffer(scene, camera: Camera, width: int, height: int,
         hit=img(hit),
         overflow=res.get("overflow"),
         pairs=res.get("pairs"))
+    gb.visits, gb.tile_qmin = res.get("visits"), res.get("tile_qmin")
+    return gb

@@ -333,7 +333,8 @@ def render_frame(scene: Scene, camera: Camera, width: int, height: int,
                  spot_shadow_maps=None, point_shadow_maps=None,
                  probe_grid=None, transparent_objects=None, decals=None,
                  water_height=None, time: float = 0.0,
-                 profile_stages: bool = False):
+                 profile_stages: bool = False, binning: str = "tri",
+                 tile_qmin=None):
     """One rasterized-mode frame: (ldr (H, W, 3) in [0, 1], new frame
     state (None without one), aux).
 
@@ -345,7 +346,11 @@ def render_frame(scene: Scene, camera: Camera, width: int, height: int,
     (with `spot_shadow_maps` likewise), `probe_grid` (its irradiance as the
     ambient term), `decals`, `transparent_objects`, `water_height` (the
     water plane, its waves at `time` seconds), and the settings'
-    `enable_sss` / `enable_rt_reflections`.  aux holds "ao", "shadow",
+    `enable_sss` / `enable_rt_reflections`.  The raster primary takes
+    `binning` and `tile_qmin` (`raster.closest_hit_raster`'s: "group", or
+    last frame's `aux["tile_qmin"]` for the group path's occlusion
+    feedback).  aux holds "tile_qmin" (the raster primary's; None for the
+    ray primary), "ao", "shadow",
     "gbuffer", "ambient", "hdr" (pre-tonemap), "ssr_confidence" and
     "rt_reflections" where SSR / RT reflections ran and, with
     `profile_stages`, "stage_ms" (one synchronize at the end of the
@@ -354,7 +359,8 @@ def render_frame(scene: Scene, camera: Camera, width: int, height: int,
     clock.mark("start")
     gb = render_gbuffer(scene, camera, width, height, prev_camera=prev_camera,
                         jitter=jitter, sampler=sampler,
-                        primary=settings.primary)
+                        primary=settings.primary, binning=binning,
+                        tile_qmin=tile_qmin)
     if decals is not None:
         from .decals import apply_decals
 
@@ -380,7 +386,7 @@ def render_frame(scene: Scene, camera: Camera, width: int, height: int,
     ldr = _post(color, settings)
     clock.mark("post")
     aux = {"ao": ao, "shadow": lit, "gbuffer": gb, "ambient": ambient,
-           "hdr": color}
+           "hdr": color, "tile_qmin": gb.tile_qmin}
     if conf is not None:
         aux["ssr_confidence"] = conf
     if rt_refl is not None:

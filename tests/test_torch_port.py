@@ -32,6 +32,11 @@ def test_import_leaves_jax_out():
         "import d3d12renderer_tpu_torch.entry, d3d12renderer_tpu_torch.convert\n"
         "import d3d12renderer_tpu_torch.render.pipeline\n"
         "from d3d12renderer_tpu_torch.physics import solver_cuda\n"
+        "from d3d12renderer_tpu_torch.assets import fbx, async_loader, native\n"
+        "from d3d12renderer_tpu_torch.animation import animation, skinning\n"
+        "from d3d12renderer_tpu_torch.render import (skinned_instances,\n"
+        "    debug_viz, geometry_gen)\n"
+        "from d3d12renderer_tpu_torch.models import ragdoll\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'd3d12renderer_tpu')]\n"
         "print(bad)\n")
@@ -231,7 +236,10 @@ def _entry_points():
     from d3d12renderer_tpu_torch.render import bvh, camera, decals, lights
     from d3d12renderer_tpu_torch.render import light_probe, mesh, pathtracer
     from d3d12renderer_tpu_torch.render import instances, pipeline, resources
-    from d3d12renderer_tpu_torch.render import shadows
+    from d3d12renderer_tpu_torch.render import (geometry_gen, shadows,
+                                                skinned_instances)
+    from d3d12renderer_tpu_torch.animation import animation
+    import numpy as np
 
     arch = lambda: LocoEnv(device="cpu").arch  # noqa: E731
     return {
@@ -242,6 +250,14 @@ def _entry_points():
                                   lambda f: f()),
         "raster_lights_entry": (entry.raster_lights_entry, lambda f: f()),
         "showcase_world_entry": (entry.showcase_world_entry, lambda f: f()),
+        "character_entry": (entry.character_entry, lambda f: f()),
+        "character_ragdoll_entry": (entry.character_ragdoll_entry,
+                                    lambda f: f()),
+        "from_model_asset": (skinned_instances.from_model_asset, None),
+        "make_skeleton": (animation.make_skeleton,
+                          lambda f: f([-1], np.zeros((1, 3)))),
+        "metaballs_mesh": (geometry_gen.metaballs_mesh,
+                           lambda f: f([[0, 0, 0]], [0.5], 8)),
         "default_white": (resources.default_white, lambda f: f()),
         "brdf_lookup": (resources.brdf_lookup, lambda f: f()),
         "build_instanced": (instances.build_instanced, lambda f: f(
@@ -466,6 +482,44 @@ def test_raster_kernel_matches_plain_on_cuda():
     tested, culled = stats.tolist()
     assert tested + culled == raster.BANDS * args[1].shape[0]
     assert 0 < tested < culled
+
+
+@pytest.mark.cuda
+def test_raster_group_kernel_matches_plain_on_cuda():
+    """The group mode of the raster kernel against its plain version over
+    the atrium at 1080p: every tile, then the repair phase of a garbage
+    feedback (a subset of tiles over phase 1's image); q and tri equal bit
+    for bit, one launch each, the counters adding up to the visits."""
+    _need_cuda()
+    import math
+
+    from d3d12renderer_tpu_torch.ops import raster
+    from d3d12renderer_tpu_torch.render import bvh, camera, mesh
+
+    tb = bvh.build_bvh(mesh.atrium_scene(1.4), device="cuda")
+    cam = camera.look_at((8.0, 6.0, -14.0), (0.0, 3.0, 0.0), device="cuda",
+                         v_fov=math.radians(60), aspect=1920 / 1080)
+    mat, attr = raster.perspective_rows(cam, 1920, 1080)
+    tables = raster.build_frame_tables(tb.tri_v0, tb.tri_e1, tb.tri_e2,
+                                       tb.tri_valid, mat, attr, 1920, 1088)
+    jit = torch.tensor([0.3, 0.7], device="cuda")
+    plan = raster.visit_plan(tables, 1920, 1088, jit)
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    before = raster.rasterize_groups.launches
+    got = raster.rasterize_groups(tables, plan, jit, 1920, 1088,
+                                  stats=stats)
+    assert raster.rasterize_groups.launches == before + 1
+    want = raster.rasterize_groups_plain(tables, plan, jit, 1920,
+                                         1088)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(stats.sum()) == plan.visits
+    sub = raster.visit_plan(tables, 1920, 1088, jit,
+                            tiles=plan.tiles[::3].clone())
+    got = raster.rasterize_groups(tables, sub, jit, 1920, 1088,
+                                  base=want)
+    want = raster.rasterize_groups_plain(tables, sub, jit, 1920, 1088,
+                                         base=want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

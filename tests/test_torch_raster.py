@@ -600,18 +600,25 @@ def test_wrapper_takes_the_plain_version_on_cpu(scenes):
 
 
 @pytest.mark.parametrize("kw,error", [
-    ({"binning": "group"}, NotImplementedError),
-    ({"tile_qmin": torch.zeros(6)}, NotImplementedError),
-    ({"binning": "tri", "tile_qmin": torch.zeros(6)}, NotImplementedError),
+    ({"binning": "group"}, None),
+    ({"tile_qmin": torch.zeros(6)}, None),
+    ({"binning": "tri", "tile_qmin": torch.zeros(6)}, None),
     ({"binning": "cluster"}, ValueError)])
 def test_unported_binning_raises(scenes, kw, error):
-    """JAX's `binning=` and `tile_qmin=` keywords: "tri" is the port's
-    path; the group binning and its occlusion feedback raise
-    NotImplementedError naming the roadmap, not a TypeError."""
+    """JAX's `binning=` and `tile_qmin=` keywords: "tri" is the pair path;
+    "group", or any `tile_qmin` (JAX's routing, raster_pallas.py:812),
+    takes the group path with its occlusion feedback, whose hits equal the
+    pair path's (tests/test_torch_raster_group.py holds it against JAX);
+    an unknown binning raises ValueError."""
     _, tb = scenes["demo"]
     cam = convert.camera_from_numpy(_camera("demo"), "cpu")
-    with pytest.raises(error, match="ROADMAP" if error is
-                       NotImplementedError else "binning"):
-        raster.closest_hit_raster(tb, cam, 128, 96, **kw)
-    got = raster.closest_hit_raster(tb, cam, 128, 96, binning="tri")
-    assert got["hit"].any()
+    tri = raster.closest_hit_raster(tb, cam, 128, 96, binning="tri")
+    assert tri["hit"].any() and "pairs" in tri
+    if error is not None:
+        with pytest.raises(error, match="binning"):
+            raster.closest_hit_raster(tb, cam, 128, 96, **kw)
+        return
+    got = raster.closest_hit_raster(tb, cam, 128, 96, **kw)
+    assert "visits" in got and int(got["overflow"]) == 0
+    assert torch.equal(got["hit"], tri["hit"]) and torch.equal(got["t"],
+                                                              tri["t"])
