@@ -69,9 +69,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 BATCH = 4096
@@ -336,6 +338,27 @@ CHAR_SLICE_CROWD = 4
 CHAR_DROP_BATCH, CHAR_DROP_FRAMES = 4096, 120
 CHAR_FLOOR, CHAR_BOUND = -0.5, 10.0
 CHAR_STALE_EYE, CHAR_STALE_TARGET = (-6.0, 4.0, -17.0), (-2.0, 1.0, -9.0)
+# The world's audio (showcase_world_entry(audio=...), examples/showcase.py
+# --audio): the streamed WAV within AUDIO_TOL of the mixdown's, sample for
+# sample (tests/test_audio_stream.py:37's bound), after PCM16 on both.
+AUDIO_TOL = 1e-4
+# The editor phase: editor_entry at tools/scene_viewer.py's defaults (size
+# 256, 4 views, spp 6, recursion 2) with EDITOR_PLAY_FRAMES play frames
+# (each rendered at one sample, as tests/test_scene_viewer.py's session).
+# Its panels against a CPU run of the same functions at
+# tests/test_torch_pipeline.py's G-buffer bounds (hit and object id differ
+# on at most EDITOR_EDGE_SHARE of the pixels; normals and depth within
+# EDITOR_FIELD_TOL relative on all but EDITOR_EDGE_SHARE of the pixels both
+# hit alike) and its frame bounds for AO (SLICE_PIXEL_TOL on SLICE_SHARE of
+# the pixels, mean below RASTER_MEAN_TOL).  Every dynamic body's lowest
+# collider point at least EDITOR_FLOOR above the plane after play; one play
+# frame through the kernel against the plain solve at the physics tests'
+# bars (pos/rot 5e-6, vel 5e-5, omega 5e-4).
+EDITOR_SIZE, EDITOR_PLAY_FRAMES = 256, 120
+EDITOR_EDGE_SHARE = 2e-3
+EDITOR_FIELD_TOL = 1e-4
+EDITOR_FLOOR = -0.02
+EDITOR_BARS = {"pos": 5e-6, "rot": 5e-6, "vel": 5e-5, "omega": 5e-4}
 TRAIN_ENVS, TRAIN_ROLLOUT = 4096, 32
 TRAIN_ITERS = 3
 EVAL_SIZE, EVAL_SPP = 256, 8
@@ -2981,11 +3004,15 @@ def showcase_world(card, cuda_ms):
                 "tonemap": image.tonemap, "blur": image.gaussian_blur}
     t_phase = time.perf_counter()
 
-    # The main path: set-up, a warm frame, the timed frames.
+    # The main path: set-up (the drop with collision events and its audio
+    # mix, as examples/showcase.py --audio), a warm frame, the timed frames.
+    audio_dir = tempfile.TemporaryDirectory()
+    wav = os.path.join(audio_dir.name, "showcase.wav")
     for k in wrappers.values():
         k.launches = 0
     t0 = time.perf_counter()
-    fn, state = showcase_world_entry(device=dev, width=OPT_W, height=OPT_H)
+    fn, state = showcase_world_entry(device=dev, width=OPT_W, height=OPT_H,
+                                     audio=wav)
     sync()
     setup_s = time.perf_counter() - t0
     setup = {n: k.launches for n, k in wrappers.items()}
@@ -3082,6 +3109,7 @@ def showcase_world(card, cuda_ms):
     if sky_px < OPT_MIN_PIXELS or splat_px < OPT_MIN_PIXELS:
         fail(f"showcase world: the sky changed {sky_px} and the splat "
              f"{splat_px} pixels")
+    world_audio(fn.audio, audio_dir)
 
     # Kernels #1, #3, #4 and #5 at this path's shapes against their plain
     # versions (these launches are not counted).
@@ -3183,6 +3211,311 @@ def showcase_world(card, cuda_ms):
           f"{time.perf_counter() - t_slice:.1f} s; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"launches": counts, "errs": errs}
+
+
+def _read_wav(path):
+    """(frames, channels) float32 of a PCM16 WAV, and its rate."""
+    import wave
+
+    import numpy as np
+
+    with wave.open(path, "rb") as w:
+        rate, ch = w.getframerate(), w.getnchannels()
+        raw = w.readframes(w.getnframes())
+    return (np.frombuffer(raw, np.int16).astype(np.float32).reshape(-1, ch)
+            / 32767.0, rate)
+
+
+def world_audio(sound, audio_dir):
+    """The world's audio: impacts from the drop's collision-begin events
+    (kernel #1's frames), the mixdown's WAV of frames / 60 + 0.5 s, and the
+    same timeline (a new engine: a synth voice renders once) streamed block
+    by block into a WAV equal to it within AUDIO_TOL."""
+    from d3d12renderer_tpu_torch.audio.stream import stream_to_wav
+    from d3d12renderer_tpu_torch.models.world import impact_engine
+
+    t0 = time.perf_counter()
+    impacts, seconds = sound["impacts"], sound["seconds"]
+    mixed, rate = _read_wav(sound["path"])
+    streamed_path = os.path.join(audio_dir.name, "streamed.wav")
+    stats = stream_to_wav(impact_engine(impacts), seconds, streamed_path)
+    streamed, _ = _read_wav(streamed_path)
+    err = float(abs(streamed - mixed).max()) if streamed.shape == \
+        mixed.shape else math.inf
+    audio_dir.cleanup()
+    speeds = [s for _, _, s in impacts]
+    print(f"showcase world audio: {len(impacts)} impacts (begin events "
+          f"faster than {IMPACT_SPEED} m/s, "
+          f"{min(speeds, default=0):.3f}-{max(speeds, default=0):.3f} m/s, "
+          f"first at {impacts[0][0] if impacts else -1:.3f} s) -> WAV "
+          f"{mixed.shape[0] / rate:.3f} s at {rate} Hz, peak "
+          f"{float(abs(mixed).max()):.4f}; streamed in {stats['blocks']} "
+          f"blocks, max |stream - mixdown| {err:.3e} (bound {AUDIO_TOL}) | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not impacts:
+        fail("showcase world audio: the drop made no impact")
+    if mixed.shape[0] != int(round(seconds * rate)) or not \
+            float(abs(mixed).max()) > 0:
+        fail(f"showcase world audio: the WAV holds {mixed.shape[0]} frames "
+             f"for {seconds} s, peak {float(abs(mixed).max())}")
+    if not err <= AUDIO_TOL:
+        fail(f"showcase world audio: the streamed WAV differs from the "
+             f"mixdown by {err}")
+
+
+def _lowest_points(scene, physics):
+    """Each dynamic body's lowest collider point (y) from /physics'
+    positions and the bodies' rotations."""
+    import numpy as np
+
+    low = {}
+    rot = physics["rot"]
+    for ent, (rb,) in scene.view("rigid_body"):
+        if rb.kinematic:
+            continue
+        row = physics["bodies"][str(ent.id)]
+        p = np.asarray(row["position"], np.float64)
+        x, y, z, w = rot[str(ent.id)]
+        r = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                       2 * (x * z + w * y)],
+                      [2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                       2 * (y * z - w * x)],
+                      [2 * (x * z - w * y), 2 * (y * z + w * x),
+                       1 - 2 * (x * x + y * y)]])
+        ys = []
+        for col in ent.get("collider"):
+            c = p + r @ np.asarray(col.center, np.float64)
+            if col.shape == "sphere":
+                ys.append(c[1] - col.size[0])
+            elif col.shape == "box":
+                h = np.asarray(col.size, np.float64)
+                corners = np.array([[sx, sy, sz] for sx in (-1, 1)
+                                    for sy in (-1, 1) for sz in (-1, 1)]) * h
+                ys.append(float((c + corners @ r.T)[:, 1].min()))
+            else:
+                fail(f"editor: no lowest-point rule for {col.shape}")
+        low[ent.name] = min(ys)
+    return low
+
+
+def editor_cpu_panels(size):
+    """The editor's first view's panels on the CPU: the demo scene through
+    the same YAML text, its compiled poses, the first orbit.  Returns the
+    document read, the orbit's centre and radius, the panels and the
+    seconds taken."""
+    import yaml
+
+    from d3d12renderer_tpu_torch.scene import viewer
+    from d3d12renderer_tpu_torch.scene.scene import Scene
+
+    t0 = time.perf_counter()
+    doc = yaml.safe_load(yaml.safe_dump(
+        viewer.build_demo_scene().to_document(), sort_keys=False))
+    sc = Scene.from_document(doc)
+    rs = sc.build_render_scene(*sc.compile_physics(device="cpu")[1:],
+                               device="cpu")
+    center, radius = viewer.scene_center_radius(rs)
+    cam = viewer.orbit_camera(center, radius, 0.0, viewer.STATIC_PHI,
+                              device="cpu")
+    panels = viewer.aux_buffers(rs, cam, size)
+    return dict(doc=doc, center=center, radius=radius, panels=panels,
+                s=time.perf_counter() - t0)
+
+
+def editor(card, cuda_ms, max_err):
+    """The editor path through `editor_entry` at the JAX tool's defaults:
+    the demo scene through YAML, the static page (4 views path-traced
+    through kernel #3, the panels), the live viewer driven through every
+    endpoint, play for EDITOR_PLAY_FRAMES frames (kernel #1, or #2 where
+    the archetype is in its family), stop.  Checks: the YAML round trip,
+    the page, the panels against a CPU run, every endpoint, undo / redo,
+    the bodies after play, the editor scene after stop; kernel #3 on the
+    first view's camera rays and kernel #1 on the play state against their
+    plain versions; one play frame through the kernel against the plain
+    solve at EDITOR_BARS.  Returns the launches and errors this path adds
+    to the kernels line."""
+    import numpy as np
+    import torch
+
+    from d3d12renderer_tpu_torch.entry import _kernel_wrappers, editor_entry
+    from d3d12renderer_tpu_torch.ops import ray_trace
+    from d3d12renderer_tpu_torch.physics import solver_cuda, step
+    from d3d12renderer_tpu_torch.physics.types import PhysicsSettings
+    from d3d12renderer_tpu_torch.render.camera import generate_rays
+    from d3d12renderer_tpu_torch.scene import viewer
+    from d3d12renderer_tpu_torch.scene.scene import Scene
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = editor_entry(device=dev, size=EDITOR_SIZE,
+                       play_frames=EDITOR_PLAY_FRAMES)
+    sync()
+    entry_s = time.perf_counter() - t_phase
+    launches = {k: w.launches for k, w in wrappers.items()}
+    cpu_ref = editor_cpu_panels(EDITOR_SIZE)
+    s, page = out["session"], out["static"]
+    size = EDITOR_SIZE
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+
+    # YAML, page, endpoints, undo / redo, play, stop.
+    written, read = (json.loads(json.dumps(d)) for d in out["yaml"])
+    check(written == read, "the YAML round trip changed the scene")
+    n_img = page["html"].count("data:image/png;base64,")
+    check(len(page["views"]) == 4 and len(page["aux"]) == 4 and n_img == 8,
+          f"the page holds {len(page['views'])} views, {len(page['aux'])} "
+          f"panels, {n_img} images")
+    check(all(v.shape == (size, size, 3) for v in page["views"]),
+          "a view is not size x size RGB")
+    png, png2 = s["orbit_pngs"]
+    check(s["page"] and png[:4] == b"\x89PNG" and png2[:4] == b"\x89PNG"
+          and png != png2, "two orbits did not give two PNGs")
+    check(all(v[:4] == b"\x89PNG" for v in s["kinds"].values()),
+          "an aux kind is not a PNG")
+    check(s["edited_render"][:4] == b"\x89PNG", "the edited scene's render")
+    check(s["edit_x"] == [0.0, 3.0, 0.0, 3.0], f"edit / undo / redo moved "
+          f"RedSphere to x {s['edit_x']}")
+    check(s["undo_redo_names"] == ["edit RedSphere"] * 3
+          and s["info_after_redo"]["undo"] == "edit RedSphere",
+          f"undo names {s['undo_redo_names']}")
+    check(s["play_mode"] == "play" and s["play_pngs_differ"]
+          and s["frames"] == (EDITOR_PLAY_FRAMES, EDITOR_PLAY_FRAMES)
+          and s["pause_mode"] == "pause", f"play / pause: frames "
+          f"{s['frames']}, modes {s['play_mode']} {s['pause_mode']}")
+    check(s["edit_during_play"] == 409, f"a transform edit during play "
+          f"answered {s['edit_during_play']}")
+    check(s["stop_mode"] == "edit" and s["red_after_stop"][1] == 2.2
+          and s["doc_before_play"] == s["doc_after_stop"],
+          "the editor scene changed through play and stop")
+    check(s["material_albedo"] == [0.75, 0.9, 0.75],
+          f"material edit / undo: {s['material_albedo']}")
+    w0, w1 = s["paddle_spin"]
+    check(abs(w0) < 0.5 and abs(w1) > 2.0 and s["motor_targets"] ==
+          [0.0, 6.0, 0.0], f"the paddle's motor retarget: spins {w0} "
+          f"{w1}, targets {s['motor_targets']}")
+    check(json.loads(json.dumps(s["doc_final"])) == read,
+          "the editor scene after the session is "
+          "not the scene read from YAML")
+
+    # The bodies after play: finite and above the plane.
+    arch, st, mo, mapping = s["play_tables"]
+    finite = all(bool(torch.isfinite(getattr(st, f)).all())
+                 for f in ("pos", "rot", "vel", "omega"))
+    rot = st.rot[0].cpu().numpy()
+    phys = dict(s["physics"], rot={str(e): rot[b].tolist()
+                                   for e, b in mapping.items()})
+    low = _lowest_points(Scene.from_document(read), phys)
+    check(finite and min(low.values()) >= EDITOR_FLOOR,
+          f"bodies after play: finite {finite}, lowest points {low}")
+
+    # The panels against the CPU run of the same functions.
+    check(cpu_ref["doc"] == read and np.array_equal(cpu_ref["center"],
+                                                    page["center"])
+          and cpu_ref["radius"] == page["radius"],
+          "the CPU run's scene or orbit is not the page's")
+    want, cpu_s = cpu_ref["panels"], cpu_ref["s"]
+    got = page["aux_float"]
+    hit, whit = np.isfinite(got["depth"]), np.isfinite(want["depth"])
+    same = hit & whit & (got["object id"] == want["object id"])
+    edge = float((~same & (hit | whit)).mean())
+    field_bad = {}
+    for f in ("normals", "depth"):
+        err = np.abs(got[f][same] - want[f][same])
+        scale = np.maximum(1.0, np.abs(want[f][same]))
+        field_bad[f] = float((err > EDITOR_FIELD_TOL * scale).reshape(
+            err.shape[0], -1).any(-1).mean())
+    ao_err = np.abs(got["AO"] - want["AO"])
+    ao_share = float((ao_err <= SLICE_PIXEL_TOL).mean())
+    check(edge <= EDITOR_EDGE_SHARE and max(field_bad.values()) <=
+          EDITOR_EDGE_SHARE and ao_share >= SLICE_SHARE and
+          float(ao_err.mean()) < RASTER_MEAN_TOL,
+          f"panels against the CPU: edge share {edge}, fields {field_bad}, "
+          f"AO {ao_share} within {SLICE_PIXEL_TOL}, mean {ao_err.mean()}")
+
+    # Kernels #3 and #1 against their plain versions at this path's shapes,
+    # and one play frame through the kernel against the plain solve (these
+    # launches are not counted).
+    scene_dev = Scene.from_document(read)
+    rscene = scene_dev.build_render_scene(
+        *scene_dev.compile_physics(device=dev)[1:], device=dev)
+    errs = {}
+    with torch.inference_mode():
+        t_check = time.perf_counter()
+        o, d = generate_rays(page["camera"], size, size)
+        pick = slice(None, None, max(1, o.shape[0] // RAY_SUBSET))
+        o, d = o[pick].contiguous(), d[pick].contiguous()
+        tm = torch.full((o.shape[0],), 1e30, device=dev)
+        planes, nodes = ray_trace.kernel_tables(rscene.bvh)
+        rows = planes.shape[0]
+        kernel = "bvh" if rows > 1024 else "brute"
+        got_r = (ray_trace.ray_closest_hit_bvh(planes, nodes, o, d, tm)
+                 if kernel == "bvh" else
+                 ray_trace.ray_closest_hit_brute(planes, o, d, tm))
+        want_r = ray_trace.closest_hit_plain(planes, o, d, tm)
+        n_bad, outside, dt_rel, errs[kernel] = check_rays(
+            kernel, got_r, want_r, planes, o, d, tm, False)
+        check(not outside and dt_rel <= MAX_DT_REL, f"kernel {kernel} on "
+              f"the first view's rays: {n_bad} differ, {outside} outside "
+              f"the margins, |dt| rel {dt_rel}")
+        rays_s = time.perf_counter() - t_check
+        settings = PhysicsSettings()
+        sp = step.substep_prep(arch, st, 1.0 / settings.frame_rate,
+                               settings, mo)
+        solver = solver_cuda.ColoredSolver(
+            arch, sp.contacts.body_a.shape[0], ITERATIONS, "kernel")
+        sargs = (sp.joint_preps, sp.contact_prep, sp.vel1, sp.omega1)
+        kv, kw = solver(*sargs)
+        pv, pw = solver.plain(*sargs)
+        colored_errs = (max_err(kv, pv), max_err(kw, pw))
+        errs["colored"] = max(colored_errs)
+        check(colored_errs[0] <= VEL_TOL and colored_errs[1] <= OMEGA_TOL,
+              f"kernel #1 against plain on the play state: {colored_errs}")
+        # One play frame from the state after play (the bodies resting on
+        # the plane, the hinge), kernel against the plain solve.
+        k_frame = step.physics_step(arch, st, settings, viewer.PLAY_DT,
+                                    motor_overrides=mo)[0]
+        p_frame = step.physics_step(
+            arch, st, PhysicsSettings(solver_backend="plain"),
+            viewer.PLAY_DT, motor_overrides=mo)[0]
+        frame_errs = {f: max_err(getattr(k_frame, f), getattr(p_frame, f))
+                      for f in EDITOR_BARS}
+    check(all(frame_errs[f] <= EDITOR_BARS[f] for f in EDITOR_BARS),
+          f"one play frame, kernel against plain: {frame_errs}")
+    check_s = time.perf_counter() - t_check
+    ms = {k: sorted(v) for k, v in out["ms"].items()}
+    print(f"editor (editor_entry, size {size}, 4 views, spp 6, "
+          f"{EDITOR_PLAY_FRAMES} play frames at spp {viewer.PLAY_SPP}): "
+          f"entry {entry_s:.1f} s (static page {out['static_s']:.2f} s, "
+          f"session {out['session_s']:.1f} s) | "
+          f"launches: colored #1 {launches['colored']}, fused #2 "
+          f"{launches['fused']}, BVH #3 {launches['bvh']}, brute #4 "
+          f"{launches['brute']} | ms per request (host clock, median / max "
+          f"of n): " + "; ".join(
+              f"{k} {v[len(v) // 2]:.1f} / {v[-1]:.1f} of {len(v)}"
+              for k, v in ms.items())
+          + f" | physics {page['physics']} | bodies' lowest points "
+          + ", ".join(f"{k} {v:.4f}" for k, v in low.items())
+          + f" | panels vs CPU ({cpu_s:.1f} s on the CPU): edge share "
+          f"{edge:.2e}, fields off {field_bad}, AO {100 * ao_share:.2f}% "
+          f"within {SLICE_PIXEL_TOL}, mean {ao_err.mean():.2e} | {kernel} "
+          f"kernel vs plain over {rows} rows, {o.shape[0]} rays: max |dt| "
+          f"{errs[kernel]:.3e}; colored vs plain on the play state "
+          f"|dvel|, |domega| {colored_errs}; one play frame after play, "
+          f"kernel vs plain {frame_errs} (bars {EDITOR_BARS}); the checks "
+          f"{check_s:.1f} s (the rays {rays_s:.1f}) | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    if problems:
+        fail("editor: " + "; ".join(problems))
+    return {"launches": launches, "errs": errs,
+            "play_kernel": "fused" if launches["fused"] else "colored"}
 
 
 def characters(card, cuda_ms, max_err):
@@ -4108,6 +4441,7 @@ def main():
     options = timed("raster_options", raster_options, card, cuda_ms)
     world = timed("showcase_world", showcase_world, card, cuda_ms)
     chars = timed("characters", characters, card, cuda_ms, max_err)
+    edit = timed("editor", editor, card, cuda_ms, max_err)
     # Kernels #3 and #4 on the new paths.
     rays[0]["launches"] += (dist_launches["bvh"] + options["bvh"]
                             + world["launches"]["bvh"])
@@ -4119,8 +4453,11 @@ def main():
     for row, key in zip(images, ("raster", "tonemap", "blur")):
         row["launches"] += world["launches"][key]
     # The characters' path: #3 in its set-up, #6 and #7 in its frames, #5's
-    # group mode, and the ragdoll drop through #2 (or #1).
+    # group mode, and the ragdoll drop through #2 (or #1); the editor's
+    # path: #3 (or #4) for its views and renders, #1 (or #2) for its play
+    # frames.
     launch_terms = {"ray_closest_hit_bvh": [rays[0]["launches"]],
+                    "ray_closest_hit_brute": [rays[1]["launches"]],
                     "tonemap": [images[1]["launches"]],
                     "gaussian_blur": [images[2]["launches"]]}
     rays[0]["launches"] += chars["launches"]["bvh"]
@@ -4128,6 +4465,11 @@ def main():
     for row, key in zip(images[1:], ("tonemap", "blur")):
         row["launches"] += chars["launches"][key]
         launch_terms[row["name"]].append(chars["launches"][key])
+    for row, key in zip(rays, ("bvh", "brute")):
+        row["launches"] += edit["launches"][key]
+        launch_terms[row["name"]].append(edit["launches"][key])
+        if key in edit["errs"]:
+            row["max_abs_err"] = max(row["max_abs_err"], edit["errs"][key])
     # Last: run before the blur's profile, its profiles of ~27,000- and
     # ~97,000-kernel frames left that profile seeing 23 of its 50 calls
     # whole.
@@ -4148,6 +4490,8 @@ def main():
         f"{name} {sum(t)} = {' + '.join(str(x) for x in t)}"
         for name, t in launch_terms.items())
         + f"; {drop_kernel} + {drop_launches} (the ragdoll drop); "
+        f"colored_solver + {edit['launches']['colored']}, fused_substep + "
+        f"{edit['launches']['fused']} (the editor's play frames); "
         f"raster_groups {chars['groups']['launches']}", flush=True)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in phase_s.items()),
@@ -4156,8 +4500,11 @@ def main():
           flush=True)
     # Kernel #1's line: this slice's path, the self-colliding locomotion;
     # the plane-only ragdoll's numbers are on phase 3's line.
-    colored_extra = drop_launches if drop_kernel == "colored_solver" else 0
-    fused_extra = drop_launches if drop_kernel == "fused_substep" else 0
+    colored_extra = (drop_launches if drop_kernel == "colored_solver" else 0
+                     ) + edit["launches"]["colored"]
+    fused_extra = (drop_launches if drop_kernel == "fused_substep" else 0
+                   ) + edit["launches"]["fused"]
+    colored_err = max(colored_err, edit["errs"]["colored"])
     if fused_extra:
         fused_err = max(fused_err, chars["drop_err"])
     else:

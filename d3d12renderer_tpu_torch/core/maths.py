@@ -60,6 +60,11 @@ def cross(a, b):
         [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
 
 
+def quat(x, y, z, w, dtype=torch.float32, device="cpu"):
+    """The quaternion (x, y, z, w) as a (4,) tensor."""
+    return torch.tensor([x, y, z, w], dtype=dtype, device=device)
+
+
 def quat_mul(a, b):
     """Hamilton product a*b."""
     ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
@@ -122,6 +127,16 @@ def quat_integrate(q, omega, dt):
     return normalize(q + dq * dt)
 
 
+def quat_axis(q):
+    """Rotation axis of a quaternion (normalized xyz, or +x for identity)."""
+    u = q[..., :3]
+    sl = squared_length(u)
+    fallback = torch.zeros_like(u)
+    fallback[..., 0] = 1.0
+    n = u / torch.sqrt(torch.clamp(sl, min=1e-16))[..., None]
+    return torch.where((sl < 1e-12)[..., None], fallback, n)
+
+
 def quat_twist_angle(q, axis):
     """Signed twist angle of q about a unit axis."""
     return 2.0 * torch.atan2(dot(q[..., :3], axis), q[..., 3])
@@ -166,3 +181,12 @@ def quat_to_axis_angle(q):
 def mat3_vec(mat, v):
     """(..., 3, 3) @ (..., 3) -> (..., 3), as a broadcast sum."""
     return torch.sum(mat * v[..., None, :], dim=-1)
+
+
+def transform_point(pos, rot, p):
+    """trs-style point transform: pos + rot * p (no scale)."""
+    return pos + quat_rotate(rot, p)
+
+
+def inverse_transform_point(pos, rot, p):
+    return quat_inv_rotate(rot, p - pos)

@@ -13,6 +13,7 @@ a crowd in the raster frame and ragdolls fitted from their skeleton."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -610,7 +611,8 @@ def _lights_frames(scene, camera, width: int, height: int, device,
 
 
 def showcase_world_entry(device="cuda", width: int = 1920, height: int = 1080,
-                         seed: int = 0, **world):
+                         seed: int = 0, audio: Optional[str] = None,
+                         **world):
     """examples/showcase.py's whole world (`models.world.build_world`,
     built once here): the 65 x 65 terrain in LOD chunks with its splat
     texture, the six bodies settled on it for 180 frames (each substep one
@@ -621,7 +623,10 @@ def showcase_world_entry(device="cuda", width: int = 1920, height: int = 1080,
     updated twice at 32 rays, a decal, a glass slab, water at 0.9, and 256
     fire particles stepped 45 times.  `world` goes to `build_world`:
     `config` (a `WorldConfig`), `envmap` (None: the procedural sky),
-    `draws`, `heights`.
+    `draws`, `heights`.  `audio` (a WAV path) runs the drop with collision
+    events, as examples/showcase.py's `--audio` does, and writes its
+    impacts' mixdown there (`world.write_impact_audio`); `fn.audio` then
+    holds {"path", "impacts", "seconds"}.
 
     Returns `(fn, state)`: `fn(state, profile_stages=False, jitter=None,
     **overrides) -> (ldr, state, aux)` renders one frame (raster primary,
@@ -630,12 +635,20 @@ def showcase_world_entry(device="cuda", width: int = 1920, height: int = 1080,
     (`particles.systems.splat_particles`); `aux["frame_ldr"]` is the frame
     before the splat.  `fn.world` holds the world, `fn.options` the frame's
     options."""
-    from .models.world import PARTICLE_COLOR, build_world
+    from .models.world import (PARTICLE_COLOR, WorldConfig, build_world,
+                               write_impact_audio)
     from .particles.systems import splat_particles
     from .render.pipeline import initial_frame_state
 
     device = resolve_device(device)
-    world = build_world(device, width, height, seed, **world)
+    frames = world.get("config", WorldConfig()).physics_frames
+    world = build_world(device, width, height, seed,
+                        collect_events=audio is not None, **world)
+    sound = None
+    if audio is not None:
+        sound = {"path": audio, "impacts": world.impacts,
+                 "seconds": write_impact_audio(world.impacts, audio,
+                                               frames)}
     frame = _raster_frames(world.scene, world.camera, width, height, device,
                            seed, world.options)
     color = torch.tensor(PARTICLE_COLOR, device=device)
@@ -651,6 +664,7 @@ def showcase_world_entry(device="cuda", width: int = 1920, height: int = 1080,
 
     fn.world, fn.options = world, world.options
     fn.scene, fn.camera = world.scene, world.camera
+    fn.audio = sound
     return fn, initial_frame_state(width, height, device)
 
 
@@ -1084,3 +1098,81 @@ def character_ragdoll_entry(device="cuda", batch: int = 4096, seed: int = 0,
         return state, contacts
 
     return fn, (arch, state, fitted)
+
+
+def _kernel_wrappers():
+    """The launch-counting wrappers of the kernels the editor path may run:
+    #1 (colored solve), #2 (fused substep), #3 (BVH walk), #4 (brute
+    force)."""
+    from .ops import ray_trace
+    from .physics import solver_cuda, substep_cuda
+
+    return {"colored": solver_cuda.colored_solve_cuda,
+            "fused": substep_cuda.fused_substep_cuda,
+            "bvh": ray_trace.ray_closest_hit_bvh,
+            "brute": ray_trace.ray_closest_hit_brute}
+
+
+def editor_entry(device="cuda", size: int = 256, views: int = 4,
+                 spp: int = 6, play_frames: int = 120):
+    """The editor path at tools/scene_viewer.py's defaults
+    (`scene.viewer`): the demo scene built through the ECS layer, written
+    to YAML and read back (the read-back scene is the editor's), the static
+    page (`views` orbit views path-traced at `size` with `spp` samples and
+    recursion depth 2, the first view's normals, depth, object id and AO
+    panels, the physics line, the entity table), then the live viewer on
+    127.0.0.1 at a free port in a thread, driven through every endpoint by
+    `viewer.editor_session`: two orbits, the aux kinds, a transform edit
+    with undo and redo, play for `play_frames` frames of 1/60 s (one
+    `physics_step` on the device and one beauty render at
+    `viewer.PLAY_SPP` samples each), pause, stop, a material edit, and a motor retarget
+    during play.  Scenes of more than 1,024 rows path-trace through the
+    BVH kernel; play mode's rows go through the colored-solver kernel, or
+    the fused substep where the archetype is in its family.
+
+    Returns a dict: "yaml" (the document written and the one read back),
+    "static" (`viewer.write_static`'s parts, "html" the page), "static_s",
+    "session" (`editor_session`'s observations), "ms" (host ms per request,
+    by path), "launches" (per kernel, over the whole entry), "session_s"."""
+    import os
+    import tempfile
+    import threading
+    import time
+
+    from .scene import viewer
+    from .scene.scene import Scene
+
+    device = resolve_device(device)
+    wrappers = _kernel_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    authored = viewer.build_demo_scene()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "demo.yaml")
+        authored.save_yaml(path)
+        scene = Scene.load_yaml(path)
+        t0 = time.perf_counter()
+        static = viewer.write_static(scene, os.path.join(tmp, "demo.html"),
+                                     "demo", size, views, spp, device)
+        static_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "demo.html")) as f:
+            static["html"] = f.read()
+
+    editor = viewer.Editor(scene, size, spp, device)
+    httpd = viewer.make_server(editor, 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    client = viewer.Client(f"http://127.0.0.1:{httpd.server_address[1]}")
+    try:
+        t0 = time.perf_counter()
+        session = viewer.editor_session(client, editor, size, spp,
+                                        play_frames)
+        session_s = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    return {"yaml": (authored.to_document(), scene.to_document()),
+            "static": static, "static_s": static_s, "session": session,
+            "session_s": session_s, "ms": client.ms,
+            "launches": {k: w.launches - before[k]
+                         for k, w in wrappers.items()}}

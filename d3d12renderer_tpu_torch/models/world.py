@@ -1,6 +1,7 @@
 """examples/showcase.py's world, built by the port (`build_world`): the
 terrain's LOD chunks with the splat texture, the physics drop settled on
-the terrain, placed trees, culled grass, the physics-settled meshes, the
+the terrain (its impacts mixed to a WAV by `write_impact_audio`, as the
+script's `--audio` does), placed trees, culled grass, the physics-settled meshes, the
 HDR sky through the image cache and `render.ibl`, one shadow atlas for the
 sun, a spot and a point light, probes, a decal, a glass slab and fire
 particles; then the frame's options (`WorldFrame.options`) and the
@@ -59,6 +60,8 @@ DECAL = dict(rotations=[(0.7071, 0.0, 0.0, 0.7071)],
              half_extents=[(1.2, 1.2, 2.0)], albedos=[(0.05, 0.05, 0.06)])
 GLASS_HALF, GLASS_XZ = (1.2, 1.0, 0.08), (3.0, 3.0)
 GLASS_COLOR, GLASS_ALPHA = (0.5, 0.8, 0.7), 0.35
+# showcase.py:140: begin events closing faster than this (m/s) are impacts.
+IMPACT_SPEED = 0.8
 FIRE_XZ = (-2.0, -2.0)
 FIRE_DT = 1.0 / 60.0
 PARTICLE_COLOR = (1.0, 0.45, 0.1)
@@ -105,12 +108,18 @@ class World:
     body_kinds: list
     heights: torch.Tensor
     counts: dict = field(default_factory=dict)
+    # (time, point, speed) of the drop's impacts, with `collect_events`.
+    impacts: list = field(default_factory=list)
 
 
-def _settle(heights, cell: float, frames: int, device):
+def _settle(heights, cell: float, frames: int, device,
+            collect_events: bool = False):
     """showcase.py:110-147: the six bodies dropped onto the terrain and
     stepped `frames` frames of 1/60 s in 2 substeps at batch 1 (colored
-    contacts: one launch of kernel #1 a substep on CUDA tensors)."""
+    contacts: one launch of kernel #1 a substep on CUDA tensors).  With
+    `collect_events` (showcase.py's `--audio` path) each frame also folds
+    its collision events and keeps the begins closing faster than
+    IMPACT_SPEED as (time, first contact point, speed), in row order."""
     from ..physics.builder import SceneBuilder
     from ..physics.step import physics_step
     from ..physics.types import PhysicsSettings
@@ -121,11 +130,62 @@ def _settle(heights, cell: float, frames: int, device):
              for i in range(scenes.TERRAIN_DROP_BODIES)]
     arch, state = b.finalize(device=device)
     settings = PhysicsSettings()
+    impacts = []
+    prev_active = None
     with torch.inference_mode():
-        for _ in range(frames):
-            state, _ = physics_step(arch, state, settings, 1.0 / 60.0,
-                                    num_substeps=2)
-    return arch, state, kinds
+        for f in range(frames):
+            if not collect_events:
+                state, _ = physics_step(arch, state, settings, 1.0 / 60.0,
+                                        num_substeps=2)
+                continue
+            state, contacts, ev = physics_step(
+                arch, state, settings, 1.0 / 60.0, num_substeps=2,
+                collect_events=True, prev_active=prev_active)
+            prev_active = ev.active
+            begin = ev.begin[0].cpu()
+            if begin.any():
+                speeds = ev.approach_speed[0].cpu()[begin]
+                points = contacts.point[0, :, 0].cpu()[begin]
+                impacts += [(f / 60.0, tuple(map(float, p)), float(v))
+                            for p, v in zip(points, speeds)
+                            if v > IMPACT_SPEED]
+    return arch, state, kinds, impacts
+
+
+def impact_engine(impacts):
+    """showcase.py:151-165: an `AudioEngine` listening from the camera with
+    the "mountains" reverb, each impact a 3D `impact_synth` voice (seeded
+    by its index, louder with its speed) at its time.  A synth voice draws
+    its noise from its own generator as it renders, so an engine renders
+    once: build another to render the timeline again."""
+    from ..audio.audio import AudioEngine, impact_synth
+
+    eng = AudioEngine()
+    eng.set_listener(CAMERA_EYE, forward=(0, -0.25, 1))
+    eng.set_reverb("mountains")
+    t_prev = 0.0
+    for i, (t, p, s) in enumerate(impacts):
+        eng.advance(t - t_prev)
+        t_prev = t
+        eng.play_synth(impact_synth(s, seed=i), "sfx",
+                       volume=min(1.0, 0.25 + s / 10.0), position=p)
+    return eng
+
+
+def impact_seconds(frames: int) -> float:
+    """The mix's length: the drop's `frames` / 60 s and half a second."""
+    return frames / 60.0 + 0.5
+
+
+def write_impact_audio(impacts, path: str, frames: int) -> float:
+    """showcase.py:166-169: `impact_engine`'s mixdown over
+    `impact_seconds(frames)` written to a WAV at `path`; returns its
+    seconds."""
+    from ..audio.mixdown import mixdown, write_wav
+
+    seconds = impact_seconds(frames)
+    write_wav(path, mixdown(impact_engine(impacts), seconds))
+    return seconds
 
 
 def load_sky(device, face_res: int, envmap: Optional[str] = ENVMAP):
@@ -154,10 +214,12 @@ def load_sky(device, face_res: int, envmap: Optional[str] = ENVMAP):
 
 def build_world(device, width: int, height: int, seed: int = 0,
                 config: WorldConfig = WorldConfig(), heights=None,
-                envmap: Optional[str] = ENVMAP, draws=None) -> World:
+                envmap: Optional[str] = ENVMAP, draws=None,
+                collect_events: bool = False) -> World:
     """examples/showcase.py's world on `device`, seen by its camera at
     width / height aspect.  `heights` replaces the generated (R, R)
-    heightmap; `envmap=None` gives the procedural sky."""
+    heightmap; `envmap=None` gives the procedural sky; `collect_events`
+    keeps the drop's impacts (`World.impacts`)."""
     from ..render import bvh as bvh_mod
     from ..render import mesh as mesh_mod
     from ..render.camera import look_at
@@ -198,8 +260,8 @@ def build_world(device, width: int, height: int, seed: int = 0,
         return float(h)
 
     # Physics (showcase.py:110-147).
-    arch, bodies, kinds = _settle(heights.numpy(), cell, cfg.physics_frames,
-                                  device)
+    arch, bodies, kinds, impacts = _settle(
+        heights.numpy(), cell, cfg.physics_frames, device, collect_events)
     meshes = [(mesh, MAT_TERRAIN) for mesh, _, _ in chunks]
 
     # Trees (showcase.py:182-194).
@@ -321,4 +383,4 @@ def build_world(device, width: int, height: int, seed: int = 0,
         envmap_peak=env_peak)
     return World(scene=scene, camera=camera, options=options, atlas=atlas,
                  fire=fire, arch=arch, bodies=bodies, body_kinds=kinds,
-                 heights=heights, counts=counts)
+                 heights=heights, counts=counts, impacts=impacts)

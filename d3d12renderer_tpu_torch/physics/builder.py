@@ -420,6 +420,11 @@ class SceneBuilder:
             collide_connected=collide_connected))
         return len(self.joints) - 1
 
+    def set_collide_connected(self, joint_index: int, value: bool = True):
+        """Let a joint's two bodies collide (the reference's default), for
+        a joint added by any add_*_joint helper."""
+        self.joints[joint_index].collide_connected = value
+
     def _body_pose(self, body: int):
         if body < 0:
             return np.zeros(3), _IDENTITY_QUAT.copy()

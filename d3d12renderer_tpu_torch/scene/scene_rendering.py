@@ -15,11 +15,10 @@ import torch
 from ..render.camera import Camera
 from ..render.instances import build_instanced, retransform
 from ..render.mesh import MeshData
+from .components import Material, to_plain
 
-# The JAX package's scene/components.py `Material` defaults, for entities
-# without a material component.
-DEFAULT_MATERIAL = dict(albedo=(0.8, 0.8, 0.8), emissive=(0.0, 0.0, 0.0),
-                        roughness=0.5, metallic=0.0)
+# `Material`'s defaults, for entities without a material component.
+DEFAULT_MATERIAL = to_plain(Material())
 
 
 def frustum_planes(camera: Camera):
@@ -63,7 +62,7 @@ class RenderSubmission:
     primitive: one instanced buffer (`render.instances`), one material
     per entity, a bounding radius per instance.  `scene` is any object with
     `view(*kinds)` yielding `(entity, components)` and `entity(id).get(kind)`
-    (the JAX package's `scene.Scene` has both)."""
+    (`scene.scene.Scene`)."""
 
     def __init__(self, scene, device="cuda"):
         from ..cuda_build import resolve_device

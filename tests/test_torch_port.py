@@ -37,6 +37,11 @@ def test_import_leaves_jax_out():
         "from d3d12renderer_tpu_torch.render import (skinned_instances,\n"
         "    debug_viz, geometry_gen)\n"
         "from d3d12renderer_tpu_torch.models import ragdoll\n"
+        "from d3d12renderer_tpu_torch.scene import scene, viewer\n"
+        "from d3d12renderer_tpu_torch.audio import audio, mixdown, stream\n"
+        "from d3d12renderer_tpu_torch.core import (camera_controller, log,\n"
+        "    profiling)\n"
+        "from d3d12renderer_tpu_torch.utils import hot_reload, undo\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'd3d12renderer_tpu')]\n"
         "print(bad)\n")
@@ -239,9 +244,15 @@ def _entry_points():
     from d3d12renderer_tpu_torch.render import (geometry_gen, shadows,
                                                 skinned_instances)
     from d3d12renderer_tpu_torch.animation import animation
+    from d3d12renderer_tpu_torch.core import camera_controller
+    from d3d12renderer_tpu_torch.scene import components, scene, viewer
     import numpy as np
 
     arch = lambda: LocoEnv(device="cpu").arch  # noqa: E731
+    cloth_scene = scene.Scene()
+    flag = cloth_scene.create_entity("flag")
+    flag.add_component(components.Transform())
+    flag.add_component(components.Cloth(grid_x=4, grid_y=4))
     return {
         "entry": (entry.entry, lambda f: f()),
         "pathtrace_entry": (entry.pathtrace_entry, lambda f: f()),
@@ -308,6 +319,25 @@ def _entry_points():
                                         None),
         "distributed_train_state_from_numpy": (
             convert.distributed_train_state_from_numpy, None),
+        "editor_entry": (entry.editor_entry, lambda f: f()),
+        "Editor": (viewer.Editor.__init__,
+                   lambda f: viewer.Editor(scene.Scene())),
+        "write_static": (viewer.write_static, lambda f: f(
+            viewer.build_demo_scene(), "unused.html")),
+        "serve": (viewer.serve, None),
+        "orbit_camera": (viewer.orbit_camera,
+                         lambda f: f(np.zeros(3), 5.0, 0.3, 0.4)),
+        "compile_physics": (scene.Scene.compile_physics,
+                            lambda f: f(viewer.build_demo_scene())),
+        "compile_cloths": (scene.Scene.compile_cloths, lambda f: f(cloth_scene)),
+        "build_render_scene": (scene.Scene.build_render_scene,
+                               lambda f: f(viewer.build_demo_scene())),
+        "OrbitController.camera": (
+            camera_controller.OrbitController.camera,
+            lambda f: f(camera_controller.OrbitController())),
+        "FlyController.camera": (
+            camera_controller.FlyController.camera,
+            lambda f: f(camera_controller.FlyController())),
     }
 
 

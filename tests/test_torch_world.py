@@ -212,12 +212,15 @@ def test_instancing_and_render_submission_match_jax():
     """`build_instanced` buffers equal (the same 512-row padding);
     `retransform` at random poses within XFORM_TOL, its one-leaf BVH's
     closest hits equal to a BVH built from the posed meshes; a
-    RenderSubmission of JAX's `scene.Scene` with a culled entity."""
-    from d3d12renderer_tpu.scene import components as C
+    RenderSubmission of each package's `scene.Scene`, both built from one
+    spec, with a culled entity."""
+    from d3d12renderer_tpu.scene import components as JC
     from d3d12renderer_tpu.scene.scene import Scene as JScene
     from types import SimpleNamespace
 
     from d3d12renderer_tpu_torch.render import bvh as tbvh
+    from d3d12renderer_tpu_torch.scene import components as TC
+    from d3d12renderer_tpu_torch.scene.scene import Scene as TScene
 
     meshes_t = [(tmesh.box((0.5, 0.3, 0.2)), 1), (tmesh.ico_sphere(0.4, 1), 2)]
     meshes_j = [(jmesh.box((0.5, 0.3, 0.2)), 1), (jmesh.ico_sphere(0.4, 1), 2)]
@@ -280,20 +283,20 @@ def test_instancing_and_render_submission_match_jax():
     assert img.shape == (12, 16, 3) and torch.equal(img, want)
     assert int(rays) >= 16 * 12 and float(img.std()) > 0
 
-    js = JScene()
-    for name, prim, params, p in (("a", "box", {"half_extents": (0.5,) * 3},
-                                   (0.0, 0.5, 0.0)),
-                                  ("b", "sphere", {"radius": 0.5},
-                                   (1.5, 0.5, 1.0)),
-                                  ("c", "box", {"half_extents": (0.3,) * 3},
-                                   (0.0, 0.5, -30.0))):
-        e = js.create_entity(name)
-        e.add_component(C.Transform(position=p))
-        e.add_component(C.Mesh(primitive=prim, params=params))
-        if name == "b":
-            e.add_component(C.Material(albedo=(0.9, 0.1, 0.1), metallic=1.0))
+    spec = (("a", "box", {"half_extents": (0.5,) * 3}, (0.0, 0.5, 0.0)),
+            ("b", "sphere", {"radius": 0.5}, (1.5, 0.5, 1.0)),
+            ("c", "box", {"half_extents": (0.3,) * 3}, (0.0, 0.5, -30.0)))
+    js, ts = JScene(), TScene()
+    for sc, C in ((js, JC), (ts, TC)):
+        for name, prim, params, p in spec:
+            e = sc.create_entity(name)
+            e.add_component(C.Transform(position=p))
+            e.add_component(C.Mesh(primitive=prim, params=params))
+            if name == "b":
+                e.add_component(C.Material(albedo=(0.9, 0.1, 0.1),
+                                           metallic=1.0))
     jsub = jsr.RenderSubmission(js)
-    tsub = tsr.RenderSubmission(js, device="cpu")
+    tsub = tsr.RenderSubmission(ts, device="cpu")
     for f in dataclasses.fields(tsub.instanced):
         np.testing.assert_array_equal(getattr(tsub.instanced, f.name).numpy(),
                                       np.asarray(getattr(jsub.instanced,
