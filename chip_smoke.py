@@ -164,6 +164,8 @@ RASTER_MEAN_TOL = 1e-4
 # operations/s outside the tensor cores, at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# Its SMs and the fp32 lanes of each.
+H100_SMS, LANES_PER_SM = 132, 128
 # Float operations per row solve, counted from csrc/solver_rows.cuh (a
 # multiply and an add count 2; min/max clamps count 1): the ball part 114,
 # distance 62, fixed 174 (rotation 60 + ball), hinge 250 (motor, limit and
@@ -376,6 +378,35 @@ def bound(bytes_moved, flop):
     mem_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
     op_ms = 1e3 * flop / FP32_FLOP_PER_S
     return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
+
+
+def group_bound(raster, tables, plan, q, jitter, width, height):
+    """The group kernel's bound over one whole-frame launch: (bound_ms,
+    bound_by, tests, tile_tests).  `tests` are the (visit, band, row,
+    pixel) tests any exact cull of a row per row band must run, the
+    kernel's own granularity (`raster.group_rows_needed` given the final
+    image q, PX // GROUP_BANDS pixels a band), RASTER_PAIR_FLOP each; the
+    bytes read the planes, ranges and plan once and write (q, tri).
+    `tile_tests` counts at the tile's granularity for comparison: the
+    (visit, triangle) tests of the visits whose bound exceeds the tile's
+    least q, PX pixels each."""
+    tests = raster.group_rows_needed(tables, plan, q, jitter, width,
+                                     height) * (raster.PX // raster.GROUP_BANDS)
+    least = raster.tile_min(q, width, height)
+    must = plan.bound > least[plan.visit_tile]
+    tile_tests = int(raster.visit_cover(
+        tables, plan.visit_tile[must], plan.group[must], width).sum()) \
+        * raster.PX
+    bytes_moved = (tables.planes.numel() * 4 + tables.tri_tiles.numel() * 4
+                   + plan.visits * 8 + plan.seg.numel() * 4
+                   + plan.tiles.numel() * 4 + 8 + width * height * 8)
+    return (*bound(bytes_moved, tests * RASTER_PAIR_FLOP), tests, tile_tests)
+
+
+def instruction_floor_ms(tests, per_test, sm_mhz):
+    """The least time of `tests` tests of `per_test` SASS instructions
+    each when every lane of the card issues one a cycle at `sm_mhz`."""
+    return 1e3 * tests * per_test / (H100_SMS * LANES_PER_SM * sm_mhz * 1e6)
 
 
 def solve_flop(tables, batch, points, iterations):
@@ -1719,7 +1750,9 @@ def runtime_physics(card):
     runtime Gauss-Seidel on the settled piles) and the gear-train vehicle
     (cylinders and GJK, split-Jacobi).  Each prints its rates on the host
     clock (synchronised), launches per frame and the device's busy share
-    from the profiler, and fails on any check."""
+    from the profiler, and fails on any check.  The entries' runner steps
+    the first frame of a call eagerly and replays the next one's CUDA graph
+    for every later frame; runtime_gs's single frame stays eager."""
     stack_drop_1k(card)
     vehicle(card)
 
@@ -1806,7 +1839,8 @@ def stack_drop_1k(card):
     frame_ms = 1e3 * STACK_1K_BATCH / sps
     print(f"stack drop 1k: {STACK_1K_BODIES} bodies x {STACK_1K_BATCH} "
           f"scenes, {STACK_1K_STEPS} frames of 1/60 s (120 Hz, 30 "
-          f"iterations, split_jacobi) in {secs:.2f} s: {sps:.1f} "
+          f"iterations, split_jacobi; graph replays after the first) in "
+          f"{secs:.2f} s: {sps:.1f} "
           f"scene-steps/s, {sps * STACK_1K_BODIES:.0f} body-steps/s | "
           f"heights min {heights[0]:.4f} mean {heights[1]:.4f} max "
           f"{heights[2]:.4f}; over the run (every {PHYS_CHECK_EVERY} frames) "
@@ -1909,8 +1943,9 @@ def vehicle(card):
     vsps = VEHICLE_BATCH * VEHICLE_STEPS / vsecs
     v_frame_ms = 1e3 * VEHICLE_BATCH / vsps
     print(f"vehicle: {VEHICLE_BATCH} scenes (throttle {VEHICLE_THROTTLES}), "
-          f"{VEHICLE_STEPS} frames of 1/60 s (60 Hz, split_jacobi) in "
-          f"{vsecs:.2f} s: {vsps:.1f} scene-steps/s | at throttle 10 drove "
+          f"{VEHICLE_STEPS} frames of 1/60 s (60 Hz, split_jacobi; graph "
+          f"replays after the first) in {vsecs:.2f} s: {vsps:.1f} "
+          f"scene-steps/s | at throttle 10 drove "
           f"{drove.min().item():.3f}-{drove.max().item():.3f} m, chassis "
           f"height {motor[fast, 1].mean().item():.4f} | profiler over "
           f"{PHYS_PROFILE_STEPS} frames: {v_kpf:.0f} kernels per frame (one "
@@ -3525,7 +3560,10 @@ def characters(card, cuda_ms, max_err):
     against the pair path on its own BVH, the frame's times, profile and
     stages; the overlays; the group kernel against its plain version with
     and without feedback, garbage and stale feedback against none, its
-    time beside the pair kernel's on the same frame and its bound; card
+    counters (per row band: visits run and skipped, rows tested and
+    culled) against the rows any exact cull per band must test, its
+    registers and shared memory, its time beside the pair kernel's on the
+    same frame and its bound; card
     against CPU; then the fitted ragdolls' drop through kernel #2 (or #1)
     against plain.  Returns the launches, errors and the group kernel's
     line for the kernels line."""
@@ -3534,6 +3572,7 @@ def characters(card, cuda_ms, max_err):
     import torch
     from torch.autograd import DeviceType
 
+    from d3d12renderer_tpu_torch import cuda_build
     from d3d12renderer_tpu_torch import entry as entry_mod
     from d3d12renderer_tpu_torch.entry import (character_entry,
                                                character_ragdoll_entry)
@@ -3753,9 +3792,9 @@ def characters(card, cuda_ms, max_err):
                     bvh, cam, OPT_W, OPT_H, jitter=jit,
                     tile_qmin=feedback["own"]), RASTER_RUNS)}
         plan = raster.visit_plan(tables, wp, hp, jit)
-        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        stats = torch.zeros(4, dtype=torch.int64, device=dev)
         kernel_fn(tables, plan, jit, wp, hp, stats=stats)
-        run_v, skip_v = stats.tolist()
+        run_v, skip_v, rows_tested, rows_culled = stats.tolist()
         planes, rect, q_tri = raster.project_planes(
             bvh.tri_v0, bvh.tri_e1, bvh.tri_e2, bvh.tri_valid, mat, attr,
             wp, hp)
@@ -3773,22 +3812,28 @@ def characters(card, cuda_ms, max_err):
         end.record()
         sync()
         g_plain_ms = start.elapsed_time(end)
-        # The visits any exact cull must run: those whose bound (the
-        # largest q the group's triangles of the tile give any sample of
-        # it, exact) exceeds the tile's least final q; and their triangles
-        # binned to the tile, the ones the kernel tests.
+        # The visits any exact cull at the tile's granularity must run:
+        # those whose bound (the largest q the group's triangles of the
+        # tile give any sample of it, exact) exceeds the tile's least
+        # final q.
         least = raster.tile_min(want[0], wp, hp)
-        must = plan.bound > least[plan.visit_tile]
-        needed = int(must.sum())
-        needed_tris = int(raster.visit_cover(
-            tables, plan.visit_tile[must], plan.group[must], wp).sum())
+        needed = int((plan.bound > least[plan.visit_tile]).sum())
+        # The bound counts the (visit, band, row) tests any exact cull of
+        # a row per band must run, the kernel's granularity; its rows
+        # tested cover them.
+        g_bound = group_bound(raster, tables, plan, want[0], jit, wp, hp)
+        rows_needed = g_bound[2] // (raster.PX // raster.GROUP_BANDS)
         per_tile = (plan.seg[1:] - plan.seg[:-1]).long()
         jax_drops = int(torch.clamp(per_tile - raster.VISIT_CAP, min=0).sum())
+    if run_v + skip_v != raster.GROUP_BANDS * plan.visits \
+            or not rows_needed <= rows_tested:
+        fail(f"characters: the group kernel's counters: {run_v} visits run "
+             f"+ {skip_v} skipped, want {raster.GROUP_BANDS} x "
+             f"{plan.visits}; {rows_tested} rows tested, any exact cull per "
+             f"band must test {rows_needed}")
+    g_ptxas = ptxas_summary((cuda_build.build_library().parent
+                             / "build.log").read_text(), "raster_groups")
     fb_visits = {n: r[0]["visits"] for n, r in results.items()}
-    g_bound = bound(tables.planes.numel() * 4 + tables.tri_tiles.numel() * 4
-                    + plan.visits * 8 + plan.seg.numel() * 4
-                    + plan.tiles.numel() * 4 + 8 + wp * hp * 8,
-                    needed_tris * raster.PX * RASTER_PAIR_FLOP)
     print(f"characters: group path vs pair path over the {CHAR_FRAMES} "
           f"frames: t equal, uv equal where tri is, tri equal but at "
           f"{ties} pixels of exact ties | overlays changed {overlay} pixels (bound "
@@ -3800,13 +3845,20 @@ def characters(card, cuda_ms, max_err):
           f"{plan.visits} visits over {plan.tiles.numel()} tiles (at most "
           f"{int(per_tile.max())} a tile; JAX's cap of {raster.VISIT_CAP} "
           f"would drop {jax_drops}), "
-          f"{run_v} run, {skip_v} skipped by the early-out, {needed} any "
-          f"exact cull must run ({needed_tris} (visit, triangle) tests) | "
+          f"{needed} any exact cull per tile must run | per (visit, band), {raster.GROUP_BANDS} bands "
+          f"a tile: {run_v} run, {skip_v} skipped by the early-out; in "
+          f"those run, {rows_tested} rows tested, {rows_culled} culled, "
+          f"{rows_needed} that any exact cull of a row per band must test | "
+          f"{g_ptxas} | "
           f"the query {q_ms['without']:.3f} ms without feedback, "
           f"{q_ms['own']:.3f} with its own (CUDA events) | group kernel {g_ms:.3f} ms, pair kernel "
           f"{p_ms:.3f} ms ({int(pair_tri.shape[0])} pairs) on the same "
           f"frame (CUDA events), plain {g_plain_ms:.1f} ms, bound "
-          f"{g_bound[0]:.4f} ms ({g_bound[1]}) | {card} | "
+          f"{g_bound[0]:.4f} ms ({g_bound[1]}: {g_bound[2]} (visit, band, "
+          f"row, pixel) tests; counted per tile, "
+          f"{g_bound[3]} tests, "
+          f"{1e3 * g_bound[3] * RASTER_PAIR_FLOP / FP32_FLOP_PER_S:.4f} ms) "
+          f"| {card} | "
           f"{time.perf_counter() - t_check:.1f} s", flush=True)
 
     # The card against the CPU over 256x144: the raster slice's meshes,

@@ -81,8 +81,7 @@ def quat_mul(a, b):
 
 
 def quat_conj(q):
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
-                            device=q.device)
+    return q * constant((-1.0, -1.0, -1.0, 1.0), q.dtype, q.device)
 
 
 def quat_rotate(q, v):

@@ -2,7 +2,7 @@
 // 2D-homogeneous edge functions over 64x32-pixel screen tiles.
 // `raster_tiles` (below) is the pair path, one block per row band of a
 // tile; `raster_groups` (at the end of the file) the group path with its
-// early-out, one block per tile.
+// early-out, also one block per row band.
 //
 // Replaces the JAX package's Pallas kernel
 // d3d12renderer_tpu/ops/raster_pallas.py:329 `_raster_kernel`, on its pair
@@ -229,105 +229,199 @@ extern "C" int raster_launch(const RasterArgs* args, int device, void* stream) {
 // The planes are read in groups of RASTER_GROUP consecutive rows (the BVH's
 // leaf order; padding rows are NaN).  Each tile's visits are (tile, group)
 // pairs sorted front to back by the group's quantised bound (visit_plan in
-// ops/raster.py, as JAX sorts its visit words); the block of a tile walks
-// them in order.  Before each visit it takes the least q of the tile's
-// pixels (warp shuffles, then the warps' minima in shared memory) and skips
-// the visit unless that least q is below the visit's bound: JAX's early-out
-// (raster_pallas.py:415-418), on an exact bound (`visit_bounds` in
-// ops/raster.py: each plane's q at the tile's corner sample, as the pair
-// path's cull), where JAX's bound from the vertices' q does not hold for
-// the float32 planes of small triangles.
-// Otherwise the group's 128 plane rows are staged in shared memory, with
-// each row's tile range (the tiles the pair path bins the triangle to), and
-// each thread tests in order the rows whose range holds the tile against
-// its pixels, a candidate replacing the pixel's best only with a strictly
-// larger q: the first of equal q in the visit order wins (JAX's packed key
-// drops q's low 7 bits instead).  JAX tests all 128 rows, and the float32
-// plane of a sub-pixel triangle then wins pixels far outside its rect; with
-// the ranges a tile tests the pair path's triangles, so the frame is the
-// pair path's wherever the winner is unique.
+// ops/raster.py, as JAX sorts its visit words); a visit tests, in row
+// order, the group's triangles that the pair path bins to the tile (each
+// row's tile range), a candidate replacing the pixel's best only with a
+// strictly larger q: the first of equal q in the visit order wins (JAX's
+// packed key drops q's low 7 bits instead).  JAX tests all 128 rows, and
+// the float32 plane of a sub-pixel triangle then wins pixels far outside
+// its rect; with the ranges a tile tests the pair path's triangles.
 //
-// One block per tile (the early-out reads the whole tile's least q, so a
-// tile is not split into bands here); the launch covers the tiles of
-// `tiles`, so the repair phase of the occlusion feedback runs only its
-// dirty tiles, writing their pixels over the first phase's.
+// The work is uneven: most tiles hold a few visits, the character crowd's
+// tiles up to ~200, and one block walking such a tile set the kernel's
+// time (PERF.md's kernel table, row 5).  So:
+// * A tile is split into RASTER_GROUP_BANDS row bands, one block per band,
+//   each walking the tile's visits and deciding on its own pixels: a heavy
+//   tile spreads over more SMs, and a band covered near the camera skips
+//   what the whole tile would still run.
+// * The early-out (JAX's, raster_pallas.py:415-418) skips a visit unless
+//   the band's least best q is below the visit's exact bound (`visit_bounds`
+//   in ops/raster.py: the largest q the visit's triangles give any sample
+//   of the tile); JAX's bound from the vertices' q does not hold for the
+//   float32 planes of small triangles.
+// * A visit that runs culls each row whose plane gives no larger q than
+//   the band's least best q at any sample of the band: q = (qx px + qy py)
+//   + qw, each operation rounded, is monotone in px and in py, so its
+//   largest is the plane at one corner sample, picked by the signs of qx
+//   and qy (the pair kernel's cull).  The rows kept are compacted, in
+//   order, into a list that the test loop walks.
+// * A visit that runs stages its group's 128 plane rows (6 KB) and tile
+//   ranges (2 KB) in shared memory, every thread loading its share; the
+//   other blocks on the SM hide the load (bulk copies into a second
+//   buffer while the block tests the first were no faster).
+// * A tile of more than `chunk` visits is split into chunks of `chunk`
+//   visits, each walked by its own blocks from best q 0; the chunks'
+//   winners meet in a 64-bit atomicMax of (q's bits, ~(visit * 128 +
+//   row)): q > 0 orders as its bits, and among equal q the first in visit
+//   order wins, as in one walk.  The tile's last block writes its pixels.
+// * Blocks launch longest chunk first (`items`, sorted on the device), so
+//   the long walks start while the short ones fill the rest of the card.
+// A culled or skipped test cannot win a pixel (a win needs a strictly
+// larger q), so the result is that of testing every binned row of every
+// visit, bit for bit; only the counters show the difference.  Eight bands
+// of 128 threads (2 pixels a thread) and chunks of 64 visits were the
+// fastest of those measured on the H100; a second cull of each row over a
+// warp's own pixels cost more than it saved (PERF.md's kernel table, row 5).
 //
-// Bound on the H100: 4 two-term dots and 6 compares per (triangle, pixel)
-// of the tile's triangles in every visit that runs, 2048 pixels a
-// triangle, over 67 TFLOP/s; it reads 6.5 KB of planes and ranges a visit
-// and writes 8 bytes a pixel.  The visits that run are the bound's count
-// (PERF.md's kernel table, row 5).
+// The launch covers the tiles of `tiles`, so the repair phase of the
+// occlusion feedback runs only its dirty tiles, writing their pixels over
+// the first phase's.
+//
+// Bound on the H100: 4 two-term dots and 6 compares per (row, pixel) of
+// the (visit, band, row)s that any exact cull of a row per band must test
+// (`group_rows_needed` in ops/raster.py), 256 pixels a band, over 67
+// TFLOP/s; it reads 6.5 KB of planes and ranges a visit and writes 8 bytes
+// a pixel (PERF.md's kernel table, row 5).
 
 constexpr int RASTER_GROUP = 128;
+constexpr int RASTER_GROUP_BANDS = 8;     // blocks per tile, one per row band
+constexpr int RASTER_GROUP_THREADS = 128;  // threads per block on the card
+constexpr int RASTER_GROUP_BAND_PX = RASTER_PX / RASTER_GROUP_BANDS;
+constexpr int RASTER_GROUP_PPT = RASTER_GROUP_BAND_PX / RASTER_GROUP_THREADS;
+constexpr int RASTER_GROUP_WARPS = RASTER_GROUP_THREADS / 32;
+static_assert(RASTER_GROUP_BAND_PX == RASTER_GROUP_THREADS * RASTER_GROUP_PPT &&
+                  RASTER_GROUP_THREADS % 64 == 0,
+              "a band is whole pairs of warps, RASTER_GROUP_PPT rows a pair");
 
 struct RasterGroupArgs {
-  const float* planes;      // (groups * RASTER_GROUP, RASTER_PLANE_COLS)
-  const int* tri_tiles;     // (groups * RASTER_GROUP, 4) tx0, ty0, tx1, ty1
-  const int* tiles;         // (n_blocks,) the tile of each block
-  const int* seg;           // (n_blocks + 1,) block b's visits [seg[b], seg[b+1])
+  const float* planes;      // (groups * RASTER_GROUP, RASTER_PLANE_COLS), 16-byte aligned
+  const int* tri_tiles;     // (groups * RASTER_GROUP, 4) tx0, ty0, tx1, ty1, 16-byte aligned
+  const int* tiles;         // (n_launch,) the launched tiles
+  const int* seg;           // (n_launch + 1,) tile tiles[s]'s visits [seg[s], seg[s+1])
+  const int* items;         // (n_items, 4) slot s (-1: none), visits [begin, end),
+                            // split tile k (-1: the tile's only chunk); longest first
   const int* group;         // (V,) each visit's group, front to back per tile
   const float* bound;       // (V,) the largest q each visit can give
   const float* jitter;      // (2,) sub-pixel sample offset
   float* q_out;             // (rows * row_pixels,) row-major, 0 on a miss
   int* tri_out;             // -1 on a miss
-  unsigned long long* stats;  // null, or (2,) += visits run, visits skipped
+  unsigned long long* keys;  // (splits * RASTER_PX,) zeros: split tile k's merge
+  int* tickets;             // (splits,) zeros: split tile k's blocks done
+  unsigned long long* stats;  // null, or (4,) += per band: visits run, visits
+                              // skipped, rows tested, rows culled
   int ntx;
-  int n_blocks;
+  int n_items;
+  int chunk;                // a tile of more visits is split into chunks of this many
   int row_pixels;
 };
 
 namespace {
 
+// One visit's group, staged in shared memory.
+struct GroupStage {
+  float4 plane[RASTER_GROUP * 3];  // the rows' planes
+  int4 range[RASTER_GROUP];        // the rows' tile ranges
+};
+
+// Thread threadIdx.x's pixel j of its band, as an index into the band's
+// rows of RASTER_TILE_X pixels.
 template <int PPT>
-__global__ void __launch_bounds__(RASTER_PX / PPT) raster_groups(const RasterGroupArgs A) {
-  __shared__ float4 s_plane[RASTER_GROUP * 3];
-  __shared__ bool s_keep[RASTER_GROUP];
-  // Double-buffered by the visit's parity: a warp may write the next
-  // visit's minimum while another still reads this one's.
-  __shared__ float s_warp_min[2][RASTER_PX / RASTER_PPT / 32];
-  const int tile = A.tiles[blockIdx.x];
+__device__ __forceinline__ int band_pixel(int j) {
+  return PPT == RASTER_GROUP_BAND_PX
+             ? j
+             : (int)((threadIdx.x / 64) * PPT + j) * RASTER_TILE_X + threadIdx.x % 64;
+}
+
+// PPT pixels per thread: RASTER_GROUP_PPT on the card (each pair of warps
+// takes PPT whole pixel rows of the band, so a warp's pixels are a 32 x PPT
+// rectangle), all of a band's pixels for the one-thread blocks of the host
+// tests.
+template <int PPT>
+__global__ void __launch_bounds__(RASTER_GROUP_BAND_PX / PPT) raster_groups(const RasterGroupArgs A) {
+  __shared__ GroupStage s;
+  __shared__ unsigned char s_row[RASTER_GROUP];  // the rows to test, in order
+  __shared__ int s_kept[RASTER_GROUP_WARPS];
+  __shared__ float s_warp_min[RASTER_GROUP_WARPS];
+  __shared__ int s_last;
+  const int* item = A.items + 4 * (blockIdx.x / RASTER_GROUP_BANDS);
+  const int slot = item[0];
+  if (slot < 0) return;
+  const int band = blockIdx.x % RASTER_GROUP_BANDS;
+  const int tile = A.tiles[slot];
   const int tx = tile % A.ntx, ty = tile / A.ntx;
   const int tx0 = tx * RASTER_TILE_X;
-  const int ty0 = ty * RASTER_TILE_Y;
+  constexpr int rows = RASTER_TILE_Y / RASTER_GROUP_BANDS;  // the band's pixel rows
+  const int y0 = ty * RASTER_TILE_Y + band * rows;
   const float jx = A.jitter[0], jy = A.jitter[1];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = (int)(blockDim.x + 31) / 32;
   float px[PPT], py[PPT], best_q[PPT];
-  int best_tri[PPT];
+  int best_rank[PPT];  // the winner's visit * RASTER_GROUP + row, -1 for none
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
-    const int r = threadIdx.x + j * blockDim.x;
+    const int r = band_pixel<PPT>(j);
     px[j] = rn_add((float)(tx0 + r % RASTER_TILE_X), jx);
-    py[j] = rn_add((float)(ty0 + r / RASTER_TILE_X), jy);
+    py[j] = rn_add((float)(y0 + r / RASTER_TILE_X), jy);
     best_q[j] = 0.0f;
-    best_tri[j] = -1;
+    best_rank[j] = -1;
   }
-  const float4* planes = reinterpret_cast<const float4*>(A.planes);
-  const int begin = A.seg[blockIdx.x], end = A.seg[blockIdx.x + 1];
-  const int warps = (int)(blockDim.x + 31) / 32;
-  int run = 0;
-  for (int v = begin; v < end; ++v) {
+  // The band's first and last sample column and row, as the pixels have them.
+  const float x_lo = rn_add((float)tx0, jx);
+  const float x_hi = rn_add((float)(tx0 + RASTER_TILE_X - 1), jx);
+  const float y_lo = rn_add((float)y0, jy);
+  const float y_hi = rn_add((float)(y0 + rows - 1), jy);
+  const int begin = item[1], end = item[2];
+  int run = 0, tested = 0, culled = 0;
+  for (int cur = begin;; ++cur) {
     float least = best_q[0];
 #pragma unroll
     for (int j = 1; j < PPT; ++j) least = fminf(least, best_q[j]);
     least = warp_min(least);
-    const int slot = (v - begin) & 1;
-    if (threadIdx.x % 32 == 0) s_warp_min[slot][threadIdx.x / 32] = least;
+    if (lane == 0) s_warp_min[warp] = least;
     __syncthreads();                     // also: the last visit's rows consumed
-    least = s_warp_min[slot][0];
-    for (int w = 1; w < warps; ++w) least = fminf(least, s_warp_min[slot][w]);
-    if (!(least < A.bound[v])) continue;   // the same for the whole block
+    least = s_warp_min[0];
+    for (int w = 1; w < warps; ++w) least = fminf(least, s_warp_min[w]);
+    while (cur < end && !(least < __ldg(A.bound + cur))) ++cur;  // skipped
+    if (cur >= end) break;
     ++run;
-    const int g = A.group[v];
-    const float4* rows = planes + (size_t)g * RASTER_GROUP * 3;
-    for (int i = threadIdx.x; i < RASTER_GROUP * 3; i += blockDim.x) s_plane[i] = rows[i];
-    for (int i = threadIdx.x; i < RASTER_GROUP; i += blockDim.x) {
-      const int* r = A.tri_tiles + ((size_t)g * RASTER_GROUP + i) * 4;
-      s_keep[i] = r[0] <= tx && tx <= r[2] && r[1] <= ty && ty <= r[3];
-    }
+    const size_t g = (size_t)__ldg(A.group + cur) * RASTER_GROUP;
+    const float4* plane = reinterpret_cast<const float4*>(A.planes + g * RASTER_PLANE_COLS);
+    const int4* range = reinterpret_cast<const int4*>(A.tri_tiles + g * 4);
+    for (int i = threadIdx.x; i < RASTER_GROUP * 3; i += blockDim.x) s.plane[i] = __ldg(plane + i);
+    for (int i = threadIdx.x; i < RASTER_GROUP; i += blockDim.x) s.range[i] = __ldg(range + i);
     __syncthreads();
-    for (int k = 0; k < RASTER_GROUP; ++k) {
-      if (!s_keep[k]) continue;           // the same for the whole block
-      const float* p = reinterpret_cast<const float*>(s_plane + 3 * k);
-      const int tri = g * RASTER_GROUP + k;
+    // The rows binned to the tile whose q exceeds the band's least best q
+    // somewhere in the band, compacted in order into s_row.
+    int n = 0;
+    for (int i0 = 0; i0 < RASTER_GROUP; i0 += blockDim.x) {
+      const int i = i0 + (int)threadIdx.x;
+      bool binned = false, keep = false;
+      if (i < RASTER_GROUP) {
+        const int4 r = s.range[i];
+        binned = r.x <= tx && tx <= r.z && r.y <= ty && ty <= r.w;
+        const float4 c = s.plane[3 * i + 2];
+        keep = binned && !(edge(c.y, c.z, c.w, c.y >= 0.0f ? x_hi : x_lo,
+                                c.z >= 0.0f ? y_hi : y_lo) <= least);
+      }
+      const unsigned vote = __ballot_sync(0xffffffffu, keep);
+      const int kept = __popc(vote);
+      const int in_tile = __popc(__ballot_sync(0xffffffffu, binned));
+      if (lane == 0) {
+        s_kept[warp] = kept;
+        culled += in_tile - kept;
+      }
+      __syncthreads();
+      int at = n;
+      for (int w = 0; w < warp; ++w) at += s_kept[w];
+      if (keep) s_row[at + __popc(vote & ((1u << lane) - 1u))] = (unsigned char)i;
+      for (int w = 0; w < warps; ++w) n += s_kept[w];
+      __syncthreads();
+    }
+    tested += n;
+    const int rank = cur * RASTER_GROUP;
+    for (int t = 0; t < n; ++t) {
+      const int i = s_row[t];
+      const float* p = reinterpret_cast<const float*>(s.plane + 3 * i);
 #pragma unroll
       for (int j = 0; j < PPT; ++j) {
         const float e0 = edge(p[0], p[1], p[2], px[j], py[j]);
@@ -338,22 +432,60 @@ __global__ void __launch_bounds__(RASTER_PX / PPT) raster_groups(const RasterGro
         if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && q > 0.0f && q <= FLT_MAX &&
             q > best_q[j]) {
           best_q[j] = q;
-          best_tri[j] = tri;
+          best_rank[j] = rank + i;
         }
       }
     }
   }
-  if (A.stats != nullptr && threadIdx.x == 0) {
-    atomicAdd(A.stats, (unsigned long long)run);
-    atomicAdd(A.stats + 1, (unsigned long long)(end - begin - run));
+  if (A.stats != nullptr) {
+    if (threadIdx.x == 0) {
+      atomicAdd(A.stats, (unsigned long long)run);
+      atomicAdd(A.stats + 1, (unsigned long long)(end - begin - run));
+      atomicAdd(A.stats + 2, (unsigned long long)tested);
+    }
+    if (lane == 0 && culled) atomicAdd(A.stats + 3, (unsigned long long)culled);
   }
+  const int split = item[3];
+  if (split < 0) {  // the tile's only chunk: write its pixels
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const int r = band_pixel<PPT>(j);
+      const int rank = best_rank[j];
+      const size_t o = (size_t)(y0 + r / RASTER_TILE_X) * A.row_pixels + tx0 + r % RASTER_TILE_X;
+      A.q_out[o] = best_q[j];
+      A.tri_out[o] = rank < 0 ? -1 : __ldg(A.group + rank / RASTER_GROUP) * RASTER_GROUP + rank % RASTER_GROUP;
+    }
+    return;
+  }
+  // A split tile: each chunk's winners meet in a 64-bit maximum of (q's
+  // bits, ~rank); q > 0 orders as its bits, and among equal q the least
+  // rank, the first in visit order, wins.  The tile's last block to finish
+  // writes its pixels.
+  unsigned long long* keys = A.keys + (size_t)split * RASTER_PX;
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
-    const int r = threadIdx.x + j * blockDim.x;
-    const size_t o = (size_t)(ty0 + r / RASTER_TILE_X) * A.row_pixels + tx0 +
-                     r % RASTER_TILE_X;
-    A.q_out[o] = best_q[j];
-    A.tri_out[o] = best_tri[j];
+    const int r = band_pixel<PPT>(j);
+    if (best_rank[j] >= 0)
+      atomicMax(keys + band * rows * RASTER_TILE_X + r,
+                (unsigned long long)__float_as_uint(best_q[j]) << 32 | ~(unsigned)best_rank[j]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int visits = A.seg[slot + 1] - A.seg[slot];
+    s_last = atomicAdd(A.tickets + split, 1) ==
+             (visits + A.chunk - 1) / A.chunk * RASTER_GROUP_BANDS - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int ty0 = ty * RASTER_TILE_Y;
+  for (int r = threadIdx.x; r < RASTER_PX; r += blockDim.x) {
+    const unsigned long long key = __ldcg(keys + r);
+    const unsigned rank = ~(unsigned)key;
+    const size_t o = (size_t)(ty0 + r / RASTER_TILE_X) * A.row_pixels + tx0 + r % RASTER_TILE_X;
+    A.q_out[o] = __uint_as_float((unsigned)(key >> 32));
+    A.tri_out[o] = key == 0 ? -1 : __ldg(A.group + rank / RASTER_GROUP) * RASTER_GROUP + rank % RASTER_GROUP;
   }
 }
 
@@ -361,18 +493,19 @@ __global__ void __launch_bounds__(RASTER_PX / PPT) raster_groups(const RasterGro
 
 extern "C" int raster_group_args_size() { return (int)sizeof(RasterGroupArgs); }
 
-// Launches one block per entry of `tiles` on `stream`; returns
-// cudaGetLastError() after the launch (0 = ok).
+// Launches RASTER_GROUP_BANDS blocks per entry of `items` on `stream`;
+// returns cudaGetLastError() after the launch (0 = ok).
 extern "C" int raster_groups_launch(const RasterGroupArgs* args, int device,
                                     void* stream) {
-  if (args->n_blocks == 0) return 0;
+  if (args->n_items == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const RasterGroupArgs a = *args;
   void* params[] = {(void*)&a};
-  err = cudaLaunchKernel((const void*)raster_groups<RASTER_PPT>,
-                         dim3(a.n_blocks), dim3(RASTER_PX / RASTER_PPT), params,
-                         0, (cudaStream_t)stream);
+  err = cudaLaunchKernel((const void*)raster_groups<RASTER_GROUP_PPT>,
+                         dim3(a.n_items * RASTER_GROUP_BANDS),
+                         dim3(RASTER_GROUP_THREADS), params, 0,
+                         (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

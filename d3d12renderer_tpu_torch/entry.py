@@ -109,16 +109,77 @@ VEHICLE_FRAME_RATE = 60
 STACK_GS_COLORS = 128
 
 
+_BODY_FIELDS = ("pos", "rot", "vel", "omega", "force", "torque")
+
+
+class _FrameGraph:
+    """One frame `frame(state) -> (state, contacts)` captured into a CUDA
+    graph for states of one shape.  `run(state, steps)` replays it `steps`
+    times from `state` and returns copies of the graph's buffers, so that
+    a later replay does not overwrite what the caller holds."""
+
+    def __init__(self, frame, state):
+        self.state = state.replace(**{f: getattr(state, f).clone()
+                                      for f in _BODY_FIELDS})
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            out, self.contacts = frame(self.state)
+            for f in _BODY_FIELDS:
+                getattr(self.state, f).copy_(getattr(out, f))
+
+    def run(self, state, steps):
+        from .utils.checkpoint import tree_map
+
+        for f in _BODY_FIELDS:
+            getattr(self.state, f).copy_(getattr(state, f))
+        for _ in range(steps):
+            self.graph.replay()
+        return tree_map(_copy, self.state), tree_map(_copy, self.contacts)
+
+
+def _copy(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _launch_total():
+    return sum(w.launches for w in _kernel_wrappers().values())
+
+
 def _physics_runner(arch, settings, default_steps=None, overrides=None):
+    """`fn(state, steps)` advances every scene by `steps` frames.  A frame
+    of these paths launches tens of thousands of small kernels (the
+    vehicle's about 95,000, the 1k stack drop's about 27,000) and keeps
+    the card busy for a tenth of its host time, so on a CUDA device the
+    first call of more than one frame for a state shape runs one frame
+    eagerly (which fills the step's caches), captures the next into a CUDA
+    graph and replays that graph for every later frame of that shape.  A
+    frame that launched a hand-written kernel stays eager: a replay would
+    not count its launches."""
+    from .physics.step import physics_step
+
+    def frame(state):
+        return physics_step(arch, state, settings, PHYSICS_FRAME_DT,
+                            motor_overrides=overrides)
+
+    graphs = {}
+
     @torch.inference_mode()
     def fn(state, steps=default_steps):
-        from .physics.step import physics_step
-
         contacts = None
+        key = tuple(getattr(state, f).shape for f in _BODY_FIELDS)
+        graph = graphs.get(key)
+        if state.pos.device.type == "cuda" and graph is None and steps > 1:
+            before = _launch_total()
+            state, contacts = frame(state)
+            steps -= 1
+            eager = _launch_total() != before
+            with torch.cuda.device(state.pos.device):
+                graph = graphs[key] = (
+                    False if eager else _FrameGraph(frame, state))
+        if graph and steps > 0:
+            return graph.run(state, steps)
         for _ in range(steps):
-            state, contacts = physics_step(arch, state, settings,
-                                           PHYSICS_FRAME_DT,
-                                           motor_overrides=overrides)
+            state, contacts = frame(state)
         return state, contacts
 
     return fn

@@ -80,6 +80,8 @@ PLAIN_BLOCK = 1 << 24
 # per-tile visit cap (the port keeps every visit; the tests compare with
 # JAX where JAX dropped none) and the occlusion feedback's margin.
 GROUP = 128
+GROUP_BANDS = 8          # group-mode blocks per tile, one per row band
+GROUP_CHUNK = 64         # a tile of more visits is split into chunks
 VISIT_CAP = 128
 FB_MARGIN = 1.0 - 1e-5
 
@@ -97,10 +99,10 @@ class RasterGroupArgs(ctypes.Structure):
     """raster.cu `RasterGroupArgs`."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "planes", "tri_tiles", "tiles", "seg", "group", "bound", "jitter",
-        "q_out",
-        "tri_out", "stats")] + [(name, ctypes.c_int) for name in (
-            "ntx", "n_blocks", "row_pixels")]
+        "planes", "tri_tiles", "tiles", "seg", "items", "group", "bound",
+        "jitter", "q_out", "tri_out", "keys", "tickets", "stats")] + [
+            (name, ctypes.c_int) for name in ("ntx", "n_items", "chunk",
+                                              "row_pixels")]
 
 
 # --------------------------------------------------------------------------
@@ -679,13 +681,49 @@ def rasterize_groups_plain(tables: FrameTables, plan: VisitPlan, jitter,
     return q_out, tri_out
 
 
+def group_items(seg, visits: int, chunk: int):
+    """(n_items, 4) int32 work items of the group kernel, on seg's device
+    without a host read: each launched tile's visits [seg[s], seg[s+1]) in
+    chunks of `chunk`, the last one shorter (one item for a tile without
+    visits), as (s, begin, end, k): k numbers the tiles split into more
+    than one chunk in slot order, -1 for the others.  Longest first,
+    padded with (-1, 0, 0, -1) to the most items `visits` can make
+    (n_launch + visits // chunk).  The first chunk, which holds the
+    nearest visits and so culls the most, is a whole one."""
+    n_launch = seg.shape[0] - 1
+    dev = seg.device
+    seg = seg.long()
+    counts = seg[1:] - seg[:-1]
+    n_chunks = torch.clamp((counts + chunk - 1) // chunk, min=1)
+    ends = torch.cumsum(n_chunks, 0)
+    split = torch.cumsum(n_chunks > 1, 0) - 1
+    i = torch.arange(n_launch + visits // chunk, device=dev)
+    slot = torch.searchsorted(ends, i, right=True)
+    s = torch.clamp(slot, max=n_launch - 1)
+    begin = seg[s] + (i - ends[s] + n_chunks[s]) * chunk
+    end = torch.minimum(begin + chunk, seg[s + 1])
+    real = slot < n_launch
+    items = torch.stack([torch.where(real, slot, -1),
+                         torch.where(real, begin, 0),
+                         torch.where(real, end, 0),
+                         torch.where(real & (n_chunks[s] > 1), split[s], -1)],
+                        1)
+    order = torch.sort(torch.where(real, end - begin, -1), descending=True,
+                       stable=True).indices
+    return items[order].to(torch.int32).contiguous()
+
+
 def launch_groups(launch_fn, tables: FrameTables, plan: VisitPlan, jitter,
                   width: int, height: int, base=None, stats=None):
     """Checks the inputs, allocates the row-major outputs (q, tri) (copies
     of `base`, or 0 and -1, where tiles are not launched), calls
     `launch_fn(RasterGroupArgs*)` and raises if it reports an error.
-    `stats`, a (2,) int64 tensor, receives the visits run and skipped
-    (added to it)."""
+    The kernel's blocks take the work items of `group_items` (tiles of
+    more than GROUP_CHUNK visits split, read at each call), longest
+    first.  `stats`, a (4,) int64 tensor,
+    receives per row band (GROUP_BANDS a tile) the visits run and skipped
+    and, in the visits run, the rows binned to the tile that were tested
+    and culled (added to it)."""
     planes = tables.planes
     dev = planes.device
     _check("planes", planes, torch.float32, PLANE_COLS, dev)
@@ -702,24 +740,33 @@ def launch_groups(launch_fn, tables: FrameTables, plan: VisitPlan, jitter,
             or tables.tri_tiles.shape[0] != planes.shape[0] \
             or plan.seg.shape != (n_launch + 1,) \
             or plan.bound.shape != plan.group.shape or jitter.shape != (2,) \
-            or (stats is not None and stats.shape != (2,)):
+            or (stats is not None and stats.shape != (4,)):
         raise ValueError(f"bad group raster shapes: {width}x{height}, planes "
                          f"{tuple(planes.shape)}, seg {tuple(plan.seg.shape)} "
                          f"for {n_launch} tiles")
-    if planes.data_ptr() % 16:
-        raise ValueError("planes must be 16-byte aligned")
+    if planes.data_ptr() % 16 or tables.tri_tiles.data_ptr() % 16:
+        raise ValueError("planes and tri_tiles must be 16-byte aligned")
     n = width * height
     if base is None:
         q = torch.zeros(n, dtype=torch.float32, device=dev)
         tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     else:
         q, tri = base[0].clone(), base[1].clone()
+    if n_launch == 0:
+        return q, tri
+    chunk = GROUP_CHUNK
+    items = group_items(plan.seg, plan.visits, chunk)
+    # A split tile holds more than `chunk` visits.
+    splits = min(n_launch, plan.visits // (chunk + 1))
+    keys = torch.zeros(splits * PX, dtype=torch.int64, device=dev)
+    tickets = torch.zeros(splits, dtype=torch.int32, device=dev)
     args = RasterGroupArgs(
         planes.data_ptr(), tables.tri_tiles.data_ptr(), plan.tiles.data_ptr(),
-        plan.seg.data_ptr(),
+        plan.seg.data_ptr(), items.data_ptr(),
         plan.group.data_ptr(), plan.bound.data_ptr(), jitter.data_ptr(),
-        q.data_ptr(), tri.data_ptr(),
-        0 if stats is None else stats.data_ptr(), ntx, n_launch, width)
+        q.data_ptr(), tri.data_ptr(), keys.data_ptr(), tickets.data_ptr(),
+        0 if stats is None else stats.data_ptr(), ntx, items.shape[0], chunk,
+        width)
     err = launch_fn(ctypes.byref(args))
     if err != 0:
         raise RuntimeError(f"group raster kernel launch failed: error {err}")
@@ -745,6 +792,35 @@ def rasterize_groups(tables: FrameTables, plan: VisitPlan, jitter,
 
 
 rasterize_groups.launches = 0
+
+
+def group_rows_needed(tables: FrameTables, plan: VisitPlan, q, jitter,
+                      width: int, height: int) -> int:
+    """The (visit, band, row) tests that any exact cull of a row per row
+    band (GROUP_BANDS a tile) must run, given the final image q ((height *
+    width,), row-major): the rows of each visit binned to its tile
+    (`visit_cover`) whose plane's largest q over the band (at the corner
+    sample the signs of qx and qy pick, as the kernel computes it) exceeds
+    the band's least final q.  The group kernel tests at least these."""
+    ntx = width // TILE_X
+    rows = TILE_Y // GROUP_BANDS
+    least = q.reshape(height // rows, rows, ntx, TILE_X).amin(dim=(1, 3))
+    cover = visit_cover(tables, plan.visit_tile, plan.group, width)
+    qp = tables.planes.reshape(-1, GROUP, PLANE_COLS)[plan.group.long()][
+        ..., 9:12]
+    tx, ty = plan.visit_tile % ntx, plan.visit_tile // ntx
+    x0 = (tx * TILE_X)[:, None]
+    x = torch.where(qp[..., 0] >= 0, x0 + TILE_X - 1, x0).to(
+        torch.float32) + jitter[0]
+    needed = 0
+    for band in range(GROUP_BANDS):
+        y0 = (ty * TILE_Y + band * rows)[:, None]
+        y = torch.where(qp[..., 1] >= 0, y0 + rows - 1, y0).to(
+            torch.float32) + jitter[1]
+        qc = (qp[..., 0] * x + qp[..., 1] * y) + qp[..., 2]
+        band_least = least[ty * GROUP_BANDS + band, tx][:, None]
+        needed += int((cover & (qc > band_least)).sum())
+    return needed
 
 
 def tile_min(q, width: int, height: int):

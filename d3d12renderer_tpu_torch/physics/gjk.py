@@ -198,7 +198,9 @@ def _simplex_closest(simplex, count):
     w2 = torch.stack([1 - t, t, zero, zero], -1)
 
     # The four faces in one batched call; face abc is also the k = 3 case.
-    fp, fq, fr = (simplex[..., [f[i] for f in _FACES], :] for i in range(3))
+    fp, fq, fr = (simplex.index_select(-2, m.constant(
+        tuple(f[i] for f in _FACES), torch.int64, simplex.device))
+        for i in range(3))
     fc, fw3 = _tri_bary(fp, fq, fr)                          # (..., 4, 3)
     fw = torch.zeros(fw3.shape[:-1] + (4,), dtype=fw3.dtype,
                      device=fw3.device)
@@ -210,7 +212,9 @@ def _simplex_closest(simplex, count):
     # Origin enclosed: for each face, the opposite vertex and the origin lie
     # on the same side.
     nrm = m.cross(fq - fp, fr - fp)
-    vs = torch.sum(nrm * (simplex[..., list(_OPPOSITE), :] - fp), -1)
+    opposite = simplex.index_select(
+        -2, m.constant(_OPPOSITE, torch.int64, simplex.device))
+    vs = torch.sum(nrm * (opposite - fp), -1)
     os = torch.sum(nrm * -fp, -1)
     enclosed = torch.all(vs * os >= 0, -1)
 
@@ -374,7 +378,7 @@ def _mtd_base_dirs_np():
     return np.stack(dirs).astype(np.float32)  # (26, 3)
 
 
-_MTD_DIRS_NP = _mtd_base_dirs_np()
+_MTD_DIRS = tuple(map(tuple, _mtd_base_dirs_np().tolist()))
 
 
 def sampled_mtd(a: ShapeRef, b: ShapeRef, seed_dir, rounds=6):
@@ -386,7 +390,7 @@ def sampled_mtd(a: ShapeRef, b: ShapeRef, seed_dir, rounds=6):
         s, _, _ = minkowski_support(a, b, d)
         return torch.sum(s * d, -1)
 
-    dirs = torch.as_tensor(_MTD_DIRS_NP, device=seed_dir.device)
+    dirs = m.constant(_MTD_DIRS, torch.float32, seed_dir.device)
     lead = seed_dir.shape[:-1]
     # All 26 base directions in one call, along a new leading axis.
     hs = height(dirs.reshape((26,) + (1,) * len(lead) + (3,)).expand(

@@ -158,9 +158,8 @@ def _clip(x, lo, hi):
 
 
 def _where(c, a, b):
-    a = torch.as_tensor(a, dtype=torch.float32, device=c.device)
-    b = torch.as_tensor(b, dtype=torch.float32, device=c.device)
-    return torch.where(c, a, b)
+    return torch.where(c, m.constant(a, torch.float32, c.device),
+                       m.constant(b, torch.float32, c.device))
 
 
 # --------------------------------------------------------------------------

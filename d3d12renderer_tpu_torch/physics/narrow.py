@@ -102,8 +102,7 @@ _BOX_CORNERS = (
 
 def box_corners(center, rot, half):
     """(..., 3), (..., 4), (..., 3) -> (..., 8, 3) world corners."""
-    corners = torch.tensor(_BOX_CORNERS, dtype=center.dtype,
-                           device=center.device)
+    corners = m.constant(_BOX_CORNERS, center.dtype, center.device)
     local = corners * half[..., None, :]
     return center[..., None, :] + m.quat_rotate(rot[..., None, :], local)
 
@@ -132,7 +131,7 @@ def hull_vs_plane(world_verts, vert_mask, n, offset):
 def cylinder_vs_plane(center, rot, radius, half_len, n, offset):
     """The rim points of both caps deepest and shallowest along the plane
     normal: 4 candidates."""
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=center.dtype, device=center.device)
+    up = m.constant((0.0, 1.0, 0.0), center.dtype, center.device)
     axis = m.quat_rotate(rot, up.expand(center.shape))
     cap0 = center - axis * half_len[..., None]
     cap1 = center + axis * half_len[..., None]
@@ -165,7 +164,7 @@ def _clip(x, lo, hi):
 
 
 def _const(x, ref):
-    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+    return m.constant(x, ref.dtype, ref.device)
 
 
 def sphere_vs_sphere(ca, ra, cb, rb):
@@ -175,7 +174,7 @@ def sphere_vs_sphere(ca, ra, cb, rb):
     hit = sq <= rsum * rsum
     dist = torch.sqrt(torch.clamp(sq, min=1e-16))
     normal = torch.where((sq < 1e-12)[..., None],
-                         _const([0.0, 1.0, 0.0], n).expand(n.shape),
+                         _const((0.0, 1.0, 0.0), n).expand(n.shape),
                          n / dist[..., None])
     depth = rsum - dist
     point = 0.5 * (ca + normal * ra[..., None] + cb - normal * rb[..., None])
@@ -377,14 +376,14 @@ def _clip_quad_rect(quad, lim_u, lim_v):
     rectangle |u| <= lim_u, |v| <= lim_v, with masks: the quad's vertices
     inside the rectangle, the rectangle's corners inside the quad, and the
     16 quad-edge x rectangle-edge intersections."""
-    nxt = list(_NEXT)
     in_rect = (torch.abs(quad[..., 0]) <= lim_u[..., None] + 1e-6) & (
         torch.abs(quad[..., 1]) <= lim_v[..., None] + 1e-6)
 
-    signs = _const([[1.0, 1.0], [1.0, -1.0], [-1.0, -1.0], [-1.0, 1.0]], quad)
+    signs = _const(((1.0, 1.0), (1.0, -1.0), (-1.0, -1.0), (-1.0, 1.0)), quad)
     corners = torch.stack([signs[:, 0] * lim_u[..., None],
                            signs[:, 1] * lim_v[..., None]], dim=-1)
-    quad_next = quad[..., nxt, :]
+    quad_next = quad.index_select(-2, m.constant(_NEXT, torch.int64,
+                                                   quad.device))
     e = quad_next - quad
     d = corners[..., :, None, :] - quad[..., None, :, :]
     cross = e[..., None, :, 0] * d[..., 1] - e[..., None, :, 1] * d[..., 0]
@@ -515,7 +514,7 @@ def box_vs_box(ca, ra, ha, cb, rb, hb):
     h_v = _take(inc_h, inc_v_axis)
 
     face_center = inc_c_l + inc_n_l * h_n[..., None]
-    signs2 = _const([[1, 1], [1, -1], [-1, -1], [-1, 1]], ca)
+    signs2 = _const(((1, 1), (1, -1), (-1, -1), (-1, 1)), ca)
     inc_verts = (face_center[..., None, :]
                  + signs2[..., 0, None] * inc_u[..., None, :]
                  * h_u[..., None, None]

@@ -393,6 +393,55 @@ def test_auto_backend_launches_the_kernel_on_cuda():
     assert torch.isfinite(obs).all()
 
 
+def _runtime_physics(scene, device):
+    from d3d12renderer_tpu_torch import entry as port_entry
+
+    if scene == "vehicle":
+        fn, (_, _, st) = port_entry.vehicle_entry(device=device, batch=2,
+                                                  throttle=(10.0, 8.0))
+    else:
+        fn, (_, st) = port_entry.stack_drop_entry(device=device, bodies=40,
+                                                  batch=2)
+    return fn, st
+
+
+def test_physics_runner_steps_like_single_frames_on_cpu():
+    """On the CPU the runner steps eagerly: three frames in one call are
+    the three frames of three calls, bit for bit."""
+    fn, st0 = _runtime_physics("stack", "cpu")
+    want = st0
+    for _ in range(3):
+        want, _ = fn(want, 1)
+    got, contacts = fn(st0, 3)
+    for f in ("pos", "rot", "vel", "omega"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert contacts is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["vehicle", "stack"])
+def test_physics_runner_graph_matches_eager_on_cuda(scene):
+    """On a card a call of several frames runs one eagerly, captures the
+    next into a CUDA graph and replays it.  The replays agree with eager
+    frames (split_jacobi adds with float atomics, so not bit for bit), and
+    a state the runner returned survives its later replays."""
+    _need_cuda()
+    fn_eager, st0 = _runtime_physics(scene, "cuda")
+    fn_graph, _ = _runtime_physics(scene, "cuda")
+    want = st0
+    for _ in range(6):
+        want, _ = fn_eager(want, 1)    # one frame a call: never captured
+    first, contacts = fn_graph(st0, 4)   # eager, capture, 3 replays
+    kept = first.pos.clone()
+    got, _ = fn_graph(first, 2)
+    assert torch.equal(first.pos, kept)
+    for f, tol in (("pos", 1e-4), ("rot", 1e-4), ("vel", 1e-3),
+                   ("omega", 1e-3)):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=0, atol=tol)
+    assert contacts is not None and torch.isfinite(got.pos).all()
+
+
 def _fused_vs_plain(batch, iterations):
     """One env step at `batch` envs from disturbed states, through the fused
     kernel and through its plain version (the unfused step, plain solve)."""
@@ -519,7 +568,9 @@ def test_raster_group_kernel_matches_plain_on_cuda():
     """The group mode of the raster kernel against its plain version over
     the atrium at 1080p: every tile, then the repair phase of a garbage
     feedback (a subset of tiles over phase 1's image); q and tri equal bit
-    for bit, one launch each, the counters adding up to the visits."""
+    for bit, one launch each, the counters adding up to GROUP_BANDS per
+    visit and the rows tested covering those any exact cull per band
+    must test."""
     _need_cuda()
     import math
 
@@ -534,7 +585,7 @@ def test_raster_group_kernel_matches_plain_on_cuda():
                                        tb.tri_valid, mat, attr, 1920, 1088)
     jit = torch.tensor([0.3, 0.7], device="cuda")
     plan = raster.visit_plan(tables, 1920, 1088, jit)
-    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stats = torch.zeros(4, dtype=torch.int64, device="cuda")
     before = raster.rasterize_groups.launches
     got = raster.rasterize_groups(tables, plan, jit, 1920, 1088,
                                   stats=stats)
@@ -542,13 +593,102 @@ def test_raster_group_kernel_matches_plain_on_cuda():
     want = raster.rasterize_groups_plain(tables, plan, jit, 1920,
                                          1088)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert int(stats.sum()) == plan.visits
+    run, skipped, tested, _ = stats.tolist()
+    assert run + skipped == raster.GROUP_BANDS * plan.visits
+    assert tested >= raster.group_rows_needed(tables, plan, want[0], jit,
+                                              1920, 1088)
     sub = raster.visit_plan(tables, 1920, 1088, jit,
                             tiles=plan.tiles[::3].clone())
     got = raster.rasterize_groups(tables, sub, jit, 1920, 1088,
                                   base=want)
     want = raster.rasterize_groups_plain(tables, sub, jit, 1920, 1088,
                                          base=want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _group_case(case):
+    """tests/test_torch_raster_group.py's scenes for the group kernel, on
+    the card through the port's own camera: (tables, plan, jitter, w, h,
+    hand-counted counters or None)."""
+    import math
+
+    from d3d12renderer_tpu_torch.ops import raster
+    from d3d12renderer_tpu_torch.render import bvh, camera, mesh
+
+    import torch_group_scenes as gs
+
+    if case in ("band-wall", "tied-rows"):
+        fn = gs.band_wall if case == "band-wall" else gs.tied_rows
+        (tables, plan, jit, w, h), counts = fn("cuda")
+        return tables, plan, jit, w, h, counts
+    if case == "slivers":
+        meshes, eye, target = [(gs.sliver_mesh(), 0)], gs.SLIVER_EYE, (
+            0.0, 0.0, 0.0)
+        (w, h), jit = gs.SLIVER_SIZE, (0.5, 0.5)
+    elif case == "early-out-wall":
+        meshes = [(gs.facing_grid(1, 6.0, 0.5), 1),
+                  (gs.facing_grid(24, 1.0, 3.0), 0)]
+        eye, target, w, h, jit = (0.0, 0.0, -2.0), (0.0, 0.0, 0.0), 64, \
+            32, (0.5, 0.5)
+    else:   # tests/test_torch_raster.py's CASES, its demo scene
+        meshes = [(mesh.quad(half=30.0), 0),
+                  (mesh.ico_sphere(1.0, 2).transformed(translate=(0, 1.0, 0)),
+                   1),
+                  (mesh.box((0.7, 0.7, 0.7)).transformed(
+                      translate=(2.2, 0.7, -0.5),
+                      rotate=(0.0, math.sin(0.3), 0.0, math.cos(0.3))), 3),
+                  (mesh.torus(0.9, 0.3).transformed(
+                      translate=(0.8, 0.3, 2.2)), 4)]
+        eye, target, w, h, jit = {
+            "near-plane-crossing": ((0.0, 0.4, -2.0), (0.0, 0.2, 2.0), 128,
+                                    64, (0.5, 0.5)),
+            "jittered": ((0.0, 1.5, -6.0), (0.0, 1.0, 0.0), 96, 64,
+                         (0.25, 0.75))}[case]
+    tb = bvh.build_bvh(meshes, device="cuda")
+    cam = camera.look_at(eye, target, device="cuda", v_fov=math.radians(60),
+                         aspect=w / h)
+    tables, wp, hp = gs.frame_tables(tb, cam, w, h)
+    jit = torch.tensor(jit, device="cuda")
+    return tables, raster.visit_plan(tables, wp, hp, jit), jit, wp, hp, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["slivers", "early-out-wall",
+                                  "near-plane-crossing", "jittered",
+                                  "band-wall", "tied-rows"])
+def test_raster_group_kernel_matches_plain_on_cuda_scenes(case, monkeypatch):
+    """The group kernel at its real block size against its plain version on
+    the host tests' scenes (edge-on slivers, the early-out wall, the demo
+    scene crossing the near plane and jittered, the one-band wall and the
+    tied rows): q and tri bit for bit, also with every visit a chunk of
+    its own (split tiles), then the repair phase over every other
+    tile; the counters add up per band, cover the rows any exact cull
+    must test, and equal the hand count where there is one."""
+    _need_cuda()
+    from d3d12renderer_tpu_torch.ops import raster
+
+    tables, plan, jit, w, h, counts = _group_case(case)
+    stats = torch.zeros(4, dtype=torch.int64, device="cuda")
+    got = raster.rasterize_groups(tables, plan, jit, w, h, stats=stats)
+    want = raster.rasterize_groups_plain(tables, plan, jit, w, h)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool((want[1] >= 0).any())
+    run, skipped, tested, _ = stats.tolist()
+    assert run + skipped == raster.GROUP_BANDS * plan.visits
+    assert tested >= raster.group_rows_needed(tables, plan, want[0], jit, w,
+                                              h)
+    # Every visit a chunk on its own blocks, merged by the 64-bit maximum.
+    with monkeypatch.context() as m:
+        m.setattr(raster, "GROUP_CHUNK", 1)
+        split = raster.rasterize_groups(tables, plan, jit, w, h)
+    assert all(torch.equal(a, b) for a, b in zip(split, want))
+    if counts is not None:
+        assert tuple(stats.tolist()) == counts
+        return
+    base = (torch.full_like(want[0], 0.25), torch.full_like(want[1], 7))
+    sub = raster.visit_plan(tables, w, h, jit, tiles=plan.tiles[::2].clone())
+    got = raster.rasterize_groups(tables, sub, jit, w, h, base=base)
+    want = raster.rasterize_groups_plain(tables, sub, jit, w, h, base=base)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 

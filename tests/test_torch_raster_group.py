@@ -15,6 +15,7 @@ low 7 bits); `uv` see `_compare`."""
 import ctypes
 import dataclasses
 import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,13 +26,15 @@ from d3d12renderer_tpu.ops import raster_pallas as rp
 from d3d12renderer_tpu.render import bvh as jbvh
 from d3d12renderer_tpu.render import camera as jcam
 from d3d12renderer_tpu.render import mesh as jmesh
-from d3d12renderer_tpu_torch import convert
+from d3d12renderer_tpu_torch import convert, cuda_build
 from d3d12renderer_tpu_torch.ops import raster
 from d3d12renderer_tpu_torch.render import bvh as tbvh
-from d3d12renderer_tpu_torch.render import mesh as tmesh
 
 from tests.test_torch_raster import (CASES, EDGE, TIE_REL, _candidates,
                                      _demo)
+from tests.torch_group_scenes import (SLIVER_EYE, SLIVER_SIZE, band_counters,
+                                      band_wall, facing_grid, sliver_mesh,
+                                      tied_rows)
 from tests.torch_host_build import build_host
 
 torch.set_num_threads(1)
@@ -247,31 +250,14 @@ def test_group_path_equals_pair_path(scenes, case):
 
 
 def _edge_on_slivers(n=4096, seed=0):
-    """n triangles seen edge-on, in random places of a 256x128 view: two
-    vertices of each lie on one ray from the eye, so it projects to a
-    segment and its float32 plane rows (1 / det of a det that is rounding
-    noise) are noise that covers samples far from it.  (BVH, camera, w,
-    h.)"""
-    rng = np.random.default_rng(seed)
-    eye = np.array([0.0, 0.0, -5.0])
-    d0 = rng.normal(size=(n, 3))
-    d0[:, 2] = np.abs(d0[:, 2]) * 8 + 4
-    d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
-    d1 = d0 + rng.normal(size=(n, 3)) * 0.02
-    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
-    s0, s1 = rng.uniform(4, 8, (2, n, 1))
-    s2 = s0 + rng.uniform(0.05, 0.3, (n, 1))
-    pos = np.stack([eye + d0 * s0, eye + d1 * s1, eye + d0 * s2], 1).reshape(
-        -1, 3).astype(np.float32)
-    mesh = tmesh.MeshData(
-        pos, np.tile([0.0, 0.0, -1.0], (len(pos), 1)).astype(np.float32),
-        np.zeros((len(pos), 2), np.float32),
-        np.arange(3 * n, dtype=np.int32).reshape(-1, 3))
-    w, h = 256, 128
+    """`torch_group_scenes.sliver_mesh`'s slivers seen from its eye through
+    JAX's camera: (BVH, camera, w, h)."""
+    w, h = SLIVER_SIZE
     cam = convert.camera_from_numpy(jcam.look_at(
-        tuple(eye), (0.0, 0.0, 0.0), v_fov=math.radians(60), aspect=w / h),
+        SLIVER_EYE, (0.0, 0.0, 0.0), v_fov=math.radians(60), aspect=w / h),
         "cpu")
-    return tbvh.build_bvh([(mesh, 0)], device="cpu"), cam, w, h
+    return tbvh.build_bvh([(sliver_mesh(n, seed), 0)], device="cpu"), cam, \
+        w, h
 
 
 def test_edge_on_planes_stay_in_their_tiles():
@@ -371,14 +357,14 @@ def _np_wall_rows(tb):
 
 HARNESS = """\
 #include "raster.cu"
-// One one-thread block per launched tile: that thread owns the tile's
-// 2048 pixels and stages every plane row itself.
+// One one-thread block per row band of each work item: that thread owns
+// the band's pixels, stages, culls and compacts every row itself.
 extern "C" int host_raster_groups(const RasterGroupArgs* a) {
   blockDim = dim3(1);
   threadIdx = dim3(0);
-  for (int b = 0; b < a->n_blocks; ++b) {
+  for (int b = 0; b < a->n_items * RASTER_GROUP_BANDS; ++b) {
     blockIdx = dim3(b);
-    raster_groups<RASTER_PX>(*a);
+    raster_groups<RASTER_GROUP_BAND_PX>(*a);
   }
   return 0;
 }
@@ -410,15 +396,23 @@ def test_host_kernel_matches_plain(host_groups, scenes, case):
     """Through the real wrapper (`raster.launch_groups`): q and tri equal
     to the plain version bit for bit, on every tile; then on a subset of
     tiles over a base image (the repair phase's launch), only those tiles
-    rewritten; the counters add up to the visits."""
+    rewritten.  The counters equal their replay with the plain arithmetic
+    (`band_counters`): visits run and skipped add up to GROUP_BANDS per
+    visit, and the rows tested cover those any exact cull per band must
+    test (`group_rows_needed`)."""
     tables, jit, wp, hp = _tables(scenes, case)
     plan = raster.visit_plan(tables, wp, hp, jit)
-    stats = torch.zeros(2, dtype=torch.int64)
+    stats = torch.zeros(4, dtype=torch.int64)
     got = raster.launch_groups(host_groups.host_raster_groups, tables,
                                plan, jit, wp, hp, stats=stats)
     want = raster.rasterize_groups_plain(tables, plan, jit, wp, hp)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert int(stats.sum()) == plan.visits and (want[1] >= 0).any()
+    run, skipped, tested, culled = stats.tolist()
+    assert run + skipped == raster.GROUP_BANDS * plan.visits
+    assert stats.tolist() == band_counters(tables, plan, jit, wp)
+    assert tested >= raster.group_rows_needed(tables, plan, want[0], jit,
+                                              wp, hp)
+    assert culled > 0 and (want[1] >= 0).any()
     base = (torch.full_like(want[0], 0.25),
             torch.full_like(want[1], 7))
     sub = plan.tiles[::2].contiguous()
@@ -436,6 +430,79 @@ def test_host_kernel_matches_plain(host_groups, scenes, case):
     img = img.expand(-1, raster.TILE_Y, -1, raster.TILE_X).reshape(-1)
     assert torch.equal(got[0][img], want[0][img])
     assert torch.equal(got[0][~img], base[0][~img])
+
+
+@pytest.mark.parametrize("case,chunk", [("demo", 1), ("sphere-grid", 2),
+                                        ("near-plane-crossing", 3),
+                                        ("jittered", 5)])
+def test_host_kernel_split_tiles_match_plain(host_groups, scenes,
+                                             monkeypatch, case, chunk):
+    """Tiles of more than `chunk` visits (GROUP_CHUNK set so) split into
+    chunks walked by their own blocks, merged by the 64-bit maximum of
+    (q's bits, ~rank): q and tri bit-equal to the plain version (the first
+    of equal q in visit order wins across chunks), also in the repair
+    phase over a base image; the counters equal the chunked replay."""
+    tables, jit, wp, hp = _tables(scenes, case)
+    plan = raster.visit_plan(tables, wp, hp, jit)
+    assert int((plan.seg[1:] - plan.seg[:-1]).max()) > chunk
+    monkeypatch.setattr(raster, "GROUP_CHUNK", chunk)
+    stats = torch.zeros(4, dtype=torch.int64)
+    got = raster.launch_groups(host_groups.host_raster_groups, tables, plan,
+                               jit, wp, hp, stats=stats)
+    want = raster.rasterize_groups_plain(tables, plan, jit, wp, hp)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert stats.tolist() == band_counters(tables, plan, jit, wp, chunk)
+    base = (torch.full_like(want[0], 0.25), torch.full_like(want[1], 7))
+    part = raster.visit_plan(tables, wp, hp, jit, tiles=plan.tiles[1::2])
+    got = raster.launch_groups(host_groups.host_raster_groups, tables, part,
+                               jit, wp, hp, base=base)
+    want = raster.rasterize_groups_plain(tables, part, jit, wp, hp,
+                                         base=base)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("scene", [band_wall, tied_rows],
+                         ids=["band-wall", "tied-rows"])
+def test_host_kernel_one_visit_chunks(host_groups, monkeypatch, scene):
+    """The synthetic tables with every visit a chunk of its own: the tied
+    rows' second wall gives every pixel the first wall's q from its own
+    chunk, and the merge keeps the first in visit order (tri 0), as the
+    plain version does; the counters equal the chunked replay."""
+    (tables, plan, jit, w, h), _ = scene()
+    monkeypatch.setattr(raster, "GROUP_CHUNK", 1)
+    stats = torch.zeros(4, dtype=torch.int64)
+    got = raster.launch_groups(host_groups.host_raster_groups, tables, plan,
+                               jit, w, h, stats=stats)
+    want = raster.rasterize_groups_plain(tables, plan, jit, w, h)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert stats.tolist() == band_counters(tables, plan, jit, w, 1)
+
+
+def test_group_items_cover_every_visit_once():
+    """`group_items`: each launched tile's visits in chunks of `chunk`,
+    the last one shorter, one item for a tile without visits, longest
+    first, padded to n_launch + visits // chunk items with (-1, 0, 0, -1);
+    the tiles of more than one chunk numbered 0, 1, ... in slot order,
+    -1 for the others."""
+    seg = torch.tensor([0, 7, 7, 8, 20], dtype=torch.int32)
+    items = raster.group_items(seg, 20, 3)
+    assert items.shape == (4 + 20 // 3, 4)
+    real = items[items[:, 0] >= 0]
+    assert items[items[:, 0] < 0].tolist() == [[-1, 0, 0, -1]] * (
+        items.shape[0] - real.shape[0])
+    length = real[:, 2] - real[:, 1]
+    assert bool((length[:-1] >= length[1:]).all()) and int(length.max()) == 3
+    got = sorted(map(tuple, real.tolist()))
+    assert got == [(0, 0, 3, 0), (0, 3, 6, 0), (0, 6, 7, 0), (1, 7, 7, -1),
+                   (2, 7, 8, -1), (3, 8, 11, 1), (3, 11, 14, 1),
+                   (3, 14, 17, 1), (3, 17, 20, 1)]
+    got = sorted(map(tuple, raster.group_items(seg, 20, 5).tolist()))
+    assert got == [(-1, 0, 0, -1), (0, 0, 5, 0), (0, 5, 7, 0), (1, 7, 7, -1),
+                   (2, 7, 8, -1), (3, 8, 13, 1), (3, 13, 18, 1),
+                   (3, 18, 20, 1)]
+    got = sorted(map(tuple, raster.group_items(seg, 20, 12).tolist()))
+    assert got == [(-1, 0, 0, -1), (0, 0, 7, -1), (1, 7, 7, -1),
+                   (2, 7, 8, -1), (3, 8, 20, -1)]
 
 
 def test_host_kernel_matches_plain_on_edge_on_planes(host_groups):
@@ -456,21 +523,6 @@ def test_host_kernel_matches_plain_on_edge_on_planes(host_groups):
     assert int((want[1] >= 0).sum()) > 10
 
 
-def _facing_grid(n, half, z):
-    """An n x n grid of quads in the plane z, facing -z: 2 n^2 triangles."""
-    g = np.linspace(-half, half, n + 1, dtype=np.float32)
-    gx, gy = np.meshgrid(g, g, indexing="ij")
-    pos = np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, z, np.float32)],
-                   1)
-    i = np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]
-    a, b, c, d = i, i + 1, i + n + 1, i + n + 2
-    tris = np.concatenate([np.stack([a, c, b], -1).reshape(-1, 3),
-                           np.stack([b, c, d], -1).reshape(-1, 3)])
-    return tmesh.MeshData(pos, np.tile([0, 0, -1.0], (len(pos), 1)).astype(
-        np.float32), np.zeros((len(pos), 2), np.float32), tris.astype(
-            np.int32))
-
-
 def test_host_kernel_early_out_skips(host_groups):
     """A wall that covers the one 64x32 tile in front of a 1,152-triangle
     grid facing the camera: the wall's visit comes first and sets every
@@ -478,8 +530,8 @@ def test_host_kernel_early_out_skips(host_groups):
     visits' exact bounds is its own q, below the wall's, and the kernel
     skips those visits (its counters), equal to the plain version, which
     skips them too."""
-    wall = _facing_grid(1, 6.0, 0.5)
-    tb = tbvh.build_bvh([(wall, 1), (_facing_grid(24, 1.0, 3.0), 0)],
+    wall = facing_grid(1, 6.0, 0.5)
+    tb = tbvh.build_bvh([(wall, 1), (facing_grid(24, 1.0, 3.0), 0)],
                         device="cpu")
     w, h = 64, 32
     tc = convert.camera_from_numpy(jcam.look_at(
@@ -490,19 +542,52 @@ def test_host_kernel_early_out_skips(host_groups):
                                        tb.tri_valid, mat, attr, w, h)
     jit = torch.tensor([0.5, 0.5])
     plan = raster.visit_plan(tables, w, h, jit)
-    stats = torch.zeros(2, dtype=torch.int64)
+    stats = torch.zeros(4, dtype=torch.int64)
     got = raster.launch_groups(host_groups.host_raster_groups, tables,
                                plan, jit, w, h, stats=stats)
     want = raster.rasterize_groups_plain(tables, plan, jit, w, h)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    run, skipped = stats.tolist()
-    assert run + skipped == plan.visits and skipped >= 8 and run >= 1
+    run, skipped, _, _ = stats.tolist()
+    bands = raster.GROUP_BANDS
+    assert run + skipped == bands * plan.visits
+    assert skipped >= 8 * bands and run >= bands
+    assert stats.tolist() == band_counters(tables, plan, jit, w)
     assert bool((tb.tri_material[want[1].long()] == 1).all())
 
 
+@pytest.mark.parametrize("scene", [band_wall, tied_rows],
+                         ids=["band-wall", "tied-rows"])
+def test_host_kernel_band_counters(host_groups, scene):
+    """Synthetic one-tile tables whose counters are known by hand
+    (`torch_group_scenes`): a wall over the first row band only, so that
+    band skips the farther wall's visit and the others run it; and a row
+    whose q at every band's corner equals the band's least q, which is
+    culled (a tie never wins), beside a sloped plane culled in all but
+    the first band.  q and tri equal the plain version's, and the
+    counters the hand count and the replay."""
+    (tables, plan, jit, w, h), want_stats = scene()
+    stats = torch.zeros(4, dtype=torch.int64)
+    got = raster.launch_groups(host_groups.host_raster_groups, tables, plan,
+                               jit, w, h, stats=stats)
+    want = raster.rasterize_groups_plain(tables, plan, jit, w, h)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tuple(stats.tolist()) == want_stats
+    assert stats.tolist() == band_counters(tables, plan, jit, w)
+    assert bool((want[1] >= 0).all())
+
+
 def test_kernel_layout_matches_the_wrapper(host_groups):
+    src = (cuda_build.CSRC_DIR / "raster.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (RASTER_[A-Z_]+) = (\d+);", src)}
+    assert consts["RASTER_GROUP"] == raster.GROUP
+    assert consts["RASTER_GROUP_BANDS"] == raster.GROUP_BANDS
     assert host_groups.raster_group_args_size() == ctypes.sizeof(
         raster.RasterGroupArgs)
+    fields = re.search(r"struct RasterGroupArgs \{(.*?)\};", src,
+                       re.S).group(1)
+    names = re.findall(r"(\w+);", fields)
+    assert names == [f for f, _ in raster.RasterGroupArgs._fields_]
 
 
 def test_wrapper_takes_the_plain_version_on_cpu(scenes):

@@ -5,9 +5,9 @@ qualifiers and runtime stubbed, and a harness that runs the kernel body
 once per block with one thread.  A kernel's dynamic shared memory
 (`DYNAMIC_SHARED` of csrc/rn_math.cuh) is `host_dynamic_shared`, which
 the harness sizes; the streaming loads and stores (`__ldcs` / `__stcs`)
-are plain ones; `__syncwarp` does nothing (a team is one lane) and a
-warp vote returns the one lane's predicate; the solver kernels' bulk
-copies copy at once when not compiled for the card."""
+are plain ones; `__syncwarp` does nothing (a team is one lane), a
+warp vote returns the one lane's predicate and a ballot its one bit; the
+solver kernels' bulk copies copy at once when not compiled for the card."""
 
 import ctypes
 import shutil
@@ -36,6 +36,7 @@ struct dim3 {
 };
 static dim3 blockIdx(0), blockDim(1), threadIdx(0), gridDim(1);
 struct float4 { float x, y, z, w; };
+struct int4 { int x, y, z, w; };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0 };
@@ -43,6 +44,15 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 template <class T> inline T __ldcs(const T* p) { return *p; }
 template <class T> inline void __stcs(T* p, T v) { *p = v; }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
+inline unsigned __float_as_uint(float f) { unsigned i; memcpy(&i, &f, 4); return i; }
+inline float __uint_as_float(unsigned i) { float f; memcpy(&f, &i, 4); return f; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+inline int atomicAdd(int* p, int v) { int o = *p; *p += v; return o; }
+inline unsigned long long atomicMax(unsigned long long* p,
+                                    unsigned long long v) {
+  unsigned long long o = *p; if (v > o) *p = v; return o;
+}
+inline void __threadfence() {}
 inline int atomicOr(int* p, int v) { int o = *p; *p |= v; return o; }
 inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
@@ -54,6 +64,8 @@ inline int __syncthreads_and(int p) { return p; }
 inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline bool __any_sync(unsigned, bool p) { return p; }
+inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 static std::vector<float> host_dynamic_shared;
 #define DYNAMIC_SHARED(name) float* name = host_dynamic_shared.data()
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };

@@ -19,9 +19,16 @@ and the small scene's path-traced frame with its brute-force kernel time.
 It also prints ptxas's registers, shared memory and stack of each kernel,
 and the SASS instructions of one rounded division (`cuobjdump -sass` of a
 one-line kernel).
+`--only groups` times instead the group mode of the tile rasterizer
+(`raster_groups`) and the pair kernel (`raster_tiles`) on the character
+crowd's first frame at 1080p (chip_smoke.py's characters phase), and prints
+the visits per tile, the group kernel's counters, its bound and its
+instruction floor (the bound's tests times the SASS instructions per test of
+the kernel's inner loop, over every lane of the card at its largest SM
+clock), both from this checkout's chip_smoke.py.
 
     python3 tools/torch_render_probe.py [--repo DIR] [--label NAME]
-        [--only tonemap]
+        [--only tonemap|groups]
 
 `--repo` imports `d3d12renderer_tpu_torch` from another checkout (an older
 commit unpacked with `git archive`), so that two versions are timed in one
@@ -47,6 +54,8 @@ TONEMAP_REPS = 100
 # (chip_smoke.py's SRGB_TOL).
 SRGB_TOL = 2.4e-7
 FRAMES = 5
+# chip_smoke.py's characters phase: its jitters' seed and count.
+CROWD_SEED, CROWD_FRAMES = 11, 8
 RAY_SUBSET = 16384
 W, H = 1920, 1080
 # chip_smoke.py's BLUR_SHAPES: the raster frame's seven blur calls.
@@ -139,6 +148,164 @@ def division_sass(build_dir):
         counts[fn] = {"to_first_exit": first_exit, "all": len(body),
                       "ops": body}
     return counts
+
+
+def kernel_sass(lib, name):
+    """SASS opcodes and branch targets of the kernel whose mangled name holds
+    `name`, from `cuobjdump -sass` of the built library: [(address, opcode,
+    target or None)]."""
+    from d3d12renderer_tpu_torch import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    out, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = name in line
+        elif inside and "/*" in line and ";" in line:
+            addr = int(line.split("/*")[1].split("*/")[0], 16)
+            op = line.split("*/", 1)[1].strip().split(";")[0].split()
+            if not op:
+                continue
+            code = op[1] if op[0].startswith("@") else op[0]
+            target = None
+            if code.startswith("BRA"):
+                hexes = [t for t in op if t.startswith("0x")]
+                target = int(hexes[-1].rstrip(","), 16) if hexes else None
+            out.append((addr, code, target))
+    if not out:
+        fail(f"no SASS for {name}")
+    return out
+
+
+def inner_loop(sass):
+    """(instructions, pixels) of the plane test's loop, one pass per row:
+    the smallest backward-branch loop holding at least one pixel's 8
+    products (FMUL); its pixels are its whole multiples of 8 products."""
+    loops = []
+    for addr, _, target in sass:
+        if target is not None and target < addr:
+            body = [c for a, c, _ in sass if target <= a <= addr]
+            fmul = sum(c.startswith("FMUL") for c in body)
+            if fmul >= 8:
+                loops.append((len(body), fmul // 8))
+    return min(loops)
+
+
+def crowd_frame(torch, dev):
+    """The character crowd's first frame at 1080p as chip_smoke.py's
+    characters phase builds it (`character_entry`, a warm frame, then the
+    frame at the first of its seeded jitters): (fn, state, BVH, camera,
+    jitter)."""
+    from d3d12renderer_tpu_torch.entry import character_entry
+
+    fn, state = character_entry(device=dev, width=W, height=H)
+    _, state, _ = fn(state)
+    jit = torch.rand((CROWD_FRAMES, 2), generator=torch.Generator()
+                     .manual_seed(CROWD_SEED)).to(dev)[0]
+    _, state, aux = fn(state, jitter=jit)
+    return fn, state, aux["bvh"], fn.camera, jit
+
+
+def smoke_module():
+    """This checkout's chip_smoke.py (its bound helpers), loaded by path,
+    so that `--repo` on another checkout keeps the same yardstick."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_bounds", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def group_probe(torch, dev, sync, emit, cuda_ms, lib):
+    """The group kernel and the pair kernel on the crowd's first frame at
+    1080p, each against its plain version; the visits per tile; the group
+    kernel's counters; its bound and instruction floor (chip_smoke.py's
+    `group_bound` and `instruction_floor_ms`; where the package has
+    `group_rows_needed`); then the crowd's frames (`character_entry`, host
+    clock, best of 3 runs of CROWD_FRAMES) and one frame's stages (CUDA
+    events)."""
+    from d3d12renderer_tpu_torch.ops import raster
+
+    fn, state, bvh, cam, jit = crowd_frame(torch, dev)
+    hp = H + (-H) % raster.TILE_Y
+    mat, attr = raster.perspective_rows(cam, W, H)
+    tables = raster.build_frame_tables(bvh.tri_v0, bvh.tri_e1, bvh.tri_e2,
+                                       bvh.tri_valid, mat, attr, W, hp)
+    plan = raster.visit_plan(tables, W, hp, jit)
+    per_tile = (plan.seg[1:] - plan.seg[:-1]).long()
+    edges = [0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1 << 30]
+    emit(probe="group visits per tile", rows=int(tables.planes.shape[0]),
+         tiles=int(per_tile.numel()), visits=plan.visits,
+         mean=per_tile.float().mean().item(), max=int(per_tile.max()),
+         histogram={f"{lo}-{hi - 1}": int(((per_tile >= lo)
+                                           & (per_tile < hi)).sum())
+                    for lo, hi in zip(edges, edges[1:])},
+         heaviest=torch.sort(per_tile, descending=True).values[:16].tolist())
+    want = raster.rasterize_groups_plain(tables, plan, jit, W, hp)
+    bands = getattr(raster, "GROUP_BANDS", 1)
+    stats = torch.zeros(4 if bands > 1 else 2, dtype=torch.int64,
+                        device=dev)
+    got = raster.rasterize_groups(tables, plan, jit, W, hp, stats=stats)
+    sync()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("the group kernel differs from its plain version")
+    least = raster.tile_min(want[0], W, hp)
+    counters = dict(zip(("visits_run", "visits_skipped", "rows_tested",
+                         "rows_culled"), stats.tolist()))
+    g_bound = None
+    if hasattr(raster, "group_rows_needed"):
+        g_bound = smoke_module().group_bound(raster, tables, plan, want[0],
+                                             jit, W, hp)
+        counters["rows_needed"] = g_bound[2] // (raster.PX
+                                                 // raster.GROUP_BANDS)
+    emit(probe="group kernel counters", bands=bands, visits=plan.visits,
+         visits_needed=int((plan.bound > least[plan.visit_tile]).sum()),
+         **counters)
+    g_ms = cuda_ms(lambda: raster.rasterize_groups(tables, plan, jit, W, hp))
+    planes, rect, q_tri = raster.project_planes(
+        bvh.tri_v0, bvh.tri_e1, bvh.tri_e2, bvh.tri_valid, mat, attr, W, hp)
+    pair_tri, seg = raster.bin_pairs(rect, q_tri, W, hp)[:2]
+    pair_args = (planes, pair_tri, seg, jit, W, hp)
+    if not all(torch.equal(a, b) for a, b in zip(
+            raster.rasterize_tiles(*pair_args),
+            raster.rasterize_plain(*pair_args))):
+        fail("the pair kernel differs from its plain version")
+    p_ms = cuda_ms(lambda: raster.rasterize_tiles(*pair_args))
+    emit(kernel="raster_groups", ms=g_ms, pair_kernel_ms=p_ms,
+         pairs=int(pair_tri.shape[0]), reps=REPS, bit_equal=True)
+    loop, pixels = inner_loop(kernel_sass(lib, "raster_groups"))
+    per_test = loop / pixels
+    if g_bound is not None:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+        floor = smoke_module().instruction_floor_ms
+        emit(probe="group bound", bound_ms=g_bound[0], bound_by=g_bound[1],
+             tests=g_bound[2], tile_tests=g_bound[3],
+             loop_instructions=loop, pixels_per_pass=pixels,
+             instructions_per_test=per_test, sm_clock_mhz=mhz,
+             instruction_floor_ms=floor(g_bound[2], per_test, mhz),
+             tile_instruction_floor_ms=floor(g_bound[3], per_test, mhz),
+             kernel_ms=g_ms)
+    best = math.inf
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(CROWD_FRAMES):
+            _, state, _ = fn(state)
+        sync()
+        best = min(best, (time.perf_counter() - t0) / CROWD_FRAMES)
+    _, state, staged = fn(state, profile_stages=True)
+    emit(probe="crowd frame", frame_ms=1e3 * best,
+         stage_ms=staged["stage_ms"])
 
 
 def brute_probe(torch, dev, sync, emit, cuda_ms):
@@ -365,7 +532,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=here)
     ap.add_argument("--label", default="change")
-    ap.add_argument("--only", choices=["tonemap"], default=None,
+    ap.add_argument("--only", choices=["tonemap", "groups"], default=None,
                     help="time only this kernel")
     opts = ap.parse_args()
     sys.path.insert(0, os.path.abspath(opts.repo))
@@ -409,11 +576,15 @@ def main():
     log = (lib.parent / "build.log").read_text().splitlines()
     for i, line in enumerate(log):
         if "Compiling entry function" in line and any(
-                k in line for k in ("raster_tiles", "ray_closest_hit",
-                                    "gaussian_blur", "tonemap")):
+                k in line for k in ("raster_tiles", "raster_groups",
+                                    "ray_closest_hit", "gaussian_blur",
+                                    "tonemap")):
             emit(ptxas=line.split("'")[1], props=" ".join(
                 x.strip() for x in log[i + 1:i + 4]
                 if "stack frame" in x or "registers" in x))
+    if opts.only == "groups":
+        group_probe(torch, dev, sync, emit, cuda_ms, lib)
+        return
     tonemap_probe(torch, dev, sync, emit)
     if opts.only == "tonemap":
         return
