@@ -36,6 +36,12 @@ the paths:
   HDR sky through the image cache, the atlas and probes through the BVH
   ray kernel, fire particles; its frame runs the ray, raster, tonemap and
   blur kernels);
+* examples/flythrough.py's path (`entry.flythrough_entry` at 1080p: 18
+  boxes and spheres settled for 60 frames, then 16 frames filmed by an
+  orbiting camera, each a physics step through the colored-solver kernel,
+  the instances posed on the device, the sun's cascades through the BVH
+  ray kernel, the raster, blur and tonemap kernels, TAA fed by the
+  previous frame's camera);
 * self-colliding locomotion (`entry(self_collision=True)`: the ragdoll's
   collider pairs through the pair narrowphase, one colored-solver launch per
   step, no fused launch) at 4096 envs, the slider zoo (every joint kind and
@@ -160,40 +166,12 @@ SRGB_TOL = 2.4e-7
 SLICE_RW, SLICE_RH = 128, 64
 RASTER_MEAN_TOL = 1e-4
 
-# Roofline of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and fp32
-# operations/s outside the tensor cores, at the 700 W limit.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-# Its SMs and the fp32 lanes of each.
-H100_SMS, LANES_PER_SM = 132, 128
-# Float operations per row solve, counted from csrc/solver_rows.cuh (a
-# multiply and an add count 2; min/max clamps count 1): the ball part 114,
-# distance 62, fixed 174 (rotation 60 + ball), hinge 250 (motor, limit and
-# rotation parts + ball), cone-twist 255 (four 1-D parts + ball); a contact
-# point against the static world 85 (friction then normal).
-# A slider row 275 (motor 32, limit 57, rotation 57, position 129).  A
-# contact table whose A side is dynamic somewhere (collider-pair rows) runs
-# the A side for every point: 48 more (the A lever arm's cross product and
-# add, and the A velocity updates, for friction and normal).
-ROW_FLOP = {"ball": 114, "distance": 62, "fixed": 174, "hinge": 250,
-            "cone_twist": 255, "slider": 275}
-CONTACT_POINT_FLOP = 85
-CONTACT_POINT_A_FLOP = 48
-# The ray plane test (csrc/ray_plane.cuh): 6 three-term dots (5 each), the
-# quotient, u, v and the accept terms = 42; a slab test of a node box: 6
-# subtractions, 6 products and 12 min/max = 24.  Of these, o.n, n_off - o.n
-# and the origin terms o.e1p + e1_off, o.e2p + e2_off (18) and the slab's
-# lo - o, hi - o (6) depend on the row or node and the ray's origin only:
-# rays that share an origin need them once per row or node.
-PLANE_TEST_FLOP = 42
-PLANE_ORIGIN_FLOP = 18
-BOX_TEST_FLOP = 24
-BOX_ORIGIN_FLOP = 6
-# The raster kernel's test of one (pair, pixel) (csrc/raster.cu): 4
-# two-term dots with an offset (4 operations each) and 6 compares = 22.
-# The tonemap: exposure, the curve (8), its quotient and clamps = 14.
-RASTER_PAIR_FLOP = 22
-TONEMAP_FLOP = 14
+# The roofline constants and bound helpers live in the package
+# (`core/profiling.py`), where tools/torch_perf_report.py reads them too.
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from d3d12renderer_tpu_torch.core import profiling  # noqa: E402
+from d3d12renderer_tpu_torch.core.profiling import (  # noqa: E402
+    FP32_FLOP_PER_S, RASTER_PAIR_FLOP, bound, group_bound, solve_flop)
 
 # Collider pairs and sliders: the self-colliding ragdoll through entry, the
 # slider zoo and the stack drop, each at BATCH scenes.
@@ -316,6 +294,16 @@ WORLD_SLICE = dict(resolution=17, grass_per_side=8, physics_frames=2,
                    spot_resolution=OPT_SLICE_MAPS,
                    point_resolution=OPT_SLICE_MAPS,
                    atlas_size=4 * OPT_SLICE_MAPS)
+# The flythrough phase: flythrough_entry at OPT_W x OPT_H,
+# FLY_SETTLE_FRAMES frames of physics alone (the pile lands on the plane
+# from frame ~30), then FLY_FRAMES filmed frames (the first of them warm);
+# every launch of the raster, tonemap, blur and ray kernels in the last
+# filmed frame held bit-equal to its plain version on that frame's own
+# inputs (the ray kernel's t and tri as check_rays holds them), and the
+# solver kernel against its plain version on one substep of the settled
+# pile, which must have active contact rows.
+FLY_FRAMES = 16
+FLY_SETTLE_FRAMES = 60
 # The characters phase: character_entry at OPT_W x OPT_H (16 skinned
 # characters, the raster's group path with its occlusion feedback), one
 # warm frame, CHAR_FRAMES consecutive frames at seeded jitters (each held
@@ -370,55 +358,6 @@ EVAL_EYE, EVAL_TARGET = (4.0, 2.5, 5.0), (0.0, 0.9, 0.0)
 def fail(msg: str):
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def bound(bytes_moved, flop):
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the fp32 peak."""
-    mem_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
-    op_ms = 1e3 * flop / FP32_FLOP_PER_S
-    return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
-
-
-def group_bound(raster, tables, plan, q, jitter, width, height):
-    """The group kernel's bound over one whole-frame launch: (bound_ms,
-    bound_by, tests, tile_tests).  `tests` are the (visit, band, row,
-    pixel) tests any exact cull of a row per row band must run, the
-    kernel's own granularity (`raster.group_rows_needed` given the final
-    image q, PX // GROUP_BANDS pixels a band), RASTER_PAIR_FLOP each; the
-    bytes read the planes, ranges and plan once and write (q, tri).
-    `tile_tests` counts at the tile's granularity for comparison: the
-    (visit, triangle) tests of the visits whose bound exceeds the tile's
-    least q, PX pixels each."""
-    tests = raster.group_rows_needed(tables, plan, q, jitter, width,
-                                     height) * (raster.PX // raster.GROUP_BANDS)
-    least = raster.tile_min(q, width, height)
-    must = plan.bound > least[plan.visit_tile]
-    tile_tests = int(raster.visit_cover(
-        tables, plan.visit_tile[must], plan.group[must], width).sum()) \
-        * raster.PX
-    bytes_moved = (tables.planes.numel() * 4 + tables.tri_tiles.numel() * 4
-                   + plan.visits * 8 + plan.seg.numel() * 4
-                   + plan.tiles.numel() * 4 + 8 + width * height * 8)
-    return (*bound(bytes_moved, tests * RASTER_PAIR_FLOP), tests, tile_tests)
-
-
-def instruction_floor_ms(tests, per_test, sm_mhz):
-    """The least time of `tests` tests of `per_test` SASS instructions
-    each when every lane of the card issues one a cycle at `sm_mhz`."""
-    return 1e3 * tests * per_test / (H100_SMS * LANES_PER_SM * sm_mhz * 1e6)
-
-
-def solve_flop(tables, batch, points, iterations):
-    """Operations of one `iterations`-long solve: every joint row of every
-    scene, and the active contact points (`points`, summed over scenes),
-    with their A side where the contact table has one."""
-    rows = sum(m.perm.shape[0] * ROW_FLOP[m.kind] for m in tables
-               if m.kind != "contact")
-    point_flop = CONTACT_POINT_FLOP + sum(
-        CONTACT_POINT_A_FLOP for m in tables
-        if m.kind == "contact" and not m.a_static)
-    return iterations * (batch * rows + points * point_flop)
 
 
 def ptxas_entries(log: str, name: str) -> list:
@@ -751,13 +690,9 @@ def path_tracing(card, cuda_ms):
         """The walk's plane and box tests, each origin-only term counted
         once per (origin, row or node) where rays share origins."""
         b = scenes[name]
-        rows, nodes = b.dense.n.shape[0], b.node_min.shape[0]
-        flop = (tests * (PLANE_TEST_FLOP - PLANE_ORIGIN_FLOP)
-                + min(tests, origins * rows) * PLANE_ORIGIN_FLOP
-                + boxes * (BOX_TEST_FLOP - BOX_ORIGIN_FLOP)
-                + min(boxes, origins * nodes) * BOX_ORIGIN_FLOP)
-        return bound(rays * (12 + 12 + 4 + 4 + 4) + rows * 4 * rt.PLANE_COLS
-                     + (nodes * 4 * rt.NODE_COLS if boxes else 0), flop)
+        return profiling.ray_bound(rays, tests, boxes, origins,
+                                   b.dense.n.shape[0], b.node_min.shape[0],
+                                   rt.PLANE_COLS, rt.NODE_COLS)
 
     def kernel_time(name, wf, kname):
         for t in times:
@@ -1084,31 +1019,14 @@ def raster_frame(card, cuda_ms):
     raster_k(*args, stats=work)
     tested, culled = work.tolist()
     rows = raster.TILE_Y // raster.BANDS
-    ntx = wp // raster.TILE_X
-
-    def band_q(qp, col0, row0):
-        x = torch.where(qp[:, 0] >= 0, col0 + raster.TILE_X - 1, col0).to(
-            torch.float32) + jitter[0]
-        y = torch.where(qp[:, 1] >= 0, row0 + rows - 1, row0).to(
-            torch.float32) + jitter[1]
-        return (qp[:, 0] * x + qp[:, 1] * y) + qp[:, 2]
 
     pix = torch.nonzero(want[1] >= 0)[:, 0]
-    above_own = int((want[0][pix] > band_q(
-        planes[want[1][pix].long(), 9:12],
+    above_own = int((want[0][pix] > profiling.pair_band_q(
+        raster, planes[want[1][pix].long(), 9:12],
         (pix % wp) // raster.TILE_X * raster.TILE_X,
-        (pix // wp) // rows * rows)).sum())
-    least = want[0].reshape(hp // rows, rows, ntx, raster.TILE_X).amin(
-        dim=(1, 3))                                   # (band rows, ntx)
-    tile = torch.repeat_interleave(torch.arange(seg.shape[0] - 1, device=dev),
-                                   (seg[1:] - seg[:-1]).long(),
-                                   output_size=pairs)
-    qp = planes[pair_tri.long(), 9:12]
-    needed = 0
-    for band in range(raster.BANDS):
-        band_row = tile // ntx * raster.BANDS + band
-        needed += int((band_q(qp, tile % ntx * raster.TILE_X, band_row * rows)
-                       > least[band_row, tile % ntx]).sum())
+        (pix // wp) // rows * rows, jitter)).sum())
+    needed = profiling.pair_tests_needed(raster, planes, pair_tri, seg,
+                                         want[0], jitter, wp, hp)
     print(f"raster kernel vs plain (atrium {tris} tris, {RASTER_W}x{RASTER_H} "
           f"padded to {wp}x{hp}, jitter (0.3, 0.7), {raster.BANDS} blocks per "
           f"tile): q/tri/u/v bit-equal {same}, max |diff| {raster_err:.3e}, "
@@ -1226,8 +1144,9 @@ def raster_frame(card, cuda_ms):
         blur["plain_ms"] += p_ms
         blur["library_ms"] += lib_ms
         blur["library_device_ms"] += lib_dev_ms
-        blur["bytes"] += 2 * 4 * x.numel()
-        blur["flop"] += x.numel() * 2 * 2 * (2 * r + 1)
+        work = profiling.blur_work(x.numel(), r)
+        blur["bytes"] += work[0]
+        blur["flop"] += work[1]
         blur["err"] = max(blur["err"], err)
         blur["warm_ms"] += warm_ms
         blur["library_warm_ms"] += lib_warm_ms
@@ -1404,12 +1323,10 @@ def raster_frame(card, cuda_ms):
 
     # The (pair, band) tests any exact cull must run, each over its band's
     # pixels.
-    px = wp * hp
-    r_bound = bound(planes.numel() * 4 + pairs * 4 + seg.numel() * 4 + 8
-                    + px * 16,
-                    needed * (raster.PX // raster.BANDS) * RASTER_PAIR_FLOP)
+    r_bound = profiling.pair_bound(raster, planes, pairs, seg, needed, wp,
+                                   hp)
     b_bound = bound(blur["bytes"], blur["flop"])
-    t_bound = bound(2 * 4 * n, n * TONEMAP_FLOP)
+    t_bound = profiling.tonemap_bound(n)
     return [{
         "name": "raster_tiles", "route": "cuda",
         "source": "d3d12renderer_tpu_torch/csrc/raster.cu",
@@ -3553,6 +3470,216 @@ def editor(card, cuda_ms, max_err):
             "play_kernel": "fused" if launches["fused"] else "colored"}
 
 
+def flythrough(card, cuda_ms, max_err):
+    """examples/flythrough.py's path through `flythrough_entry` at
+    1920x1080: FLY_SETTLE_FRAMES frames of physics, FLY_FRAMES filmed
+    frames (each a physics step of two substeps through the colored-solver
+    kernel, the instances posed, the sun's cascades through the BVH ray
+    kernel, the raster primary through the raster kernel, the bloom's and
+    sharpen's blurs and the tonemap), their launches counted; the last
+    filmed frame's launches of the raster, tonemap, blur and BVH kernels
+    each against its plain version on the inputs that frame gave it; the
+    solver kernel against its plain version on one substep of the settled
+    pile; one profiled frame.  Returns the launches and errors for the
+    kernels line."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from d3d12renderer_tpu_torch import entry as entry_mod
+    from d3d12renderer_tpu_torch.ops import image, raster, ray_trace
+    from d3d12renderer_tpu_torch.physics import (collide, solver_cuda, step,
+                                                 substep_cuda)
+    from d3d12renderer_tpu_torch.physics.types import PhysicsSettings
+    from d3d12renderer_tpu_torch.render import post
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    wrappers = {"colored": solver_cuda.colored_solve_cuda,
+                "fused": substep_cuda.fused_substep_cuda,
+                "bvh": ray_trace.ray_closest_hit_bvh,
+                "brute": ray_trace.ray_closest_hit_brute,
+                "raster": raster.rasterize_tiles,
+                "groups": raster.rasterize_groups,
+                "tonemap": image.tonemap, "blur": image.gaussian_blur}
+    # Each launch's inputs and outputs, recorded by wrapping the modules'
+    # launch helpers (the wrappers above still launch and count once).
+    recorded = collections.defaultdict(list)
+    hooks = {"raster": (raster, "launch"), "blur": (image, "blur_launch"),
+             "tonemap": (image, "tonemap_launch"),
+             "bvh": (ray_trace, "launch")}
+    originals = {k: getattr(mod, name) for k, (mod, name) in hooks.items()}
+
+    def recorder(kind):
+        def launch(*args, **kw):
+            out = originals[kind](*args, **kw)
+            recorded[kind].append((args, kw, out))
+            return out
+        return launch
+
+    for k, w in wrappers.items():
+        w.launches = 0
+    for k, (mod, name) in hooks.items():
+        setattr(mod, name, recorder(k))
+    try:
+        t0 = time.perf_counter()
+        out = entry_mod.flythrough_entry(device=dev, width=OPT_W,
+                                         height=OPT_H, frames=FLY_FRAMES,
+                                         settle_frames=FLY_SETTLE_FRAMES)
+        sync()
+        run_s = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        frame_records = {k: [r for r in v] for k, v in recorded.items()}
+        recorded.clear()
+    finally:
+        for k, (mod, name) in hooks.items():
+            setattr(mod, name, originals[k])
+    frames = out["frames"]
+    substeps = entry_mod.FLYTHROUGH_SUBSTEPS * (FLY_SETTLE_FRAMES
+                                                + FLY_FRAMES)
+    per_frame = {k: counts[k] / FLY_FRAMES for k in
+                 ("raster", "tonemap", "blur", "bvh")}
+    if counts["colored"] != substeps or counts["fused"] or counts["brute"] \
+            or counts["groups"] or not all(
+                v >= 1 and v == int(v) for v in per_frame.values()):
+        fail(f"flythrough: launches {json.dumps(counts)} over "
+             f"{FLY_SETTLE_FRAMES} + {FLY_FRAMES} frames: want one colored "
+             f"launch a substep ({substeps}), no fused, brute or group "
+             "launch, and a whole number (at least one) of raster, tonemap, "
+             "blur and BVH launches a filmed frame")
+    last = frames[-1]
+    heights = out["state"].pos[0, :, 1]
+    if len(frames) != FLY_FRAMES or last.shape != (OPT_H, OPT_W, 3) \
+            or not all(bool(torch.isfinite(f).all()) for f in frames) \
+            or not float(heights.min()) > 0.2 \
+            or not float(out["state"].pos.abs().max()) < 20.0:
+        fail(f"flythrough: frames {len(frames)} of {tuple(last.shape)}, "
+             f"finite {[bool(torch.isfinite(f).all()) for f in frames]}, "
+             f"heights {heights.tolist()}")
+    moved = float((frames[0] - frames[-1]).abs().mean())
+    if not moved > 1e-3:
+        fail(f"flythrough: the first and last frames differ by {moved}")
+
+    # The last filmed frame's launches against the plain versions.
+    t_check = time.perf_counter()
+    errs = {}
+    last_of = {k: v[-int(per_frame[k]):] for k, v in frame_records.items()}
+    with torch.inference_mode():
+        for args, kw, got in last_of["raster"]:
+            planes, pair_tri, seg, jitter, w, h = args[1:7]
+            want = raster.rasterize_plain(planes, pair_tri, seg, jitter, w, h)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail("flythrough: the raster kernel differs from its plain "
+                     "version on the filmed frame")
+        errs["raster"] = 0.0
+        k = image.tonemap_constants(post.TonemapSettings())
+        for args, kw, got in last_of["tonemap"]:
+            x, a = args[1], args[2]
+            if bytes(a) != bytes(image.tonemap_args(k, False)):
+                fail("flythrough: the frame's tonemap is not the default "
+                     "settings' without sRGB")
+            if not torch.equal(got, image.tonemap_plain(x, k, False)):
+                fail("flythrough: the tonemap kernel differs from its plain "
+                     "version on the filmed frame")
+        errs["tonemap"] = 0.0
+        shapes = []
+        for args, kw, got in last_of["blur"]:
+            img, taps = args[1], args[2]
+            shapes.append(f"{tuple(img.shape)} r {taps.shape[0] // 2}")
+            if not torch.equal(got, image.blur_plain(img, taps.to(dev))):
+                fail(f"flythrough: the blur kernel differs from its plain "
+                     f"version on the filmed frame at {shapes[-1]}")
+        errs["blur"] = 0.0
+        ray_rows = []
+        errs["bvh"] = 0.0
+        for args, kw, got in last_of["bvh"]:
+            planes, nodes, o, d, tm, any_hit = args[1:7]
+            want = ray_trace.closest_hit_plain(planes, o, d, tm, any_hit)
+            n_bad, outside, dt_rel, dt = check_rays(
+                "flythrough cascades", got, want, planes, o, d, tm, any_hit)
+            ray_rows.append(f"{o.shape[0]} rays: {n_bad} differ "
+                            f"({outside} off the margins), max |dt| rel "
+                            f"{dt_rel:.1e}")
+            errs["bvh"] = max(errs["bvh"], dt)
+            if outside or dt_rel > MAX_DT_REL:
+                fail("flythrough: the BVH kernel disagrees with its plain "
+                     "version on the frame's cascades")
+    check_s = time.perf_counter() - t_check
+
+    # The solver kernel against its plain version on one substep of the
+    # settled pile.
+    world, settled = out["world"], out["settled"]
+    psettings = PhysicsSettings()
+    plain_set = PhysicsSettings(solver_backend="plain")
+    reason = substep_cuda.support_reason(world.arch, psettings)
+    dt = 1.0 / psettings.frame_rate
+    with torch.inference_mode():
+        contacts = collide.generate_contacts(world.arch, settled)
+        active = int(contacts.active.sum())
+        before = wrappers["colored"].launches
+        kst, _ = step.physics_step(world.arch, settled, psettings, dt, 1)
+        pst, _ = step.physics_step(world.arch, settled, plain_set, dt, 1)
+        sync()
+        launched = wrappers["colored"].launches - before
+        sub_err = {f: max_err(getattr(kst, f), getattr(pst, f))
+                   for f in ("pos", "rot", "vel", "omega")}
+    if active == 0 or launched != 1 or reason is None:
+        fail(f"flythrough: the settled pile has {active} active contact rows "
+             f"(want > 0); its substep launched {launched} colored solves; "
+             f"fused family: {reason}")
+    if not (sub_err["pos"] <= POSE_TOL and sub_err["rot"] <= POSE_TOL
+            and sub_err["vel"] <= VEL_TOL and sub_err["omega"] <= OMEGA_TOL):
+        fail(f"flythrough: the colored kernel disagrees with plain on the "
+             f"settled pile: {json.dumps(sub_err)}")
+    errs["colored"] = max(sub_err.values())
+
+    # One more frame under the profiler: the device's busy share.
+    state, fstate = out["state"], out["frame_state"]
+    cam, prev = out["camera"](FLY_FRAMES), out["camera"](FLY_FRAMES - 1)
+    jit = torch.tensor([0.5, 0.5], device=dev)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        state, bvh = out["advance"](state)
+        out["render"](bvh, cam, prev, fstate, jit)
+        sync()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+        time.sleep(PROFILE_PAD_S)
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    phase_s = time.perf_counter() - t_phase
+    print(f"flythrough (flythrough_entry, {OPT_W}x{OPT_H}, 18 bodies, "
+          f"{int(world.instances.valid.sum())} triangles posed a frame): "
+          f"settle {FLY_SETTLE_FRAMES} frames {out['settle_s']:.2f} s, "
+          f"{FLY_FRAMES} filmed frames, {out['ms_per_frame']:.2f} ms a frame "
+          f"past the first ({out['frame_ms'][0]:.1f} ms), entry "
+          f"{run_s:.1f} s | launches {json.dumps(counts)} (per filmed frame "
+          f"{json.dumps(per_frame)}) | last filmed frame vs plain: raster, "
+          f"tonemap and {len(last_of['blur'])} blurs ({'; '.join(shapes)}) "
+          f"bit-equal; BVH kernel on the cascades: {'; '.join(ray_rows)} "
+          f"({check_s:.1f} s) | the pile's fused family: {reason}; one "
+          f"substep of the settled pile ({active} active contact rows), "
+          f"colored kernel vs plain max err {json.dumps(sub_err)} (bounds "
+          f"{POSE_TOL} / {VEL_TOL} / {OMEGA_TOL}) | heights min "
+          f"{float(heights.min()):.3f} max {float(heights.max()):.3f} | "
+          f"profiler, one frame: {len(kern)} kernels, device busy "
+          f"{busy:.1f} of {prof_ms:.1f} ms ({100 * busy / prof_ms:.1f}%), "
+          "most device time: "
+          + "; ".join(f"{n[:40]} {v:.2f} ms" for n, v in top)
+          + f" | {card} | phase {phase_s:.1f} s", flush=True)
+    return {"launches": counts, "errs": errs, "ms_per_frame":
+            out["ms_per_frame"], "busy": busy / prof_ms}
+
+
 def characters(card, cuda_ms, max_err):
     """Skinned characters through `character_entry` at 1080p: set-up (the
     static atrium's 3 cascades through kernel #3), CHAR_FRAMES frames
@@ -4016,6 +4143,12 @@ def main():
     if not os.path.abspath(port.__file__).startswith(here + os.sep):
         fail(f"d3d12renderer_tpu_torch comes from {port.__file__}, not from "
              "this checkout")
+    from d3d12renderer_tpu_torch.render import bvh as bvh_mod
+
+    # A fresh BVH disk cache: every tree the kernels are held on is built
+    # in this run, none read from an earlier one.
+    bvh_cache = tempfile.TemporaryDirectory(prefix="chip_smoke_bvh_")
+    os.environ[bvh_mod.BVH_CACHE_DIR_ENV] = bvh_cache.name
     from torch.autograd import DeviceType
 
     from d3d12renderer_tpu_torch import cuda_build
@@ -4173,9 +4306,9 @@ def main():
         sync()
     # Bound: the packed prep read once, vel/omega in and out; the solve's
     # operations at this batch's active contact points.
-    colored_bound = bound(
-        4 * (prep.numel() + 4 * sp.vel1.numel()),
-        solve_flop(solver.tables, BATCH, points, ITERATIONS))
+    colored_bound = profiling.solve_bound(prep.numel(), sp.vel1.numel(),
+                                          solver.tables, BATCH, points,
+                                          ITERATIONS)
     print(f"colored kernel vs plain (B={BATCH}, {ITERATIONS} iterations, "
           f"{points} active contact points, {limits} active limit rows, team "
           f"width {solver_cuda.TEAM_WIDTH}): max |dvel| {err_v:.3e} (bound "
@@ -4283,10 +4416,9 @@ def main():
         fsp = step.substep_prep(fenv.arch, bodies, 1.0 / FRAME_RATE,
                                 fenv.settings, fenv._motor_overrides(smoothed))
         f_points = int(fsp.contact_prep.pmask.sum().item())
-        fused_bound = bound(
-            4 * BATCH * (2 * 19 * bodies.pos.shape[1] + ACTION_SIZE
-                         + STATE_SIZE + 2),
-            solve_flop(solver.tables, BATCH, f_points, ITERATIONS))
+        fused_bound = profiling.env_step_bound(
+            BATCH, bodies.pos.shape[1], ACTION_SIZE, STATE_SIZE,
+            solver.tables, f_points, ITERATIONS)
     print(f"fused kernel vs plain (B={BATCH}, one env step, {ITERATIONS} "
           f"iterations, team width {solver_cuda.TEAM_WIDTH}): max err "
           f"{json.dumps(f_errs)}, done flips {f_flips}; "
@@ -4494,6 +4626,7 @@ def main():
     world = timed("showcase_world", showcase_world, card, cuda_ms)
     chars = timed("characters", characters, card, cuda_ms, max_err)
     edit = timed("editor", editor, card, cuda_ms, max_err)
+    fly = timed("flythrough", flythrough, card, cuda_ms, max_err)
     # Kernels #3 and #4 on the new paths.
     rays[0]["launches"] += (dist_launches["bvh"] + options["bvh"]
                             + world["launches"]["bvh"])
@@ -4522,6 +4655,15 @@ def main():
         launch_terms[row["name"]].append(edit["launches"][key])
         if key in edit["errs"]:
             row["max_abs_err"] = max(row["max_abs_err"], edit["errs"][key])
+    # The flythrough's path: #3 for its cascades, #5 (pair mode), #6 and #7
+    # for its frames, #1 for its pile.
+    rays[0]["launches"] += fly["launches"]["bvh"]
+    launch_terms["ray_closest_hit_bvh"].append(fly["launches"]["bvh"])
+    rays[0]["max_abs_err"] = max(rays[0]["max_abs_err"], fly["errs"]["bvh"])
+    launch_terms["raster_tiles"] = [images[0]["launches"]]
+    for row, key in zip(images, ("raster", "tonemap", "blur")):
+        row["launches"] += fly["launches"][key]
+        launch_terms[row["name"]].append(fly["launches"][key])
     # Last: run before the blur's profile, its profiles of ~27,000- and
     # ~97,000-kernel frames left that profile seeing 23 of its 50 calls
     # whole.
@@ -4544,6 +4686,7 @@ def main():
         + f"; {drop_kernel} + {drop_launches} (the ragdoll drop); "
         f"colored_solver + {edit['launches']['colored']}, fused_substep + "
         f"{edit['launches']['fused']} (the editor's play frames); "
+        f"colored_solver + {fly['launches']['colored']} (the flythrough); "
         f"raster_groups {chars['groups']['launches']}", flush=True)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in phase_s.items()),
@@ -4553,10 +4696,11 @@ def main():
     # Kernel #1's line: this slice's path, the self-colliding locomotion;
     # the plane-only ragdoll's numbers are on phase 3's line.
     colored_extra = (drop_launches if drop_kernel == "colored_solver" else 0
-                     ) + edit["launches"]["colored"]
+                     ) + edit["launches"]["colored"] + fly["launches"]["colored"]
     fused_extra = (drop_launches if drop_kernel == "fused_substep" else 0
                    ) + edit["launches"]["fused"]
-    colored_err = max(colored_err, edit["errs"]["colored"])
+    colored_err = max(colored_err, edit["errs"]["colored"],
+                      fly["errs"]["colored"])
     if fused_extra:
         fused_err = max(fused_err, chars["drop_err"])
     else:
@@ -4586,6 +4730,7 @@ def main():
         "bound_by": fused_bound[1],
         "library_ms": None,
     }] + rays + images + [chars["groups"]] + terrain_cloth}))
+    bvh_cache.cleanup()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -309,3 +309,183 @@ def profile_kernels(named, iters: int = 10) -> dict:
         profile_stat(f"kernel/{name}/device_ms",
                      rep["device_s_per_call"] * 1e3)
     return reports
+
+
+# Bounds of the hand-written kernels.  `kernel_report`'s FlopCounterMode
+# sees nothing inside a kernel launched through ctypes, so a kernel's
+# bound (`bound`: the larger of its bytes over the HBM rate and its
+# operations over the fp32 peak, at the table's rates for one H100 SXM at
+# the 700 W limit) counts its work from these per-test operation counts and
+# the run's inputs (`group_bound`, `solve_flop`), and
+# `instruction_floor_ms` gives the least time of an instruction count.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# Its SMs and the fp32 lanes of each.
+H100_SMS, LANES_PER_SM = 132, 128
+# Float operations per row solve, counted from csrc/solver_rows.cuh (a
+# multiply and an add count 2; min/max clamps count 1): the ball part 114,
+# distance 62, fixed 174 (rotation 60 + ball), hinge 250 (motor, limit and
+# rotation parts + ball), cone-twist 255 (four 1-D parts + ball); a contact
+# point against the static world 85 (friction then normal).
+# A slider row 275 (motor 32, limit 57, rotation 57, position 129).  A
+# contact table whose A side is dynamic somewhere (collider-pair rows) runs
+# the A side for every point: 48 more (the A lever arm's cross product and
+# add, and the A velocity updates, for friction and normal).
+ROW_FLOP = {"ball": 114, "distance": 62, "fixed": 174, "hinge": 250,
+            "cone_twist": 255, "slider": 275}
+CONTACT_POINT_FLOP = 85
+CONTACT_POINT_A_FLOP = 48
+# The ray plane test (csrc/ray_plane.cuh): 6 three-term dots (5 each), the
+# quotient, u, v and the accept terms = 42; a slab test of a node box: 6
+# subtractions, 6 products and 12 min/max = 24.  Of these, o.n, n_off - o.n
+# and the origin terms o.e1p + e1_off, o.e2p + e2_off (18) and the slab's
+# lo - o, hi - o (6) depend on the row or node and the ray's origin only:
+# rays that share an origin need them once per row or node.
+PLANE_TEST_FLOP = 42
+PLANE_ORIGIN_FLOP = 18
+BOX_TEST_FLOP = 24
+BOX_ORIGIN_FLOP = 6
+# The raster kernel's test of one (pair, pixel) (csrc/raster.cu): 4
+# two-term dots with an offset (4 operations each) and 6 compares = 22.
+# The tonemap: exposure, the curve (8), its quotient and clamps = 14.
+RASTER_PAIR_FLOP = 22
+TONEMAP_FLOP = 14
+
+
+def bound(bytes_moved, flop):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the fp32 peak."""
+    mem_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    op_ms = 1e3 * flop / FP32_FLOP_PER_S
+    return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
+
+
+def group_bound(raster, tables, plan, q, jitter, width, height):
+    """The group kernel's bound over one whole-frame launch: (bound_ms,
+    bound_by, tests, tile_tests).  `raster` is the port's `ops.raster`
+    module (passed in, so that this module loads alone by path).  `tests`
+    are the (visit, band, row, pixel) tests any exact cull of a row per row
+    band must run, the kernel's own granularity (`raster.group_rows_needed`
+    given the final image q, PX // GROUP_BANDS pixels a band),
+    RASTER_PAIR_FLOP each; the bytes read the planes, ranges and plan once
+    and write (q, tri).  `tile_tests` counts at the tile's granularity for
+    comparison: the (visit, triangle) tests of the visits whose bound
+    exceeds the tile's least q, PX pixels each."""
+    tests = raster.group_rows_needed(tables, plan, q, jitter, width,
+                                     height) * (raster.PX // raster.GROUP_BANDS)
+    least = raster.tile_min(q, width, height)
+    must = plan.bound > least[plan.visit_tile]
+    tile_tests = int(raster.visit_cover(
+        tables, plan.visit_tile[must], plan.group[must], width).sum()) \
+        * raster.PX
+    bytes_moved = (tables.planes.numel() * 4 + tables.tri_tiles.numel() * 4
+                   + plan.visits * 8 + plan.seg.numel() * 4
+                   + plan.tiles.numel() * 4 + 8 + width * height * 8)
+    return (*bound(bytes_moved, tests * RASTER_PAIR_FLOP), tests, tile_tests)
+
+
+def instruction_floor_ms(tests, per_test, sm_mhz):
+    """The least time of `tests` tests of `per_test` SASS instructions
+    each when every lane of the card issues one a cycle at `sm_mhz`."""
+    return 1e3 * tests * per_test / (H100_SMS * LANES_PER_SM * sm_mhz * 1e6)
+
+
+def solve_flop(tables, batch, points, iterations):
+    """Operations of one `iterations`-long solve: every joint row of every
+    scene, and the active contact points (`points`, summed over scenes),
+    with their A side where the contact table has one."""
+    rows = sum(m.perm.shape[0] * ROW_FLOP[m.kind] for m in tables
+               if m.kind != "contact")
+    point_flop = CONTACT_POINT_FLOP + sum(
+        CONTACT_POINT_A_FLOP for m in tables
+        if m.kind == "contact" and not m.a_static)
+    return iterations * (batch * rows + points * point_flop)
+
+
+def ray_bound(rays, tests, boxes, origins, rows, nodes, plane_cols,
+              node_cols):
+    """The ray walk's bound: `tests` plane tests and `boxes` box tests of
+    `rays` rays from `origins` distinct origins over `rows` plane rows of
+    `plane_cols` floats and `nodes` nodes of `node_cols` floats, each
+    origin-only term counted once per (origin, row or node) where rays
+    share origins; each ray's origin, direction, t_max and (t, tri) read or
+    written once."""
+    flop = (tests * (PLANE_TEST_FLOP - PLANE_ORIGIN_FLOP)
+            + min(tests, origins * rows) * PLANE_ORIGIN_FLOP
+            + boxes * (BOX_TEST_FLOP - BOX_ORIGIN_FLOP)
+            + min(boxes, origins * nodes) * BOX_ORIGIN_FLOP)
+    return bound(rays * (12 + 12 + 4 + 4 + 4) + rows * 4 * plane_cols
+                 + (nodes * 4 * node_cols if boxes else 0), flop)
+
+
+def pair_band_q(raster, qp, col0, row0, jitter):
+    """A plane's largest q over a row band of a tile: its q at the one
+    corner sample the signs of (qx, qy) pick, as csrc/raster.cu computes
+    it."""
+    rows = raster.TILE_Y // raster.BANDS
+    x = torch.where(qp[:, 0] >= 0, col0 + raster.TILE_X - 1, col0).to(
+        torch.float32) + jitter[0]
+    y = torch.where(qp[:, 1] >= 0, row0 + rows - 1, row0).to(
+        torch.float32) + jitter[1]
+    return (qp[:, 0] * x + qp[:, 1] * y) + qp[:, 2]
+
+
+def pair_tests_needed(raster, planes, pair_tri, seg, q, jitter, width,
+                      height) -> int:
+    """The (pair, band) tests any exact cull of the pair kernel must run
+    given the final image q: those whose largest q over the band exceeds
+    the band's least final q."""
+    rows = raster.TILE_Y // raster.BANDS
+    ntx = width // raster.TILE_X
+    least = q.reshape(height // rows, rows, ntx, raster.TILE_X).amin(
+        dim=(1, 3))                                   # (band rows, ntx)
+    tile = torch.repeat_interleave(
+        torch.arange(seg.shape[0] - 1, device=q.device),
+        (seg[1:] - seg[:-1]).long(), output_size=int(pair_tri.shape[0]))
+    qp = planes[pair_tri.long(), 9:12]
+    needed = 0
+    for band in range(raster.BANDS):
+        band_row = tile // ntx * raster.BANDS + band
+        needed += int((pair_band_q(raster, qp, tile % ntx * raster.TILE_X,
+                                   band_row * rows, jitter)
+                       > least[band_row, tile % ntx]).sum())
+    return needed
+
+
+def pair_bound(raster, planes, pairs, seg, needed, width, height):
+    """The pair kernel's bound over one launch: the planes, pairs and tile
+    segments read once, (q, tri, u, v) written; `needed` (pair, band)
+    tests (`pair_tests_needed`) over their band's pixels."""
+    return bound(planes.numel() * 4 + pairs * 4 + seg.numel() * 4 + 8
+                 + width * height * 16,
+                 needed * (raster.PX // raster.BANDS) * RASTER_PAIR_FLOP)
+
+
+def blur_work(numel, radius):
+    """(bytes, operations) of one separable blur of `numel` floats: read
+    and written once, a multiply-add per tap in each of the two passes."""
+    return 2 * 4 * numel, numel * 2 * 2 * (2 * radius + 1)
+
+
+def tonemap_bound(n):
+    """The tonemap's bound over `n` floats: read and written once,
+    TONEMAP_FLOP operations each."""
+    return bound(2 * 4 * n, n * TONEMAP_FLOP)
+
+
+def solve_bound(prep_numel, vel_numel, tables, batch, points, iterations):
+    """The colored solve's bound: its packed prep read once, velocities and
+    angular velocities in and out; `solve_flop`'s operations."""
+    return bound(4 * (prep_numel + 4 * vel_numel),
+                 solve_flop(tables, batch, points, iterations))
+
+
+def env_step_bound(batch, bodies, action_size, state_size, tables, points,
+                   iterations):
+    """The fused env step's bound: the body state in and out, the action
+    in, obs, reward and done out; the solve's operations at the step's
+    active contact points (the narrowphase, prep and post stage left out:
+    a lower bound)."""
+    return bound(4 * batch * (2 * 19 * bodies + action_size + state_size
+                              + 2),
+                 solve_flop(tables, batch, points, iterations))

@@ -7,12 +7,14 @@ of 128 point lights), the runtime physics of BASELINE configs 1 (the
 1k-body stack drop) and 4 (the gear-train vehicle), terrain physics
 (examples/showcase.py's drop with collision events, the triangle-exact
 ridge, the vehicle on terrain), cloth against rigid bodies (BASELINE
-config 3), examples/showcase.py's whole world, and skinned characters:
-a crowd in the raster frame and ragdolls fitted from their skeleton."""
+config 3), examples/showcase.py's whole world, examples/flythrough.py's
+pile filmed by an orbiting camera, and skinned characters: a crowd in the
+raster frame and ragdolls fitted from their skeleton."""
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -192,14 +194,15 @@ def _batched(state, batch: int):
 
 
 def stack_drop_entry(device="cuda", bodies: int = 1000, batch: int = 8,
-                     steps: int = 300, contact_mode: str = "split_jacobi"):
+                     steps: int = 300, contact_mode: str = "split_jacobi",
+                     iterations: int = 30):
     """BASELINE config 1 (counterpart of the stack leg of
     `bench_physics_scale`, `bench.py:392-485`, and of
     `examples/stack_drop_1k.py`): `bodies` boxes and spheres dropped onto a
     plane, `batch` copies of the scene, the runtime sweep-and-prune
     broadphase, contacts in `contact_mode` ("split_jacobi" or
-    "runtime_gs" with STACK_GS_COLORS colors), 120 Hz substeps with 30
-    iterations.
+    "runtime_gs" with STACK_GS_COLORS colors), 120 Hz substeps with
+    `iterations` solver iterations (30, bench.py's).
 
     Returns `(fn, (arch, state))`: `fn(state, steps=steps) -> (state,
     contacts)` advances every scene by `steps` frames of 1/60 s (two
@@ -212,7 +215,8 @@ def stack_drop_entry(device="cuda", bodies: int = 1000, batch: int = 8,
     add_stack_drop_1k(b, bodies)
     arch, state = b.finalize(device=device, **STACK_DROP_1K_FINALIZE)
     settings = PhysicsSettings(frame_rate=STACK_FRAME_RATE,
-                               solver_iterations=30, contact_mode=contact_mode,
+                               solver_iterations=iterations,
+                               contact_mode=contact_mode,
                                runtime_gs_colors=STACK_GS_COLORS)
     return _physics_runner(arch, settings, steps), (arch,
                                                     _batched(state, batch))
@@ -345,11 +349,12 @@ def cloth_entry(device="cuda", grid: int = 32, batch: int = 256):
 VEHICLE_TERRAIN_THROTTLE = 10.0
 
 
-def vehicle_terrain_entry(device="cuda", batch: int = 8):
+def vehicle_terrain_entry(device="cuda", batch: int = 8,
+                          throttle: float = VEHICLE_TERRAIN_THROTTLE):
     """examples/vehicle_terrain.py's drive: the gear-train vehicle on its
     49 x 49 heightmap (amplitude 1.2, seed 11, friction 1), `batch` copies,
-    split-Jacobi contacts at 60 Hz, the motor hinge at
-    VEHICLE_TERRAIN_THROTTLE rad/s, steering straight.
+    split-Jacobi contacts at 60 Hz, the motor hinge at `throttle` rad/s,
+    steering straight.
 
     Returns `(fn, (arch, info, state))` as `vehicle_entry`, except that
     `fn(state, steps)` takes its frame count from the caller."""
@@ -362,8 +367,7 @@ def vehicle_terrain_entry(device="cuda", batch: int = 8):
     start = scenes.add_vehicle_terrain(b, scenes.vehicle_terrain_heights())
     info = build_vehicle(b, position=start)
     arch, state = b.finalize(device=device)
-    overrides = drive_overrides(arch, info,
-                                throttle_velocity=VEHICLE_TERRAIN_THROTTLE,
+    overrides = drive_overrides(arch, info, throttle_velocity=throttle,
                                 steering_angle=0.0, batch=batch)
     settings = PhysicsSettings(frame_rate=VEHICLE_FRAME_RATE,
                                contact_mode="split_jacobi")
@@ -727,6 +731,190 @@ def showcase_world_entry(device="cuda", width: int = 1920, height: int = 1080,
     fn.scene, fn.camera = world.scene, world.camera
     fn.audio = sound
     return fn, initial_frame_state(width, height, device)
+
+
+# examples/flythrough.py:79-104: the pile's render meshes (box, sphere, a
+# 24 m ground quad), materials (ground, spheres, boxes), the one point
+# light, the cascades' resolution and the orbit of `flythrough_camera`.
+FLYTHROUGH_ALBEDO = [[0.45, 0.45, 0.45], [0.75, 0.22, 0.16], [0.2, 0.38, 0.8]]
+FLYTHROUGH_ROUGHNESS = [0.75, 0.45, 0.25]
+FLYTHROUGH_LIGHT = dict(positions=[[3.0, 2.5, 3.0]], colors=[[30.0, 12.0, 6.0]],
+                        radii=[9.0])
+FLYTHROUGH_SHADOW_RESOLUTION = 256
+FLYTHROUGH_GROUND_HALF = 12.0
+FLYTHROUGH_SPHERE_SUBDIV = 2
+FLYTHROUGH_FRAME_DT = 1.0 / 60.0
+FLYTHROUGH_SUBSTEPS = 2
+# Frames of physics alone before the filmed ones: the lowest body meets
+# the plane at frame ~30 and the column lands over frames 30-110, so at
+# frame 60 bodies rest, slide and fall onto each other (contact rows
+# active) while the top of the column is still in the air.
+FLYTHROUGH_SETTLE_FRAMES = 60
+
+
+@dataclass
+class FlythroughWorld:
+    """examples/flythrough.py's set-up: the pile's archetype, its initial
+    state and body kinds, the instanced render meshes (instance i is body
+    i, the last the ground), materials, sky and light."""
+
+    arch: object
+    state: object
+    kinds: list
+    instances: object
+    materials: object
+    sky: object
+    lights: object
+
+
+def flythrough_world(device="cuda") -> FlythroughWorld:
+    """examples/flythrough.py:58-104 on `device`."""
+    from .models.scenes import (FLYTHROUGH_BOX_HALF, FLYTHROUGH_SPHERE_RADIUS,
+                                add_flythrough_pile)
+    from .physics.builder import SceneBuilder
+    from .render import mesh as mesh_mod
+    from .render import pathtracer as pt
+    from .render.instances import build_instanced
+    from .render.lights import make_point_lights
+
+    device = resolve_device(device)
+    b = SceneBuilder()
+    kinds = add_flythrough_pile(b)
+    arch, state = b.finalize(device=device)
+    meshes = [(mesh_mod.box((FLYTHROUGH_BOX_HALF,) * 3), 1),
+              (mesh_mod.ico_sphere(FLYTHROUGH_SPHERE_RADIUS,
+                                   FLYTHROUGH_SPHERE_SUBDIV), 2),
+              (mesh_mod.quad(half=FLYTHROUGH_GROUND_HALF), 0)]
+    instances = build_instanced(
+        meshes, [0 if k == "box" else 1 for k in kinds] + [2], device=device)
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    materials = pt.Materials(albedo=f32(FLYTHROUGH_ALBEDO),
+                             emissive=torch.zeros((3, 3), device=device),
+                             roughness=f32(FLYTHROUGH_ROUGHNESS),
+                             metallic=torch.zeros(3, device=device))
+    return FlythroughWorld(arch, state, kinds, instances, materials,
+                           pt.default_sky(device=device),
+                           make_point_lights(**FLYTHROUGH_LIGHT,
+                                             device=device))
+
+
+def flythrough_camera(f: int, frames: int, width: int, height: int,
+                      device="cuda"):
+    """examples/flythrough.py:118-124: frame `f` of `frames` on one orbit
+    of radius 6.5 m around (0, 0.9, 0), bobbing between 1.4 and 3.8 m."""
+    from .render.camera import look_at
+
+    th = 2 * math.pi * f / max(frames, 1)
+    eye = (6.5 * math.cos(th), 2.6 + 1.2 * math.sin(2 * th),
+           6.5 * math.sin(th))
+    return look_at(eye, (0.0, 0.9, 0.0), device=device, aspect=width / height,
+                   v_fov=math.radians(48))
+
+
+def flythrough_entry(device="cuda", width: int = 1920, height: int = 1080,
+                     frames: int = 16,
+                     settle_frames: int = FLYTHROUGH_SETTLE_FRAMES,
+                     seed: int = 0, jitters=None, state=None):
+    """examples/flythrough.py's path (physics under the raster frame while
+    an orbiting camera films it), at the reference editor's 1920x1080 by
+    default: `settle_frames` frames of physics alone, then `frames` filmed
+    frames, each one `physics_step` of two 120 Hz substeps (colored
+    contacts: the pile's pair rows keep it outside the fused kernel's
+    family, so each substep is one colored-solver launch on the card), the
+    instances posed on the device (`render.instances.retransform`, the
+    per-frame BVH), and `render_frame_with_shadows` with sun cascades of
+    FLYTHROUGH_SHADOW_RESOLUTION^2 rendered every frame, the point light,
+    TAA history carried and the previous frame's camera as `prev_camera`
+    (its motion vectors), `flythrough_camera`'s orbit over the filmed
+    frames.  The frame takes the raster primary
+    (`RendererSettings(primary="raster")`, as the port's other raster
+    paths; JAX's script takes `RendererSettings()`, whose primary is
+    "ray").  Each frame's sub-pixel jitter comes from a generator seeded
+    `seed` on the device, or from `jitters[f]`.  `state` replaces the
+    pile's initial BodyState (batch 1).
+
+    Returns a dict: "frames" (each filmed frame's ldr (H, W, 3) in [0, 1]
+    on the device), "state" (the final
+    BodyState, batch 1), "frame_state", "settle_s", "frame_ms" (host ms of
+    each filmed frame, synchronised), "ms_per_frame" (their mean past the
+    first: the first builds the kernels), "world" (`flythrough_world`'s),
+    "settled" (the state after the settling frames), and "advance" /
+    "render" / "camera", the frame's steps: `advance(state) -> (state,
+    bvh)`, `render(bvh, camera, prev_camera, frame_state, jitter) -> (ldr,
+    frame_state, aux)` and `camera(f)`."""
+    import time
+
+    from .physics.step import physics_step
+    from .render import pathtracer as pt
+    from .render.instances import retransform
+    from .render.pipeline import (RendererSettings, initial_frame_state,
+                                  render_frame_with_shadows)
+
+    device = resolve_device(device)
+    world = flythrough_world(device)
+    arch, psettings = world.arch, PhysicsSettings()
+    settings = RendererSettings(primary="raster")
+    static_pos = torch.zeros((1, 3), device=device)
+    static_rot = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    @torch.inference_mode()
+    def step(state):
+        return physics_step(arch, state, psettings, FLYTHROUGH_FRAME_DT,
+                            FLYTHROUGH_SUBSTEPS)[0]
+
+    @torch.inference_mode()
+    def advance(state):
+        state = step(state)
+        return state, retransform(
+            world.instances, torch.cat([state.pos[0], static_pos]),
+            torch.cat([state.rot[0], static_rot]))
+
+    @torch.inference_mode()
+    def render(bvh, camera, prev_camera, frame_state, jitter):
+        scene = pt.Scene(bvh=bvh, materials=world.materials, sky=world.sky)
+        return render_frame_with_shadows(
+            scene, camera, width, height, settings,
+            shadow_resolution=FLYTHROUGH_SHADOW_RESOLUTION,
+            point_lights=world.lights, frame_state=frame_state,
+            prev_camera=prev_camera, jitter=jitter)
+
+    def camera(f):
+        return flythrough_camera(f, frames, width, height, device)
+
+    state = world.state if state is None else state
+    t0 = time.perf_counter()
+    for _ in range(settle_frames):
+        state = step(state)
+    sync()
+    settle_s = time.perf_counter() - t0
+    settled = state
+    fstate = initial_frame_state(width, height, device)
+    out, frame_ms, prev = [], [], None
+    for f in range(frames):
+        t0 = time.perf_counter()
+        state, bvh = advance(state)
+        cam = camera(f)
+        jitter = (torch.rand(2, generator=generator, device=device)
+                  if jitters is None else jitters[f])
+        ldr, fstate, _ = render(bvh, cam, prev or cam, fstate, jitter)
+        sync()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        prev = cam
+        out.append(ldr)
+    steady = frame_ms[1:] or frame_ms
+    return {"frames": out, "state": state, "frame_state": fstate,
+            "settle_s": settle_s, "frame_ms": frame_ms,
+            "ms_per_frame": sum(steady) / max(len(steady), 1),
+            "world": world, "settled": settled, "advance": advance,
+            "render": render, "camera": camera}
 
 
 # The skinned character of character_entry and character_ragdoll_entry,

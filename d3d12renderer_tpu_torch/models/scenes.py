@@ -27,6 +27,8 @@ compare the archetypes).
   capsule held in place, with `CLOTH_*` the cloth's settings.
 * `add_terrain` of a vehicle: `vehicle_terrain_heights` is
   `examples/vehicle_terrain.py`'s heightmap, `VEHICLE_TERRAIN` its placement.
+* `add_flythrough_pile`: `examples/flythrough.py`'s pile, 18 boxes and
+  spheres stacked in a loose column over the plane (numpy seed 4).
 """
 
 from __future__ import annotations
@@ -290,3 +292,31 @@ def add_vehicle_terrain(b, heights):
     h0 = _height_at(heights, VEHICLE_TERRAIN_ORIGIN, VEHICLE_TERRAIN_CELL,
                     0.0, 0.0)
     return (0.0, h0 + 0.85, 0.0)
+
+
+# examples/flythrough.py:63-77: the pile's bodies and their colliders.
+FLYTHROUGH_BODIES = 18
+FLYTHROUGH_BOX_HALF = 0.35
+FLYTHROUGH_SPHERE_RADIUS = 0.33
+
+
+def add_flythrough_pile(b):
+    """examples/flythrough.py's pile: a plane of friction 0.8 and 18 bodies
+    at heights 1.2 + 0.75 i over a 3.2 m square (numpy seed 4), every third
+    a sphere (restitution 0.35), the others boxes (friction 0.7).  Returns
+    the bodies' kinds ("box" or "sphere") in body order."""
+    b.add_static_plane((0, 1, 0), 0.0, friction=0.8)
+    rng = np.random.default_rng(4)
+    kinds = []
+    for i in range(FLYTHROUGH_BODIES):
+        kind = "box" if i % 3 else "sphere"
+        pos = (float(rng.uniform(-1.6, 1.6)), 1.2 + 0.75 * i,
+               float(rng.uniform(-1.6, 1.6)))
+        body = b.add_body(position=pos)
+        if kind == "box":
+            b.add_box_collider(body, (FLYTHROUGH_BOX_HALF,) * 3, friction=0.7)
+        else:
+            b.add_sphere_collider(body, radius=FLYTHROUGH_SPHERE_RADIUS,
+                                  restitution=0.35)
+        kinds.append(kind)
+    return kinds

@@ -8,11 +8,15 @@ LEAF_SIZE-padded triangle soup, identical to the JAX package's arrays.  The
 dense plane table (`DenseTris`) is built for every scene: both ray kernels
 read it.  `closest_hit` / `any_hit` are the one dispatch to the kernels
 (`ops/ray_trace.py`), with the JAX Pallas backend's contract; the JAX
-package's other backends and its BVH disk cache are not ported.
+package's other backends are not ported.  Trees of large scenes are kept
+in a disk cache (`build_bvh`, BVH_CACHE_*).
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import zipfile
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core import maths as m
-from ..cuda_build import load_host_library, resolve_device
+from ..cuda_build import CSRC_DIR, load_host_library, resolve_device
 from ..ops import ray_trace
 from .mesh import MeshData
 
@@ -75,12 +79,121 @@ BVH_FIELDS = ("node_min", "node_max", "node_first", "node_count", "node_miss",
               "tri_uv0", "tri_uv1", "tri_uv2", "tri_material", "tri_valid")
 
 
+# The disk cache of built trees (the JAX package's `render/bvh.py:57-129`
+# contract with the port's own key, version, directory and variables, so
+# that neither package reads the other's files): one `.npz` of host arrays
+# per tree, keyed by a blake2b hash of the meshes' bytes, the builder kind,
+# LEAF_SIZE and, for the native builder, csrc/bvh_build.cpp; an LRU by mtime
+# keeps BVH_CACHE_KEEP files; scenes under BVH_CACHE_MIN_TRIS triangles are
+# not cached.  BVH_CACHE_DIR_ENV overrides the directory and
+# BVH_CACHE_ENV=0 turns the cache off.
+BVH_CACHE_VERSION = "d3d12renderer_tpu_torch-bvh-1"
+BVH_CACHE_MIN_TRIS = 50_000
+BVH_CACHE_KEEP = 16
+BVH_CACHE_DIR_ENV = "D3D12TPU_TORCH_BVH_CACHE_DIR"
+BVH_CACHE_ENV = "D3D12TPU_TORCH_BVH_CACHE"
+BVH_CACHE_DEFAULT_DIR = os.path.join("~", ".cache", "d3d12renderer_tpu_torch",
+                                     "bvh")
+BVH_BUILDER_SOURCE = CSRC_DIR / "bvh_build.cpp"
+
+
+def bvh_cache_dir() -> str:
+    """The cache directory (created): BVH_CACHE_DIR_ENV, else
+    BVH_CACHE_DEFAULT_DIR under the home directory."""
+    d = os.environ.get(BVH_CACHE_DIR_ENV) or os.path.expanduser(
+        BVH_CACHE_DEFAULT_DIR)
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def bvh_cache_key(meshes: List[Tuple[MeshData, int]], native: bool) -> str:
+    """blake2b over the cache version, LEAF_SIZE, the builder kind (the
+    native and numpy builders order a leaf's triangles differently), the
+    native builder's source, and every mesh's arrays and material id."""
+    h = hashlib.blake2b(digest_size=20)
+    kind = "native" if native else "numpy"
+    h.update(f"{BVH_CACHE_VERSION}|leaf{LEAF_SIZE}|{kind}".encode())
+    if native:
+        h.update(hashlib.sha256(BVH_BUILDER_SOURCE.read_bytes()).digest())
+    for mesh, mat_id in meshes:
+        for x in (mesh.positions, mesh.normals, mesh.uvs, mesh.indices):
+            x = np.ascontiguousarray(x)
+            h.update(f"{x.dtype}{x.shape}".encode())
+            h.update(x.tobytes())
+        h.update(f"|{int(mat_id)}".encode())
+    return h.hexdigest()
+
+
+def _cache_path(meshes, native: bool, cache: Optional[bool]):
+    """The tree's cache file, or None where the cache is off, the scene is
+    small or the directory cannot be made (an uncached build then)."""
+    if cache is None:
+        cache = (os.environ.get(BVH_CACHE_ENV, "1") != "0"
+                 and sum(len(mesh.indices) for mesh, _ in meshes)
+                 >= BVH_CACHE_MIN_TRIS)
+    if not cache:
+        return None
+    try:
+        return os.path.join(bvh_cache_dir(),
+                            bvh_cache_key(meshes, native) + ".npz")
+    except OSError:
+        return None
+
+
+def _cache_load(path: str):
+    """The cached arrays, or None where the file is missing or unreadable
+    (the caller rebuilds and overwrites it)."""
+    try:
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in BVH_FIELDS}
+        os.utime(path)
+        return arrays
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None
+
+
+def _cache_save(path: str, arrays: dict):
+    """Write through a pid-suffixed temporary file and `os.replace` (two
+    builders of one scene never interleave), then keep the newest
+    BVH_CACHE_KEEP files.  A failure leaves the build uncached."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+        d = os.path.dirname(path)
+        files = sorted((os.path.join(d, f) for f in os.listdir(d)
+                        if f.endswith(".npz")), key=os.path.getmtime)
+        for old in files[:-BVH_CACHE_KEEP]:
+            os.remove(old)
+    except OSError:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def build_bvh(meshes: List[Tuple[MeshData, int]], device="cuda",
-              native: bool = True) -> BVH:
+              native: bool = True, cache: Optional[bool] = None) -> BVH:
     """Build from [(mesh, material_id), ...] on the host (median split) and
     upload to `device`, with the dense plane table.  `native=False` takes
-    the numpy builder (the same tree, minutes at 100k+ triangles)."""
+    the numpy builder (the same tree, minutes at 100k+ triangles).  Scenes
+    of BVH_CACHE_MIN_TRIS triangles or more read and write the disk cache
+    (`cache=True` caches any scene, `cache=False` none); a tree read from
+    it equals a fresh build bit for bit."""
     device = resolve_device(device)
+    path = _cache_path(meshes, native, cache)
+    arrays = _cache_load(path) if path and os.path.exists(path) else None
+    if arrays is None:
+        arrays = _build_arrays(meshes, native)
+        if path:
+            _cache_save(path, arrays)
+    bvh = BVH(**{k: torch.as_tensor(arrays[k], device=device)
+                 for k in BVH_FIELDS})
+    bvh.dense = build_dense(bvh)
+    return bvh
+
+
+def _build_arrays(meshes, native: bool) -> dict:
+    """The tree's host arrays (BVH_FIELDS) from the meshes."""
     parts = {k: [] for k in ("v0", "e1", "e2", "n0", "n1", "n2", "uv0",
                              "uv1", "uv2", "mat")}
     for mesh, mat in meshes:
@@ -112,19 +225,12 @@ def build_bvh(meshes: List[Tuple[MeshData, int]], device="cuda",
         return np.concatenate([out, np.full((pad,) + x.shape[1:], fill,
                                             x.dtype)])
 
-    def dev(x):
-        return torch.as_tensor(np.ascontiguousarray(x), device=device)
-
-    bvh = BVH(
-        node_min=dev(node_min), node_max=dev(node_max),
-        node_first=dev(node_first), node_count=dev(node_count),
-        node_miss=dev(miss),
-        **{f"tri_{k}": dev(take(a[k]).astype(np.float32))
-           for k in ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1",
-                     "uv2")},
-        tri_material=dev(take(a["mat"], fill=0)), tri_valid=dev(valid))
-    bvh.dense = build_dense(bvh)
-    return bvh
+    out = dict(node_min=node_min, node_max=node_max, node_first=node_first,
+               node_count=node_count, node_miss=miss,
+               tri_material=take(a["mat"], fill=0), tri_valid=valid)
+    for k in ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2"):
+        out[f"tri_{k}"] = take(a[k]).astype(np.float32)
+    return {k: np.ascontiguousarray(out[k]) for k in BVH_FIELDS}
 
 
 def _build_nodes_native(lo, hi, centroids):

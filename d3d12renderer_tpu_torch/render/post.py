@@ -228,15 +228,26 @@ def bilateral_upsample(low, depth_low, depth_full, sigma_z=0.5):
     return num / (den[..., None] if vec else den)
 
 
+def _pixel_offset(motion):
+    """round(motion) as int32, converted as XLA and CUDA convert it:
+    saturating, NaN to 0.  (PyTorch's CPU conversion gives INT32_MIN for
+    every value out of range.)  A sky pixel's motion is ~1e13 pixels: JAX
+    saturates it and its int32 index sum wraps, and the port keeps that
+    arithmetic, so the history pixel it takes is JAX's."""
+    m = torch.nan_to_num(torch.round(motion), nan=0.0).double()
+    return torch.clamp(m, -2.0 ** 31, 2.0 ** 31 - 1).to(torch.int32)
+
+
 def _reproject(history, motion):
     """history sampled at each pixel + round(motion), clamped to the image
-    (round half to even, as jnp.round)."""
+    (round half to even, as jnp.round; the sum in int32, as JAX's)."""
     h, w = history.shape[:2]
     dev = history.device
-    yy = torch.clamp(torch.arange(h, device=dev)[:, None]
-                     + torch.round(motion[..., 1]).to(torch.int32), 0, h - 1)
-    xx = torch.clamp(torch.arange(w, device=dev)[None, :]
-                     + torch.round(motion[..., 0]).to(torch.int32), 0, w - 1)
+    i32 = torch.int32
+    yy = torch.clamp(torch.arange(h, dtype=i32, device=dev)[:, None]
+                     + _pixel_offset(motion[..., 1]), 0, h - 1)
+    xx = torch.clamp(torch.arange(w, dtype=i32, device=dev)[None, :]
+                     + _pixel_offset(motion[..., 0]), 0, w - 1)
     return history[yy.long(), xx.long()]
 
 

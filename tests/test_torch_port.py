@@ -50,12 +50,56 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == "[]"
 
 
+def _port_sources():
+    """The package, chip_smoke.py, the port's tools and example scripts."""
+    return (sorted((REPO / "d3d12renderer_tpu_torch").rglob("*.py"))
+            + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "tools").glob("torch_*.py"))
+            + sorted((REPO / "examples").glob("torch_*.py")))
+
+
 def test_sources_import_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|d3d12renderer_tpu)\b",
                          re.M)
-    for path in (REPO / "d3d12renderer_tpu_torch").rglob("*.py"):
+    sources = _port_sources()
+    assert sum(p.parent.name == "examples" for p in sources) == 9
+    assert sum(p.parent.name == "tools" for p in sources) >= 8
+    for path in sources:
         assert not pattern.search(path.read_text()), path
-    assert not pattern.search((REPO / "chip_smoke.py").read_text())
+
+
+def _example_parsers():
+    import importlib.util
+
+    out = {}
+    for path in sorted((REPO / "examples").glob("torch_*.py")):
+        spec = importlib.util.spec_from_file_location(
+            f"example_defaults_{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out[path.stem] = mod
+    return out
+
+
+def test_example_scripts_default_to_the_card_and_write_under_build():
+    """Each port script (`main(argv)`, `build_parser()`) defaults to
+    `--device cuda`, has no JAX-only flag, and writes nothing by default
+    outside the repo's `build/` (the JAX scripts' defaults overwrite
+    images committed at the repo root)."""
+    mods = _example_parsers()
+    assert len(mods) == 9
+    for name, mod in mods.items():
+        assert callable(mod.main), name
+        parser = mod.build_parser()
+        args = parser.parse_args([])
+        assert args.device == "cuda", name
+        flags = {a.dest for a in parser._actions}
+        assert not flags & {"platform", "dispatch", "backend"}, name
+        for dest in ("out", "logdir", "render", "eval_render", "audio"):
+            value = getattr(args, dest, None)
+            if value is not None:
+                rel = Path(value).resolve().relative_to(REPO)
+                assert rel.parts[0] == "build", (name, dest, value)
 
 
 @pytest.fixture(scope="module")
@@ -261,6 +305,9 @@ def _entry_points():
                                   lambda f: f()),
         "raster_lights_entry": (entry.raster_lights_entry, lambda f: f()),
         "showcase_world_entry": (entry.showcase_world_entry, lambda f: f()),
+        "flythrough_entry": (entry.flythrough_entry, lambda f: f()),
+        "flythrough_world": (entry.flythrough_world, lambda f: f()),
+        "flythrough_camera": (entry.flythrough_camera, None),
         "character_entry": (entry.character_entry, lambda f: f()),
         "character_ragdoll_entry": (entry.character_ragdoll_entry,
                                     lambda f: f()),

@@ -25,7 +25,7 @@ crowd's first frame at 1080p (chip_smoke.py's characters phase), and prints
 the visits per tile, the group kernel's counters, its bound and its
 instruction floor (the bound's tests times the SASS instructions per test of
 the kernel's inner loop, over every lane of the card at its largest SM
-clock), both from this checkout's chip_smoke.py.
+clock), both from this checkout's `core/profiling.py`.
 
     python3 tools/torch_render_probe.py [--repo DIR] [--label NAME]
         [--only tonemap|groups]
@@ -210,14 +210,16 @@ def crowd_frame(torch, dev):
     return fn, state, aux["bvh"], fn.camera, jit
 
 
-def smoke_module():
-    """This checkout's chip_smoke.py (its bound helpers), loaded by path,
-    so that `--repo` on another checkout keeps the same yardstick."""
+def bounds_module():
+    """This checkout's `core/profiling.py` (the bound helpers), loaded by
+    path, so that `--repo` on another checkout keeps the same
+    yardstick."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke_bounds", path)
+        os.path.abspath(__file__))), "d3d12renderer_tpu_torch", "core",
+        "profiling.py")
+    spec = importlib.util.spec_from_file_location("profiling_bounds", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -226,7 +228,7 @@ def smoke_module():
 def group_probe(torch, dev, sync, emit, cuda_ms, lib):
     """The group kernel and the pair kernel on the crowd's first frame at
     1080p, each against its plain version; the visits per tile; the group
-    kernel's counters; its bound and instruction floor (chip_smoke.py's
+    kernel's counters; its bound and instruction floor (`core/profiling.py`'s
     `group_bound` and `instruction_floor_ms`; where the package has
     `group_rows_needed`); then the crowd's frames (`character_entry`, host
     clock, best of 3 runs of CROWD_FRAMES) and one frame's stages (CUDA
@@ -261,7 +263,7 @@ def group_probe(torch, dev, sync, emit, cuda_ms, lib):
                          "rows_culled"), stats.tolist()))
     g_bound = None
     if hasattr(raster, "group_rows_needed"):
-        g_bound = smoke_module().group_bound(raster, tables, plan, want[0],
+        g_bound = bounds_module().group_bound(raster, tables, plan, want[0],
                                              jit, W, hp)
         counters["rows_needed"] = g_bound[2] // (raster.PX
                                                  // raster.GROUP_BANDS)
@@ -287,7 +289,7 @@ def group_probe(torch, dev, sync, emit, cuda_ms, lib):
             ["nvidia-smi", "--query-gpu=clocks.max.sm",
              "--format=csv,noheader,nounits"], capture_output=True,
             text=True, check=True).stdout.split()[0])
-        floor = smoke_module().instruction_floor_ms
+        floor = bounds_module().instruction_floor_ms
         emit(probe="group bound", bound_ms=g_bound[0], bound_by=g_bound[1],
              tests=g_bound[2], tile_tests=g_bound[3],
              loop_instructions=loop, pixels_per_pass=pixels,
