@@ -22,7 +22,6 @@ the same update; `parallel/data_parallel.py` builds on it.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Sequence
 
@@ -30,6 +29,7 @@ import torch
 import torch.distributed as dist
 from torch.func import functional_call
 
+from ..core import profiling
 from .loco_env import ACTION_SIZE, STATE_SIZE, EnvState, LocoEnv
 from .monitor import EpisodeStats, init_stats, update_stats
 from .networks import (ActorCritic, gaussian_entropy, gaussian_logp,
@@ -194,34 +194,6 @@ def _all_mean_tensors(tensors, group):
     return [p.view(t.shape) for p, t in zip(parts, tensors)]
 
 
-class _PhaseClock:
-    """Marks between phases: CUDA events on the card (read after one
-    synchronisation at the end), the host clock on the CPU."""
-
-    def __init__(self, device: torch.device, on: bool):
-        self.on, self.cuda = on, device.type == "cuda"
-        self.marks = []
-
-    def mark(self, name: str):
-        if not self.on:
-            return
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def ms(self) -> Dict[str, float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = (a.elapsed_time(b) if self.cuda
-                         else 1e3 * (b - a))
-        return out
-
-
 def make_ppo(env: LocoEnv, config: PPOConfig = PPOConfig(), group=None):
     """(init, train_iteration, policy_apply) on the env's device.
 
@@ -283,43 +255,42 @@ def make_ppo(env: LocoEnv, config: PPOConfig = PPOConfig(), group=None):
     def train_iteration(state: TrainState, draws: Optional[Draws] = None,
                         profile_phases: bool = False):
         draws = draws or Draws()
-        clock = _PhaseClock(device, profile_phases)
-        clock.mark("start")
-        traj, env_state, last_obs, last_value = rollout(state, draws)
-        clock.mark("rollout")
-        advantages, returns = compute_gae(traj, last_value, config.gamma,
-                                          config.gae_lambda)
-        clock.mark("gae")
+        phase = profiling.Stages("ppo", profile_phases, device)
+        with phase("rollout"):
+            traj, env_state, last_obs, last_value = rollout(state, draws)
+        with phase("gae"):
+            advantages, returns = compute_gae(traj, last_value, config.gamma,
+                                              config.gae_lambda)
 
         n = config.rollout_steps * config.num_envs
-        flat = [x.reshape((n,) + x.shape[2:])
-                for x in tuple(traj) + (advantages, returns)]
-        params, opt_state = state.params, state.opt_state
-        aux = []
-        for e in range(config.epochs):
-            perm = (draws.perms[e] if draws.perms is not None else
-                    torch.randperm(n, generator=state.rng, device=device))
-            mbs = [x[perm].reshape((config.minibatches, -1) + x.shape[1:])
-                   for x in flat]
-            for i in range(config.minibatches):
-                *batch, adv, ret = (x[i] for x in mbs)
-                leaves = {k: v.detach().requires_grad_(True)
-                          for k, v in params.items()}
-                total, losses = ppo_loss(policy_apply, leaves,
-                                         Transition(*batch), adv, ret, config,
-                                         group)
-                grads = torch.autograd.grad(total, list(leaves.values()))
-                if group is not None:
-                    grads = _all_mean_tensors(grads, group)
-                params, opt_state = clip_and_adam(
-                    params, dict(zip(leaves, grads)), opt_state, config)
-                aux.append(torch.stack([x.detach() for x in losses]))
-        clock.mark("update")
+        with phase("update"):
+            flat = [x.reshape((n,) + x.shape[2:])
+                    for x in tuple(traj) + (advantages, returns)]
+            params, opt_state = state.params, state.opt_state
+            aux = []
+            for e in range(config.epochs):
+                perm = (draws.perms[e] if draws.perms is not None else
+                        torch.randperm(n, generator=state.rng, device=device))
+                mbs = [x[perm].reshape((config.minibatches, -1) + x.shape[1:])
+                       for x in flat]
+                for i in range(config.minibatches):
+                    *batch, adv, ret = (x[i] for x in mbs)
+                    leaves = {k: v.detach().requires_grad_(True)
+                              for k, v in params.items()}
+                    total, losses = ppo_loss(policy_apply, leaves,
+                                             Transition(*batch), adv, ret,
+                                             config, group)
+                    grads = torch.autograd.grad(total, list(leaves.values()))
+                    if group is not None:
+                        grads = _all_mean_tensors(grads, group)
+                    params, opt_state = clip_and_adam(
+                        params, dict(zip(leaves, grads)), opt_state, config)
+                    aux.append(torch.stack([x.detach() for x in losses]))
 
-        stats = state.stats
-        for t in range(config.rollout_steps):
-            stats = update_stats(stats, traj.reward[t], traj.done[t])
-        clock.mark("monitor")
+        with phase("monitor"):
+            stats = state.stats
+            for t in range(config.rollout_steps):
+                stats = update_stats(stats, traj.reward[t], traj.done[t])
 
         pg_loss, vf_loss, ent = torch.stack(aux).mean(0)
         metrics = {
@@ -329,7 +300,7 @@ def make_ppo(env: LocoEnv, config: PPOConfig = PPOConfig(), group=None):
             "value_mean": traj.value.mean(),
         }
         if profile_phases:
-            metrics["phase_ms"] = clock.ms()
+            metrics["phase_ms"] = phase.ms()
         return TrainState(params, opt_state, env_state, last_obs, state.rng,
                           stats), metrics
 

@@ -28,6 +28,7 @@ from typing import Callable, Dict
 
 import torch
 
+from ..core import profiling
 from ..cuda_build import launcher
 
 TRI_CHUNK = 1024         # ray_trace_pallas.TRI_CHUNK: the dispatch threshold
@@ -296,36 +297,52 @@ def trace(bvh, origin, direction, t_max=1e30, regroup=False,
     version.  `regroup` sorts the rays by `regroup_perm` first and scatters
     t and tri back (multi-chunk scenes only, as in JAX); an exact
     permutation.  origin/direction (R, 3) float32; t_max a scalar or (R,).
-    `error`: the kernels' error word, read later by the caller (`launch`)."""
-    dense = bvh.dense
-    r = origin.shape[0]
-    origin = origin.contiguous()
-    direction = direction.contiguous()
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
-    t_max = t_max.expand(r).contiguous()
-    multi_chunk = dense.n.shape[0] > TRI_CHUNK
-    planes, nodes = kernel_tables(bvh)
+    `error`: the kernels' error word, read later by the caller (`launch`).
 
-    def query(o, d, tm):
-        if multi_chunk:
-            return ray_closest_hit_bvh(planes, nodes, o, d, tm, any_hit,
-                                       error=error)
-        return ray_closest_hit_brute(planes, o, d, tm, any_hit, error=error)
+    Spans (`core/profiling.py`), device-timed on the card: `ray.trace`,
+    the whole query, holding `ray.walk` (the kernel's launch) and, where
+    the rays are regrouped, a `ray.regroup` before it (the permutation and
+    the gathers) and one after it (the scatter back)."""
+    on_card = origin.is_cuda
+    with profiling.profile_block("ray.trace", device=on_card):
+        dense = bvh.dense
+        r = origin.shape[0]
+        origin = origin.contiguous()
+        direction = direction.contiguous()
+        t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                                device=origin.device)
+        t_max = t_max.expand(r).contiguous()
+        multi_chunk = dense.n.shape[0] > TRI_CHUNK
+        planes, nodes = kernel_tables(bvh)
 
-    if regroup and multi_chunk:
-        if "regroup_bounds" not in bvh.cache:
-            bvh.cache["regroup_bounds"] = (dense.cluster_lo.min(0).values,
-                                           dense.cluster_hi.max(0).values)
-        perm = regroup_perm(origin, direction, *bvh.cache["regroup_bounds"])
-        t_p, tri_p = query(origin[perm], direction[perm], t_max[perm])
-        t, tri = torch.empty_like(t_p), torch.empty_like(tri_p)
-        t[perm] = t_p
-        tri[perm] = tri_p
-    else:
-        t, tri = query(origin, direction, t_max)
-    hit = tri >= 0
-    if any_hit:
-        uv = torch.zeros((r, 2), dtype=torch.float32, device=origin.device)
-    else:
-        uv = uv_from_hit(dense, origin, direction, t, tri, hit)
-    return {"t": t, "tri": tri, "uv": uv, "hit": hit}
+        def query(o, d, tm):
+            with profiling.profile_block("ray.walk", device=on_card):
+                if multi_chunk:
+                    return ray_closest_hit_bvh(planes, nodes, o, d, tm,
+                                               any_hit, error=error)
+                return ray_closest_hit_brute(planes, o, d, tm, any_hit,
+                                             error=error)
+
+        if regroup and multi_chunk:
+            with profiling.profile_block("ray.regroup", device=on_card):
+                if "regroup_bounds" not in bvh.cache:
+                    bvh.cache["regroup_bounds"] = (
+                        dense.cluster_lo.min(0).values,
+                        dense.cluster_hi.max(0).values)
+                perm = regroup_perm(origin, direction,
+                                    *bvh.cache["regroup_bounds"])
+                rows = origin[perm], direction[perm], t_max[perm]
+            t_p, tri_p = query(*rows)
+            with profiling.profile_block("ray.regroup", device=on_card):
+                t, tri = torch.empty_like(t_p), torch.empty_like(tri_p)
+                t[perm] = t_p
+                tri[perm] = tri_p
+        else:
+            t, tri = query(origin, direction, t_max)
+        hit = tri >= 0
+        if any_hit:
+            uv = torch.zeros((r, 2), dtype=torch.float32,
+                             device=origin.device)
+        else:
+            uv = uv_from_hit(dense, origin, direction, t, tri, hit)
+        return {"t": t, "tri": tri, "uv": uv, "hit": hit}

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core import maths as m
+from ..core import profiling
 from ..cuda_build import resolve_device
 from ..ops import ray_trace
 from . import bvh as bvh_mod
@@ -350,116 +351,148 @@ def _where3(mask, a, b=0.0):
 
 
 def trace_sample(scene: Scene, settings: PathTracerSettings, origin,
-                 direction, sampler):
+                 direction, sampler, error=None):
     """One radiance sample per ray; origin/direction (R, 3).  Returns
     (radiance (R, 3), rays_traced): the useful rays the sample dispatched
     (alive closest-hit rays and unmasked shadow rays), an int64 count on the
     device.  Dead rows and masked shadow rows get t_max = 0, which the ray
     kernels skip.  Bounce rays (bounce > 0) are regrouped inside each ray
     query, as JAX's Pallas backend does it; an exact permutation.  The ray
-    kernels' error word is read once, at the end."""
+    kernels OR their error bits into `error`, which the caller reads
+    (`ray_trace.raise_on_error`); without one, a word of the sample's own
+    is read once, at the end.
+
+    Spans (`core/profiling.py`): per bounce a `pt.bounce` (attribute
+    `bounce`) around the closest-hit query's `ray.trace` and `pt.shade`,
+    device-timed: the rest of the bounce, the shadow queries' `ray.trace`
+    inside it.  Counters: `pt.rows` and `pt.live_rows`, the rows of the
+    bounce queries after the first and the alive ones among them."""
     r = origin.shape[0]
     dev = origin.device
+    on_card = dev.type == "cuda"
     radiance = torch.zeros((r, 3), device=dev)
     throughput = torch.ones((r, 3), device=dev)
     alive = torch.ones((r,), dtype=torch.bool, device=dev)
     rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
-    error = ray_trace.new_error_word(dev)
+    read_error = error is None
+    if read_error:
+        error = ray_trace.new_error_word(dev)
     o, d = origin, direction
     lights = scene.point_lights if settings.enable_direct_lighting else None
 
     for bounce in range(settings.recursion_depth + 1):
-        regroup = bounce > 0
-        t_cap = 1e30 if bounce == 0 else torch.where(alive, 1e30, 0.0)
-        res = bvh_mod.closest_hit(scene.bvh, o, d, t_max=t_cap,
-                                  regroup=regroup, error=error)
-        hit = res["hit"] & alive
-        rays_traced = rays_traced + (r if bounce == 0 else alive.sum())
+        with profiling.profile_block("pt.bounce", attrs={"bounce": bounce}):
+            regroup = bounce > 0
+            t_cap = 1e30 if bounce == 0 else torch.where(alive, 1e30, 0.0)
+            res = bvh_mod.closest_hit(scene.bvh, o, d, t_max=t_cap,
+                                      regroup=regroup, error=error)
+            with profiling.profile_block("pt.shade", device=on_card):
+                hit = res["hit"] & alive
+                if bounce == 0:
+                    rays_traced = rays_traced + r
+                else:
+                    live = alive.sum()
+                    rays_traced = rays_traced + live
+                    profiling.profile_stat("pt.rows", r)
+                    profiling.profile_stat("pt.live_rows", live)
 
-        radiance = radiance + _where3(alive & ~res["hit"],
-                                      throughput * sky_radiance(scene.sky, d))
-        n, gn, uv, mat, albedo, rough, metal, emissive = \
-            bvh_mod.hit_attributes_shaded(scene.bvh, scene.materials, res,
-                                          table=scene.attr_table)
-        # Two-sided shading: the geometric normal faces the ray, the
-        # interpolated normal follows it.
-        gn = _where3(torch.sum(gn * d, -1) > 0, -gn, gn)
-        n = _where3(torch.sum(n * gn, -1) < 0, -n, n)
-        p = o + d * res["t"][:, None] + gn * 1e-3
-        v = -d
-        radiance = radiance + _where3(hit, throughput * emissive)
+                radiance = radiance + _where3(
+                    alive & ~res["hit"],
+                    throughput * sky_radiance(scene.sky, d))
+                n, gn, uv, mat, albedo, rough, metal, emissive = \
+                    bvh_mod.hit_attributes_shaded(scene.bvh, scene.materials,
+                                                  res, table=scene.attr_table)
+                # Two-sided shading: the geometric normal faces the ray, the
+                # interpolated normal follows it.
+                gn = _where3(torch.sum(gn * d, -1) > 0, -gn, gn)
+                n = _where3(torch.sum(n * gn, -1) < 0, -n, n)
+                p = o + d * res["t"][:, None] + gn * 1e-3
+                v = -d
+                radiance = radiance + _where3(hit, throughput * emissive)
 
-        if settings.enable_direct_lighting:       # sun NEE + MIS
-            l_sun = _sample_sun(sampler, scene.sky).expand(r, 3)
-            facing = torch.sum(n * l_sun, -1) > 0
-            need_sun = hit & facing
-            shadowed = bvh_mod.any_hit(scene.bvh, p, l_sun,
-                                       t_max=torch.where(need_sun, 1e30, 0.0),
-                                       regroup=regroup, error=error)
-            rays_traced = rays_traced + need_sun.sum()
-            f, pdf_b = eval_brdf(n, v, l_sun, albedo, rough, metal)
-            w_mis = (SUN_PDF / (SUN_PDF + pdf_b)
-                     if settings.multiple_importance_sampling
-                     else torch.ones_like(pdf_b))
-            contrib = (throughput * f * scene.sky.sun_radiance
-                       * (w_mis / SUN_PDF)[:, None]
-                       * settings.light_intensity_scale)
-            radiance = radiance + _where3(hit & facing & ~shadowed, contrib)
+                if settings.enable_direct_lighting:       # sun NEE + MIS
+                    l_sun = _sample_sun(sampler, scene.sky).expand(r, 3)
+                    facing = torch.sum(n * l_sun, -1) > 0
+                    need_sun = hit & facing
+                    shadowed = bvh_mod.any_hit(
+                        scene.bvh, p, l_sun,
+                        t_max=torch.where(need_sun, 1e30, 0.0),
+                        regroup=regroup, error=error)
+                    rays_traced = rays_traced + need_sun.sum()
+                    f, pdf_b = eval_brdf(n, v, l_sun, albedo, rough, metal)
+                    w_mis = (SUN_PDF / (SUN_PDF + pdf_b)
+                             if settings.multiple_importance_sampling
+                             else torch.ones_like(pdf_b))
+                    contrib = (throughput * f * scene.sky.sun_radiance
+                               * (w_mis / SUN_PDF)[:, None]
+                               * settings.light_intensity_scale)
+                    radiance = radiance + _where3(hit & facing & ~shadowed,
+                                                  contrib)
 
-        if lights is not None:                    # one random point light
-            nl = lights.position.shape[0]
-            valid_i = lights.valid.to(torch.int32)
-            n_valid = torch.clamp(valid_i.sum(), min=1)
-            rank = sampler.randint((r,), n_valid)
-            li = torch.searchsorted(torch.cumsum(valid_i, 0), rank + 1)
-            li = torch.clamp(li, 0, nl - 1)
-            sp = m.noz(sampler.normal((r, 3)))
-            lp = lights.position[li] + sp * settings.point_light_radius
-            to_l = lp - p
-            dist = torch.clamp(torch.linalg.norm(to_l, dim=-1), min=1e-5)
-            l_pt = to_l / dist[:, None]
-            rel = torch.clamp(dist / torch.clamp(lights.radius[li], min=1e-5),
-                              max=1.0)
-            dd = dist / torch.clamp(1.0 - rel * rel, min=1e-6)
-            att = 1.0 / (dd * dd + 1.0)
-            # Solid angle of the emitter sphere, halved: a full-sphere
-            # surface sample maps two points to each cap direction.
-            s = torch.clamp(settings.point_light_radius / dist, max=1.0)
-            omega = 2.0 * math.pi * (1.0 - torch.sqrt(
-                torch.clamp(1 - s * s, min=0.0)))
-            pdf_l = 1.0 / torch.clamp(0.5 * omega * n_valid, min=1e-8)
-            facing_pt = torch.sum(n * l_pt, -1) > 0
-            need_pt = hit & facing_pt & lights.valid[li]
-            shadowed_pt = bvh_mod.any_hit(
-                scene.bvh, p, l_pt,
-                t_max=torch.where(need_pt,
-                                  torch.clamp(dist - 1e-3, min=1e-4), 0.0),
-                regroup=regroup, error=error)
-            rays_traced = rays_traced + need_pt.sum()
-            f_pt, pdf_b_pt = eval_brdf(n, v, l_pt, albedo, rough, metal)
-            w_mis_pt = (pdf_l / (pdf_l + pdf_b_pt)
-                        if settings.multiple_importance_sampling
-                        else torch.ones_like(pdf_l))
-            contrib_pt = (throughput * f_pt * lights.color[li]
-                          * (att * w_mis_pt / pdf_l)[:, None]
-                          * settings.light_intensity_scale)
-            ok_pt = hit & facing_pt & ~shadowed_pt & lights.valid[li]
-            radiance = radiance + _where3(ok_pt, contrib_pt)
+                if lights is not None:            # one random point light
+                    nl = lights.position.shape[0]
+                    valid_i = lights.valid.to(torch.int32)
+                    n_valid = torch.clamp(valid_i.sum(), min=1)
+                    rank = sampler.randint((r,), n_valid)
+                    li = torch.searchsorted(torch.cumsum(valid_i, 0),
+                                            rank + 1)
+                    li = torch.clamp(li, 0, nl - 1)
+                    sp = m.noz(sampler.normal((r, 3)))
+                    lp = (lights.position[li]
+                          + sp * settings.point_light_radius)
+                    to_l = lp - p
+                    dist = torch.clamp(torch.linalg.norm(to_l, dim=-1),
+                                       min=1e-5)
+                    l_pt = to_l / dist[:, None]
+                    rel = torch.clamp(
+                        dist / torch.clamp(lights.radius[li], min=1e-5),
+                        max=1.0)
+                    dd = dist / torch.clamp(1.0 - rel * rel, min=1e-6)
+                    att = 1.0 / (dd * dd + 1.0)
+                    # Solid angle of the emitter sphere, halved: a
+                    # full-sphere surface sample maps two points to each cap
+                    # direction.
+                    s = torch.clamp(settings.point_light_radius / dist,
+                                    max=1.0)
+                    omega = 2.0 * math.pi * (1.0 - torch.sqrt(
+                        torch.clamp(1 - s * s, min=0.0)))
+                    pdf_l = 1.0 / torch.clamp(0.5 * omega * n_valid,
+                                              min=1e-8)
+                    facing_pt = torch.sum(n * l_pt, -1) > 0
+                    need_pt = hit & facing_pt & lights.valid[li]
+                    shadowed_pt = bvh_mod.any_hit(
+                        scene.bvh, p, l_pt,
+                        t_max=torch.where(
+                            need_pt, torch.clamp(dist - 1e-3, min=1e-4), 0.0),
+                        regroup=regroup, error=error)
+                    rays_traced = rays_traced + need_pt.sum()
+                    f_pt, pdf_b_pt = eval_brdf(n, v, l_pt, albedo, rough,
+                                               metal)
+                    w_mis_pt = (pdf_l / (pdf_l + pdf_b_pt)
+                                if settings.multiple_importance_sampling
+                                else torch.ones_like(pdf_l))
+                    contrib_pt = (throughput * f_pt * lights.color[li]
+                                  * (att * w_mis_pt / pdf_l)[:, None]
+                                  * settings.light_intensity_scale)
+                    ok_pt = (hit & facing_pt & ~shadowed_pt
+                             & lights.valid[li])
+                    radiance = radiance + _where3(ok_pt, contrib_pt)
 
-        if bounce == settings.recursion_depth:
-            break
+                if bounce == settings.recursion_depth:
+                    break
 
-        l, w, _ = sample_brdf(sampler, n, v, albedo, rough, metal)
-        throughput = throughput * w
-        alive = hit & (w.max(-1).values > 0)
-        o, d = p, l
+                l, w, _ = sample_brdf(sampler, n, v, albedo, rough, metal)
+                throughput = throughput * w
+                alive = hit & (w.max(-1).values > 0)
+                o, d = p, l
 
-        if bounce >= settings.start_russian_roulette_after:
-            q = torch.clamp(throughput.max(-1).values, 0.05, 1.0)
-            survive = sampler.uniform((r,)) < q
-            throughput = throughput / q[:, None]
-            alive = alive & survive
-    ray_trace.raise_on_error(error)
+                if bounce >= settings.start_russian_roulette_after:
+                    q = torch.clamp(throughput.max(-1).values, 0.05, 1.0)
+                    survive = sampler.uniform((r,)) < q
+                    throughput = throughput / q[:, None]
+                    alive = alive & survive
+    if read_error:
+        ray_trace.raise_on_error(error)
     return radiance, rays_traced
 
 
@@ -486,20 +519,34 @@ def render(scene: Scene, camera: Camera, width: int, height: int,
            spp: int = 1, sampler: Optional[Sampler] = None):
     """(H, W, 3) linear radiance averaged over `spp` samples per pixel, and
     the rays traced (int64, on the device).  Rays are traced in 32x32 tile
-    order.  Progressive accumulation = averaging calls with other draws."""
+    order.  Progressive accumulation = averaging calls with other draws.
+    The ray kernels' error word is read once, at the end (a host sync).
+
+    Spans (`core/profiling.py`): `pt.frame`, one per call, holding per
+    sample `pt.camera` (the rays and their tile order), `trace_sample`'s
+    `pt.bounce`s and `pt.accumulate`, then `pt.sync`, the error word's
+    read: the host waiting for the card."""
     dev = camera.position.device
     if sampler is None:
         sampler = Sampler(torch.Generator(device=dev).manual_seed(0))
-    perm, inv = _tile_order(width, height, dev)
-    f_num = settings.f_number if settings.use_thin_lens else 0.0
-    img = torch.zeros((height * width, 3), device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    for _ in range(spp):
-        o, d = generate_rays(camera, width, height, sampler, f_number=f_num,
-                             focal_length=settings.focal_length)
-        rad, n = trace_sample(scene, settings, o[perm], d[perm], sampler)
-        img = img + rad[inv]
-        rays = rays + n
+    with profiling.profile_block("pt.frame"):
+        perm, inv = _tile_order(width, height, dev)
+        f_num = settings.f_number if settings.use_thin_lens else 0.0
+        img = torch.zeros((height * width, 3), device=dev)
+        rays = torch.zeros((), dtype=torch.int64, device=dev)
+        error = ray_trace.new_error_word(dev)
+        for _ in range(spp):
+            with profiling.profile_block("pt.camera"):
+                o, d = generate_rays(camera, width, height, sampler,
+                                     f_number=f_num,
+                                     focal_length=settings.focal_length)
+                o, d = o[perm], d[perm]
+            rad, n = trace_sample(scene, settings, o, d, sampler, error)
+            with profiling.profile_block("pt.accumulate"):
+                img = img + rad[inv]
+                rays = rays + n
+        with profiling.profile_block("pt.sync"):
+            ray_trace.raise_on_error(error)
     return (img / spp).reshape(height, width, 3), rays
 
 

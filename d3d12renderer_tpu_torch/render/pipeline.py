@@ -17,13 +17,13 @@ TPU compiler; here the stages simply run in turn.
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
 
 from ..core import maths as m
+from ..core import profiling
 from . import bvh as bvh_mod
 from . import post
 from .camera import Camera
@@ -297,33 +297,6 @@ def _post(color, settings):
     return ldr
 
 
-class _StageClock:
-    """Per-stage times when asked for: CUDA events on the card (read after
-    one synchronize at the end), the host clock on the CPU."""
-
-    def __init__(self, on: bool, device):
-        self.on, self.cuda = on, device.type == "cuda"
-        self.marks = []
-
-    def mark(self, name):
-        if not self.on:
-            return
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def ms(self):
-        if self.cuda:
-            torch.cuda.synchronize()
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) if self.cuda else 1e3 * (b - a)
-        return out
-
-
 def render_frame(scene: Scene, camera: Camera, width: int, height: int,
                  settings: RendererSettings = RendererSettings(),
                  shadow_maps: Optional[SunShadowMaps] = None,
@@ -355,36 +328,36 @@ def render_frame(scene: Scene, camera: Camera, width: int, height: int,
     "rt_reflections" where SSR / RT reflections ran and, with
     `profile_stages`, "stage_ms" (one synchronize at the end of the
     frame)."""
-    clock = _StageClock(profile_stages, camera.position.device)
-    clock.mark("start")
-    gb = render_gbuffer(scene, camera, width, height, prev_camera=prev_camera,
-                        jitter=jitter, sampler=sampler,
-                        primary=settings.primary, binning=binning,
-                        tile_qmin=tile_qmin)
-    if decals is not None:
-        from .decals import apply_decals
+    stage = profiling.Stages("raster", profile_stages, camera.position.device)
+    with stage("gbuffer"):
+        gb = render_gbuffer(scene, camera, width, height,
+                            prev_camera=prev_camera, jitter=jitter,
+                            sampler=sampler, primary=settings.primary,
+                            binning=binning, tile_qmin=tile_qmin)
+        if decals is not None:
+            from .decals import apply_decals
 
-        gb = apply_decals(gb, decals)
-    clock.mark("gbuffer")
-    half = _HalfRes.of(gb, frame_state) if settings.half_res_effects else None
-    lit, ao, updates = _effects(scene, camera, gb, shadow_maps, frame_state,
-                                half, settings, width, height)
-    clock.mark("effects")
-    color, ambient = _opaque(scene, camera, gb, lit, ao, settings, width,
-                             height, point_lights, point_shadow_maps,
-                             spot_lights, spot_shadow_maps, probe_grid)
-    clock.mark("opaque")
-    color, rt_refl, conf, ssr_updates = _reflections(
-        scene, camera, color, gb, frame_state, half, settings)
-    updates.update(ssr_updates)
-    clock.mark("reflections")
-    color = _compose(scene, camera, color, gb, width, height,
-                     transparent_objects, water_height, time)
-    clock.mark("compose")
-    color, new_state = _taa(color, gb, frame_state, updates, settings)
-    clock.mark("taa")
-    ldr = _post(color, settings)
-    clock.mark("post")
+            gb = apply_decals(gb, decals)
+    with stage("effects"):
+        half = (_HalfRes.of(gb, frame_state) if settings.half_res_effects
+                else None)
+        lit, ao, updates = _effects(scene, camera, gb, shadow_maps,
+                                    frame_state, half, settings, width, height)
+    with stage("opaque"):
+        color, ambient = _opaque(scene, camera, gb, lit, ao, settings, width,
+                                 height, point_lights, point_shadow_maps,
+                                 spot_lights, spot_shadow_maps, probe_grid)
+    with stage("reflections"):
+        color, rt_refl, conf, ssr_updates = _reflections(
+            scene, camera, color, gb, frame_state, half, settings)
+        updates.update(ssr_updates)
+    with stage("compose"):
+        color = _compose(scene, camera, color, gb, width, height,
+                         transparent_objects, water_height, time)
+    with stage("taa"):
+        color, new_state = _taa(color, gb, frame_state, updates, settings)
+    with stage("post"):
+        ldr = _post(color, settings)
     aux = {"ao": ao, "shadow": lit, "gbuffer": gb, "ambient": ambient,
            "hdr": color, "tile_qmin": gb.tile_qmin}
     if conf is not None:
@@ -392,7 +365,7 @@ def render_frame(scene: Scene, camera: Camera, width: int, height: int,
     if rt_refl is not None:
         aux["rt_reflections"] = rt_refl
     if profile_stages:
-        aux["stage_ms"] = clock.ms()
+        aux["stage_ms"] = stage.ms()
     return ldr, new_state, aux
 
 

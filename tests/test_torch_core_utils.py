@@ -71,41 +71,44 @@ def _nested_blocks(prof):
 
 def test_profiling_tree_stats_and_chrome_export(tmp_path):
     """Nested blocks resolve into the same tree (names and nesting) as
-    JAX's, stats add up, and the chrome trace holds every event."""
+    JAX's, stats add up, and the chrome trace holds every event.  The
+    port's recorder is off by default: it records once turned on, and
+    nothing after it is turned off again."""
     trees = {}
-    for name, mod in (("jax", jprof), ("torch", tprof)):
-        mod.resolve_frame()
-        _nested_blocks(mod)
-        path = tmp_path / f"{name}.json"
-        mod.export_chrome_trace(str(path))
-        doc = json.loads(path.read_text())
-        assert sorted(e["name"] for e in doc["traceEvents"]) == [
-            "frame", "physics", "render", "trace"]
-        frame = mod.resolve_frame()
-        assert frame["stats"] == {"rays": 15.0}
+    tprof.set_enabled(True)
+    try:
+        for name, mod in (("jax", jprof), ("torch", tprof)):
+            mod.resolve_frame()
+            _nested_blocks(mod)
+            path = tmp_path / f"{name}.json"
+            mod.export_chrome_trace(str(path))
+            doc = json.loads(path.read_text())
+            assert sorted(e["name"] for e in doc["traceEvents"]) == [
+                "frame", "physics", "render", "trace"]
+            frame = mod.resolve_frame()
+            assert frame["stats"] == {"rays": 15.0}
 
-        def shape(nodes):
-            return [(n["name"], shape(n["children"])) for n in nodes]
+            def shape(nodes):
+                return [(n["name"], shape(n["children"])) for n in nodes]
 
-        trees[name] = shape(frame["tree"])
-        assert mod.resolve_frame()["events"] == []
+            trees[name] = shape(frame["tree"])
+            assert mod.resolve_frame()["events"] == []
+    finally:
+        tprof.set_enabled(False)
     assert trees["torch"] == trees["jax"] == [
         ("frame", [("physics", []), ("render", [("trace", [])])])]
-    tprof.set_enabled(False)
     _nested_blocks(tprof)
-    tprof.set_enabled(True)
-    assert tprof.resolve_frame()["events"] == []
+    assert tprof.resolve_frame() == {"events": [], "stats": {}, "tree": []}
 
 
 def test_device_timing_and_kernel_report_on_the_cpu(tmp_path):
-    """`time_device` and `kernel_report` time CPU tensors on the host
-    clock; the report keeps JAX's keys (and adds the card), counts a
-    matmul's 2mnk operations and the inputs' and output's bytes, and
-    holds no TPU peak; `device_trace` writes a chrome trace."""
+    """`kernel_report` times CPU tensors on the host clock; the report
+    keeps JAX's keys (and adds the card), counts a matmul's 2mnk operations
+    and the inputs' and output's bytes, and holds no TPU peak;
+    `device_trace` writes a chrome trace."""
     a, b = torch.randn(64, 32), torch.randn(32, 16)
-    secs = tprof.time_device(torch.matmul, a, b, iters=3)
-    assert 0 < secs < 1
     rep = tprof.kernel_report(torch.matmul, a, b, iters=2, warmup=1)
+    assert 0 < rep["wall_s_per_call"] < 1
     jkeys = {"compile_s", "wall_s_per_call", "device_s_per_call", "flops",
              "bytes_accessed", "achieved_gflops", "achieved_gbps",
              "flops_utilization", "hbm_utilization", "platform"}
@@ -115,9 +118,6 @@ def test_device_timing_and_kernel_report_on_the_cpu(tmp_path):
     assert "tpu" not in tprof.PLATFORM_PEAKS
     assert tprof.PLATFORM_PEAKS["cuda"] == {"flops": 67e12,
                                             "hbm_gbps": 3350.0}
-    reps = tprof.profile_kernels({"mm": (torch.matmul, (a, b))}, iters=2)
-    assert reps["mm"]["flops"] == rep["flops"]
-    assert "kernel/mm/device_ms" in tprof.resolve_frame()["stats"]
     with tprof.device_trace(str(tmp_path), "t.json"):
         torch.matmul(a, b)
     assert "traceEvents" in json.loads((tmp_path / "t.json").read_text())
