@@ -1,7 +1,8 @@
 """Chip check of the PyTorch / CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels (the colored solver, the fused whole-substep
-kernel, the two ray kernels, the raster kernel, the blur and the tonemap)
+kernel, the two ray kernels, the path tracer's two shading kernels, the
+raster kernel, the blur and the tonemap)
 and the native BVH builder from the sources beside this script, holds each
 kernel against its plain PyTorch version at its path's shapes, then drives
 the paths:
@@ -11,8 +12,10 @@ the paths:
   unfused route whose solve is the colored-solver kernel;
 * path tracing (`entry.pathtrace_entry`: the 256,798-triangle atrium at
   1920x1080, depth 3, sun NEE + MIS; its ray queries go through the BVH ray
-  kernel), and a 322-triangle scene at 1920x1080 whose queries go through
-  the brute-force ray kernel;
+  kernel, its shading through the two shading kernels, held against the
+  plain shading on one frame from one generator state), and a
+  322-triangle scene at 1920x1080 whose queries go through the brute-force
+  ray kernel;
 * the raster frame (`entry.raster_entry`: the atrium at 1920x1080, raster
   primary visibility, sun cascades, half-res HBAO and SSR, TAA, bloom,
   tonemap, sharpen; one raster, one tonemap and seven blur launches per
@@ -131,6 +134,11 @@ BRUTE_REPS = {"atrium": 2, "grid": 3, "small": 20}
 EDGE_EPS = 1e-5
 TIE_EPS = 1e-6
 MAX_DT_REL = 1e-6
+# The shading kernels (csrc/pt_shade.cu) against the plain version on the
+# main path's profiled frame, from one generator state: at most SHADE_SHARE
+# of the pixels may differ by more than SHADE_PIXEL_TOL (relative above 1).
+SHADE_PIXEL_TOL = 1e-3
+SHADE_SHARE = 1e-3
 # Card against CPU over the slice (64x48, depth 3): one flipped hit changes a
 # whole path, so pixels are compared one by one.
 SLICE_W, SLICE_H = 64, 48
@@ -527,8 +535,8 @@ def check_rays(name, got, want, planes, o, d, tm, any_hit):
 def path_tracing(card, cuda_ms):
     """The path-tracing phases: the BVHs, both ray kernels against the plain
     version and their times at 1080p, the atrium main path, the brute-force
-    path, the card against the CPU.  Returns the two ray kernels' entries of
-    the kernels line."""
+    path, the card against the CPU.  Returns the kernels line's entries of
+    the two ray kernels and the shading kernels."""
     import math
 
     import numpy as np
@@ -536,6 +544,7 @@ def path_tracing(card, cuda_ms):
     from torch.autograd import DeviceType
 
     from d3d12renderer_tpu_torch.entry import pathtrace_entry
+    from d3d12renderer_tpu_torch.ops import pt_shade
     from d3d12renderer_tpu_torch.ops import ray_trace as rt
     from d3d12renderer_tpu_torch.render import bvh as bvh_mod
     from d3d12renderer_tpu_torch.render import camera as cam_mod
@@ -546,6 +555,7 @@ def path_tracing(card, cuda_ms):
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
     bvh_k, brute_k = rt.ray_closest_hit_bvh, rt.ray_closest_hit_brute
+    shade_hit_k, shade_next_k = pt_shade.shade_hit, pt_shade.shade_next
     gen = torch.Generator(device=dev).manual_seed(11)
 
     # 9. BVHs of the two benchmark scenes.
@@ -734,6 +744,7 @@ def path_tracing(card, cuda_ms):
         fn(*args)                                       # warm frame
         sync()
         bvh_k.launches = brute_k.launches = 0
+        shade_hit_k.launches = shade_next_k.launches = 0
         torch.cuda.reset_peak_memory_stats()
         rays = []
         t0 = time.perf_counter()
@@ -749,21 +760,30 @@ def path_tracing(card, cuda_ms):
             fail("the frame is black")
         return (img, rays, 1e3 * secs / count, sum(rays) / secs / 1e6,
                 (bvh_k.launches, brute_k.launches),
+                (shade_hit_k.launches, shade_next_k.launches),
                 torch.cuda.max_memory_allocated() / 2**30)
 
     fn, args = pathtrace_entry(width=PT_W, height=PT_H,
                                recursion_depth=PT_DEPTH)
-    img, rays, frame_ms, mrays, (n_bvh, n_brute), peak = frames(
+    img, rays, frame_ms, mrays, (n_bvh, n_brute), n_shade, peak = frames(
         fn, args, PT_FRAMES)
     if n_bvh == 0 or n_brute:
         fail(f"main path: {n_bvh} BVH and {n_brute} brute-force launches in "
              f"{PT_FRAMES} frames")
+    # Each shading kernel once a bounce: PT_DEPTH + 1 bounces a frame.
+    if n_shade != ((PT_DEPTH + 1) * PT_FRAMES,) * 2:
+        fail(f"main path: {n_shade} pt_shade_hit / pt_shade_next launches "
+             f"in {PT_FRAMES} frames of {PT_DEPTH + 1} bounces, want one "
+             f"each a bounce")
     pt_launches = n_bvh
+    # The profiled frame's generator state: the frame is shaded again below
+    # through the plain version from it.
+    state = args[2].generator.get_state()
     with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(*args)
+        k_img, k_rays = fn(*args)
         sync()
         prof_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -793,7 +813,9 @@ def path_tracing(card, cuda_ms):
           f"depth {PT_DEPTH}, spp 1, sun NEE + MIS): {PT_FRAMES} frames, "
           f"rays_traced {rays}, {frame_ms:.1f} ms per frame, "
           f"{mrays:.2f} Mrays/s end to end, BVH-kernel launches per frame "
-          f"{n_bvh / PT_FRAMES:.1f} (brute {n_brute}), peak memory "
+          f"{n_bvh / PT_FRAMES:.1f} (brute {n_brute}), pt_shade_hit / "
+          f"pt_shade_next {n_shade[0] / PT_FRAMES:g} / "
+          f"{n_shade[1] / PT_FRAMES:g}, peak memory "
           f"{peak:.2f} GiB, image mean {img.mean().item():.4f} | profiler, "
           f"one frame: {len(kernels)} kernels, device busy {dev_ms:.1f} of "
           f"{prof_ms:.1f} ms ({100 * dev_ms / prof_ms:.1f}%), ray kernels "
@@ -804,6 +826,8 @@ def path_tracing(card, cuda_ms):
           f"{bo.shape[0]} bounce rays, ms on {rg_ms[True]} / off "
           f"{rg_ms[False]} (in turns on, off, off, on), regroup_perm alone "
           f"{perm_ms:.3f} ms | {card}", flush=True)
+    shade = shade_both_ways(fn, args, state, k_img, k_rays, kernels, card)
+    shade["launches"] = sum(n_shade)
     del args
 
     # 12. The brute-force kernel's path: the same path tracer on the
@@ -826,11 +850,15 @@ def path_tracing(card, cuda_ms):
         with torch.inference_mode():
             return pt.render(scene, camera, PT_W, PT_H, settings, 1, sampler)
 
-    _, s_rays, s_ms, s_mrays, (s_bvh, s_brute), _ = frames(
+    _, s_rays, s_ms, s_mrays, (s_bvh, s_brute), s_shade, _ = frames(
         small_frame, (small, small_cam, sampler), 1)
     if s_brute == 0 or s_bvh:
         fail(f"small-scene path: {s_bvh} BVH and {s_brute} brute-force "
              "launches")
+    if s_shade != (PT_DEPTH + 1,) * 2:
+        fail(f"small-scene path: {s_shade} pt_shade_hit / pt_shade_next "
+             f"launches in a frame of {PT_DEPTH + 1} bounces")
+    shade["launches"] += sum(s_shade)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         small_frame(small, small_cam, sampler)
@@ -842,7 +870,8 @@ def path_tracing(card, cuda_ms):
           f"{int(scenes['small'].tri_valid.sum())}-tri scene, {PT_W}x{PT_H}, "
           f"depth {PT_DEPTH}): one frame, rays_traced {s_rays[0]}, "
           f"{s_ms:.1f} ms, {s_mrays:.2f} Mrays/s, brute-force launches "
-          f"{s_brute} (BVH {s_bvh}) | profiler, one frame: brute-force "
+          f"{s_brute} (BVH {s_bvh}), pt_shade_hit / pt_shade_next "
+          f"{s_shade[0]} / {s_shade[1]} | profiler, one frame: brute-force "
           f"kernel {sum(brute_events):.3f} ms in {len(brute_events)} "
           f"launches ({', '.join(f'{x:.3f}' for x in brute_events)}) | "
           f"{card}", flush=True)
@@ -914,7 +943,104 @@ def path_tracing(card, cuda_ms):
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_dt[kname], "ms": ms, "plain_ms": plain[kname],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    return entries
+    return entries + [shade]
+
+
+def shade_both_ways(fn, args, state, k_img, k_rays, kernels, card):
+    """The main path's profiled frame (`k_img`, `k_rays`, its profiler
+    `kernels`) shaded again through the plain halves
+    (`pathtracer.shade_hit_plain` / `shade_next_plain`) from its generator
+    `state`: the share of pixels off by more than SHADE_PIXEL_TOL, the two
+    kernels' device ms a launch beside their bound (the bytes they need,
+    counted from the frame's own inputs bounce by bounce: a dead row at its
+    masks alone), the plain halves' ms by CUDA events, ptxas.  Returns the
+    kernels line's entry, its launches left to the caller."""
+    import torch
+
+    from d3d12renderer_tpu_torch import cuda_build
+    from d3d12renderer_tpu_torch.render import pathtracer as pt
+
+    scene, sampler = args[0], args[2]
+    atlas = scene.materials.texture_atlas is not None
+    timed, work = [], []
+    plain = {"hit": pt.shade_hit_plain, "next": pt.shade_next_plain}
+
+    def events(kind):
+        def call(*a):
+            if kind == "hit":
+                # (tri, rays, rows alive at the bounce's start, first,
+                # draws); the count stays on the device until the end.
+                rays, first = a[2].shape[0], a[9]
+                live = rays if first else a[4].sum()
+                work.append((a[1]["tri"], rays, live, first, a[7]))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = plain[kind](*a)
+            end.record()
+            timed.append((start, end))
+            return out
+        return call
+
+    halves = events("hit"), events("next")
+    shaders = pt.shaders
+    sampler.generator.set_state(state)
+    pt.shaders = lambda device: halves
+    try:
+        p_img, p_rays = fn(*args)
+    finally:
+        pt.shaders = shaders
+    torch.cuda.synchronize()
+    bounces = len(work)
+    plain_ms = sum(s.elapsed_time(e) for s, e in timed) / bounces
+    lives = [int(w[2]) for w in work]
+    work = [profiling.shade_bytes(
+        rays, live, int(torch.unique(tri[tri >= 0]).numel()), first,
+        draws.brdf is None, draws.sun is not None, draws.light is not None,
+        atlas, draws.roulette is not None)
+        for (tri, rays, _, first, draws), live in zip(work, lives)]
+    diff = (k_img - p_img).abs()
+    off = (diff > SHADE_PIXEL_TOL * torch.clamp(p_img.abs(), min=1.0)).any(-1)
+    share = float(off.float().mean())
+    ms = {name: [e.time_range.elapsed_us() / 1e3 for e in kernels
+                 if name in e.name] for name in ("pt_shade_hit",
+                                                 "pt_shade_next")}
+    if any(len(v) != bounces for v in ms.values()):
+        fail(f"the profiled frame shows {[len(v) for v in ms.values()]} "
+             f"shading launches for {bounces} bounces")
+    hit_bytes = sum(w[0] for w in work)
+    next_bytes = sum(w[1] for w in work)
+    bounds = [profiling.bound(b, 0)[0] for b in (hit_bytes, next_bytes)]
+    kernel_ms = (sum(ms["pt_shade_hit"]) + sum(ms["pt_shade_next"])) / bounces
+    bound_ms = sum(bounds) / bounces
+    log = (cuda_build.build_dir() / "build.log").read_text()
+    print(f"shading (ops/pt_shade.py) on the main path's profiled frame, "
+          f"kernels vs plain from one generator state: "
+          f"{100 * share:.4f}% of pixels off by more than {SHADE_PIXEL_TOL} "
+          f"(bound {100 * SHADE_SHARE:.2f}%), max abs diff "
+          f"{float(diff.max()):.3e}, rays_traced {int(k_rays)} / "
+          f"{int(p_rays)} | rows alive at each bounce's start "
+          f"{', '.join(str(x) for x in lives)} | device ms a launch: "
+          f"pt_shade_hit "
+          f"{', '.join(f'{x:.4f}' for x in ms['pt_shade_hit'])} (bound "
+          f"{bounds[0] / bounces:.4f} a bounce, {hit_bytes / bounces / 1e6:.1f}"
+          f" MB), pt_shade_next "
+          f"{', '.join(f'{x:.4f}' for x in ms['pt_shade_next'])} (bound "
+          f"{bounds[1] / bounces:.4f}, {next_bytes / bounces / 1e6:.1f} MB); "
+          f"a bounce {kernel_ms:.4f} ms, {100 * bound_ms / kernel_ms:.1f}% of "
+          f"its bound; the plain halves {plain_ms:.3f} ms a bounce (events) | "
+          + " | ".join(ptxas_entries(log, "pt_shade_hit")
+                       + ptxas_entries(log, "pt_shade_next"))
+          + f" | {card}", flush=True)
+    if share > SHADE_SHARE or int(k_rays) != int(p_rays):
+        fail("the shading kernels disagree with the plain version")
+    return {"name": "pt_shade", "route": "cuda",
+            "source": "d3d12renderer_tpu_torch/csrc/pt_shade.cu",
+            "replaces": "none (XLA's fusion of "
+                        "d3d12renderer_tpu/render/pathtracer.py trace_sample)",
+            "launches": 0, "max_abs_err": float(diff.max()),
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def slice_meshes(mesh):
@@ -2506,14 +2632,15 @@ def distributed_training(card, cuda_ms):
     card by default), equal bit for bit to the iteration from the state
     never saved; `pathtrace_sharded` of the atrium at 1080p in scanline
     bands, equal bit for bit to `pathtracer.render` on the same draws.
-    Returns the BVH kernel's launches in the phase."""
+    Returns the BVH kernel's and the shading kernels' launches in the
+    sharded frame."""
     import math
 
     import torch
     import torch.distributed as dist
 
     from d3d12renderer_tpu_torch.entry import distributed_entry, pathtrace_entry
-    from d3d12renderer_tpu_torch.ops import ray_trace
+    from d3d12renderer_tpu_torch.ops import pt_shade, ray_trace
     from d3d12renderer_tpu_torch.parallel.data_parallel import train_state_spec
     from d3d12renderer_tpu_torch.parallel.eval_render import pathtrace_sharded
     from d3d12renderer_tpu_torch.physics import substep_cuda
@@ -2600,14 +2727,18 @@ def distributed_training(card, cuda_ms):
                                  camera_sampler=pt.Sampler(g),
                                  sampler=Scanline(g))
 
+    shade_k = pt_shade.shade_hit, pt_shade.shade_next
     with torch.inference_mode():
         sharded()
         bvh_k.launches = 0
+        for k in shade_k:
+            k.launches = 0
         t0 = time.perf_counter()
         frame = sharded()
         sync()
         sharded_ms = 1e3 * (time.perf_counter() - t0)
         launches = bvh_k.launches
+        shade = [k.launches for k in shade_k]
         t0 = time.perf_counter()
         want, _ = pt.render(scene, camera, PT_W, PT_H, settings, spp=1,
                             sampler=pt.Sampler(generator()))
@@ -2620,6 +2751,9 @@ def distributed_training(card, cuda_ms):
              f"{(frame - want).abs().max().item():.3e})")
     if launches == 0:
         fail("pathtrace_sharded launched no BVH kernel")
+    if shade[0] != shade[1] or shade[0] == 0:
+        fail(f"pathtrace_sharded: pt_shade_hit / pt_shade_next launches "
+             f"{shade}, want one each a bounce")
     dist.destroy_process_group()
     steps = TRAIN_ENVS * TRAIN_ROLLOUT
     print(f"distributed (distributed_entry: NCCL at world size 1, "
@@ -2632,9 +2766,10 @@ def distributed_training(card, cuda_ms):
           f"iteration from it bit-equal to the one from the state never "
           f"saved | pathtrace_sharded of the atrium {PT_W}x{PT_H}, depth "
           f"{SHARDED_DEPTH}, 1 spp: {sharded_ms:.1f} ms, {launches} BVH "
-          f"launches, bit-equal to render ({render_ms:.1f} ms) | phase "
+          f"launches, {shade[0]} + {shade[1]} shading launches, bit-equal to "
+          f"render ({render_ms:.1f} ms) | phase "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
-    return {"bvh": launches}
+    return {"bvh": launches, "shade": sum(shade)}
 
 
 def raster_options(card, cuda_ms):
@@ -3392,6 +3527,11 @@ def editor(card, cuda_ms, max_err):
           f"panels against the CPU: edge share {edge}, fields {field_bad}, "
           f"AO {ao_share} within {SLICE_PIXEL_TOL}, mean {ao_err.mean()}")
 
+    # Its renders shade through both kernels, one launch each a bounce.
+    check(launches["shade_hit"] == launches["shade_next"] > 0,
+          f"pt_shade_hit / pt_shade_next launches {launches['shade_hit']} / "
+          f"{launches['shade_next']}")
+
     # Kernels #3 and #1 against their plain versions at this path's shapes,
     # and one play frame through the kernel against the plain solve (these
     # launches are not counted).
@@ -3449,7 +3589,9 @@ def editor(card, cuda_ms, max_err):
           f"session {out['session_s']:.1f} s) | "
           f"launches: colored #1 {launches['colored']}, fused #2 "
           f"{launches['fused']}, BVH #3 {launches['bvh']}, brute #4 "
-          f"{launches['brute']} | ms per request (host clock, median / max "
+          f"{launches['brute']}, pt_shade_hit / pt_shade_next "
+          f"{launches['shade_hit']} / {launches['shade_next']} | ms per "
+          f"request (host clock, median / max "
           f"of n): " + "; ".join(
               f"{k} {v[len(v) // 2]:.1f} / {v[-1]:.1f} of {len(v)}"
               for k, v in ms.items())
@@ -4645,6 +4787,13 @@ def main():
                     "ray_closest_hit_brute": [rays[1]["launches"]],
                     "tonemap": [images[1]["launches"]],
                     "gaussian_blur": [images[2]["launches"]]}
+    # The shading kernels: the main path's timed frames and the small
+    # scene's frame, the sharded frame, the editor's renders, each counted
+    # over its own run.
+    launch_terms["pt_shade"] = [rays[2]["launches"], dist_launches["shade"],
+                                edit["launches"]["shade_hit"]
+                                + edit["launches"]["shade_next"]]
+    rays[2]["launches"] = sum(launch_terms["pt_shade"])
     rays[0]["launches"] += chars["launches"]["bvh"]
     launch_terms["ray_closest_hit_bvh"].append(chars["launches"]["bvh"])
     for row, key in zip(images[1:], ("tonemap", "blur")):

@@ -618,6 +618,38 @@ def pair_bound(raster, planes, pairs, seg, needed, width, height):
                  needed * (raster.PX // raster.BANDS) * RASTER_PAIR_FLOP)
 
 
+def shade_bytes(rays, live, table_rows, first, last, direct, lights, atlas,
+                roulette):
+    """(pt_shade_hit, pt_shade_next) bytes that one bounce's shading
+    (csrc/pt_shade.cu) needs over `rays` rays of which `live` are alive at
+    its start, each input read and each output written once, `table_rows`
+    the distinct shading-table rows the bounce's hits touch.  A live ray in
+    pt_shade_hit: t, tri, uv, origin and direction in (40), radiance,
+    normal and p out (36); alive, throughput and radiance in after the
+    first bounce (25); the sun's direction and t_max out (16); the light
+    pick and sphere normal in, its direction and t_max out (36).  In
+    pt_shade_next: tri, uv, normal, direction in (36); alive and throughput
+    after the first bounce (13); radiance in and out and the sun's shadow
+    hit (25); p, the light's draws and shadow hit (33); before the last
+    bounce the three BRDF draws in, throughput, direction, alive and t_max
+    out (41); the roulette's draw (4).  A dead ray needs only its alive
+    byte read and its masks written: the shadow queries' t_max in
+    pt_shade_hit (4 each), the next query's in pt_shade_next before the
+    last bounce (4).  A table row: 15 floats in pt_shade_hit (normals,
+    geometric normal, emission), 5 in pt_shade_next (albedo, roughness,
+    metallic; the uvs and texture index too with an atlas)."""
+    dead = rays - live
+    hit = (76 + (0 if first else 25) + (16 if direct else 0)
+           + (36 if lights else 0))
+    nxt = (36 + (0 if first else 13) + (25 if direct else 0)
+           + (33 if lights else 0) + (0 if last else 41)
+           + (4 if roulette else 0))
+    hit_dead = 1 + (4 if direct else 0) + (4 if direct and lights else 0)
+    nxt_dead = 1 + (0 if last else 4)
+    return (live * hit + dead * hit_dead + table_rows * 60,
+            live * nxt + dead * nxt_dead + table_rows * (48 if atlas else 20))
+
+
 def blur_work(numel, radius):
     """(bytes, operations) of one separable blur of `numel` floats: read
     and written once, a multiply-add per tap in each of the two passes."""

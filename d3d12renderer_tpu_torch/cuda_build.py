@@ -170,6 +170,12 @@ def load_library() -> ctypes.CDLL:
             getattr(lib, name).restype = i32
         lib.ray_args_size.restype = i32
         lib.ray_max_stack.restype = i32
+        # The path tracer's two shading kernels (ops/pt_shade.py): a
+        # ShadeArgs struct by address, the device and the stream.
+        for name in ("pt_shade_hit_launch", "pt_shade_next_launch"):
+            getattr(lib, name).argtypes = [ptr, i32, ptr]
+            getattr(lib, name).restype = i32
+        lib.pt_shade_args_size.restype = i32
         # The raster kernel (ops/raster.py) and the image kernels
         # (ops/image.py): an argument struct by address, device, stream.
         for name in ("raster_launch", "raster_groups_launch",

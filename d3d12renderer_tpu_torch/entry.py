@@ -1352,14 +1352,16 @@ def character_ragdoll_entry(device="cuda", batch: int = 4096, seed: int = 0,
 def _kernel_wrappers():
     """The launch-counting wrappers of the kernels the editor path may run:
     #1 (colored solve), #2 (fused substep), #3 (BVH walk), #4 (brute
-    force)."""
-    from .ops import ray_trace
+    force), #8 (the path tracer's shading, two kernels)."""
+    from .ops import pt_shade, ray_trace
     from .physics import solver_cuda, substep_cuda
 
     return {"colored": solver_cuda.colored_solve_cuda,
             "fused": substep_cuda.fused_substep_cuda,
             "bvh": ray_trace.ray_closest_hit_bvh,
-            "brute": ray_trace.ray_closest_hit_brute}
+            "brute": ray_trace.ray_closest_hit_brute,
+            "shade_hit": pt_shade.shade_hit,
+            "shade_next": pt_shade.shade_next}
 
 
 def editor_entry(device="cuda", size: int = 256, views: int = 4,

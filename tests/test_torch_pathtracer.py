@@ -23,6 +23,7 @@ from d3d12renderer_tpu_torch.render import bvh as tbvh
 from d3d12renderer_tpu_torch.render import lights as tlights
 from d3d12renderer_tpu_torch.render import mesh as tmesh
 from d3d12renderer_tpu_torch.render import pathtracer as tpt
+from tests import torch_pt_cases as cases
 
 torch.set_num_threads(1)
 W, H, DEPTH = 48, 32, 3
@@ -187,3 +188,52 @@ def test_render_draws_from_a_generator():
                 torch.Generator().manual_seed(seed)))[0]
     a, b, c = frame(1), frame(1), frame(2)
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+@pytest.mark.parametrize("case", cases.CASES)
+def test_plain_shading_equals_the_eager_shading(case):
+    """`trace_sample` on the CPU, whose shading runs the plain halves
+    (`shade_hit_plain` / `shade_next_plain`) with the bounce's draws taken
+    first, against the eager shading it was factored from (tests/torch_pt_cases.py), from one seed:
+    the same draws (kinds and shapes, in order), the same radiance bit for
+    bit and the same rays traced.  Cases: each sky, a texture atlas, point
+    lights (one invalid), MIS off, direct lighting off, depth 4 with the
+    roulette."""
+    scene = cases.case_scene(case, "cpu")
+    settings = cases.case_settings(case)
+    o, d = cases.case_rays("cpu")
+    runs = []
+    for fn in (tpt.trace_sample, cases.eager_trace_sample):
+        rec = cases.RecordingSampler(tpt.Sampler(
+            torch.Generator().manual_seed(9)))
+        rad, rays = fn(scene, settings, o, d, rec)
+        runs.append((rad, int(rays), rec.calls))
+    (rad, rays, calls), (want, want_rays, want_calls) = runs
+    assert calls == want_calls
+    assert torch.equal(rad, want) and rays == want_rays
+    assert torch.isfinite(rad).all() and rad.mean() > 0
+    kinds = {k for k, _ in calls}
+    assert ("randint" in kinds) == (case in ("point_lights", "mis_off"))
+    roulette = [c for c in calls if c == ("uniform", (o.shape[0],))]
+    assert len(roulette) == 3 * settings.recursion_depth + (
+        case == "roulette")
+
+
+def test_shade_counters_on_the_cpu():
+    """`pt.bounces` counts every bounce shaded and `pt.shade_fused` the
+    bounces the kernels shaded: none on the CPU, where it is never
+    recorded."""
+    from d3d12renderer_tpu_torch.core import profiling
+
+    scene = cases.case_scene("gradient", "cpu")
+    o, d = cases.case_rays("cpu")
+    profiling.set_enabled(True)
+    try:
+        profiling.resolve_frame()
+        tpt.trace_sample(scene, tpt.PathTracerSettings(), o, d, tpt.Sampler(
+            torch.Generator().manual_seed(1)))
+        stats = profiling.resolve_frame()["stats"]
+    finally:
+        profiling.set_enabled(False)
+    assert stats["pt.bounces"] == 4 and "pt.shade_fused" not in stats
+    assert stats["pt.rows"] == 3 * o.shape[0]

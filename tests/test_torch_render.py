@@ -300,8 +300,8 @@ def test_sample_brdf_matches_jax():
                 s["n"], s["v"], s["albedo"], s["rough"], s["metal"])))
     finally:
         jax.random.uniform = orig
-    tl, tw, tp = tpt.sample_brdf(_Draws(u), *map(torch.as_tensor, (
-        s["n"], s["v"], s["albedo"], s["rough"], s["metal"])))
+    tl, tw, tp = tpt.brdf_sample(*map(torch.as_tensor, (
+        *u, s["n"], s["v"], s["albedo"], s["rough"], s["metal"])))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5)
     for got, want in ((tw.numpy(), np.asarray(jw)),
                       (tp.numpy()[:, None], np.asarray(jp)[:, None])):

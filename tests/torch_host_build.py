@@ -61,6 +61,7 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 inline void __syncthreads() {}
 inline int __syncthreads_or(int p) { return p; }
 inline int __syncthreads_and(int p) { return p; }
+inline int __syncthreads_count(int p) { return p; }
 inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline bool __any_sync(unsigned, bool p) { return p; }
