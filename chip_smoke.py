@@ -1122,7 +1122,7 @@ def raster_frame(card, cuda_ms):
     planes, rect, q_tri = raster.project_planes(
         b.tri_v0, b.tri_e1, b.tri_e2, b.tri_valid, mat, attr, wp, hp)
     pair_tri, seg = raster.bin_pairs(rect, q_tri, wp, hp)
-    pairs = int(pair_tri.shape[0])
+    pairs = int(seg[-1])
     per_tile = (seg[1:] - seg[:-1]).to(torch.float32)
     args = (planes, pair_tri, seg, jitter, wp, hp)
     got = raster_k(*args)
@@ -1396,8 +1396,8 @@ def raster_frame(card, cuda_ms):
           f"bloom, tonemap, sharpen; set-up with 3x512^2 shadow texels "
           f"{setup_s:.2f} s): best of {RASTER_RUNS} runs of {RASTER_FRAMES} "
           f"frames {frame_ms:.2f} ms per frame ({1e3 / frame_ms:.1f} fps), "
-          f"ldr mean {mean:.4f}, {gb.pairs} pairs, overflow 0, launches per "
-          f"frame raster {launches['raster'] / frames:.0f} tonemap "
+          f"ldr mean {mean:.4f}, {int(gb.pairs)} pairs, overflow 0, "
+          f"launches per frame raster {launches['raster'] / frames:.0f} tonemap "
           f"{launches['tonemap'] / frames:.0f} blur "
           f"{launches['blur'] / frames:.0f} | profiler, one frame: "
           f"{len(kernels)} kernels, device busy {dev_ms:.1f} of {prof_ms:.1f} "
@@ -3256,7 +3256,7 @@ def showcase_world(card, cuda_ms):
           f"terrain rows) |dvel|, |domega| {colored_errs}; BVH ({b.tri_valid.shape[0]} "
           f"rows) and brute (the glass) on {ro.shape[0]} camera rays, max "
           f"|dt| {errs['bvh']:.3e} / {errs['brute']:.3e}; raster "
-          f"({int(pair_tri.shape[0])} pairs at {wp}x{hp}) bit-equal | "
+          f"({int(seg[-1])} pairs at {wp}x{hp}) bit-equal | "
           f"{time.perf_counter() - t_check:.1f} s", flush=True)
 
     # The card against the CPU over a 256x144 world (maps and physics cut),
@@ -3615,15 +3615,26 @@ def editor(card, cuda_ms, max_err):
 def flythrough(card, cuda_ms, max_err):
     """examples/flythrough.py's path through `flythrough_entry` at
     1920x1080: FLY_SETTLE_FRAMES frames of physics, FLY_FRAMES filmed
-    frames (each a physics step of two substeps through the colored-solver
-    kernel, the instances posed, the sun's cascades through the BVH ray
-    kernel, the raster primary through the raster kernel, the bloom's and
-    sharpen's blurs and the tonemap), their launches counted; the last
-    filmed frame's launches of the raster, tonemap, blur and BVH kernels
-    each against its plain version on the inputs that frame gave it; the
-    solver kernel against its plain version on one substep of the settled
-    pile; one profiled frame.  Returns the launches and errors for the
-    kernels line."""
+    frames of its game frame `fn` (each a physics step of two substeps
+    through the colored-solver kernel, replayed from a CUDA graph after the
+    first frame; then, replayed from a second CUDA graph after the first
+    filmed frame, the instances posed into their tree, the sun's cascades
+    through the BVH ray kernel, the raster primary through the raster
+    kernel, the SSR march kernel, the bloom's and sharpen's blurs and the
+    tonemap), their launches counted through the replays (one colored
+    launch a substep); the last filmed frame's launches of the
+    raster, tonemap, blur, SSR and BVH kernels each against its plain
+    version on the inputs that frame gave it; the solver kernel against its
+    plain version on one substep of the settled pile; one profiled frame.
+
+    The inputs are recorded by wrapping the launch helpers, which run in
+    eager frames and in a graph's capture, not in its replays.  A record
+    made in the capture holds the graph's own tensors (the record's
+    reference keeps the capture from reusing their memory for later
+    operations), and every replay writes the frame's values into them: after
+    the last filmed frame they hold that frame's inputs and outputs, so the
+    last records of each kernel are the last frame's.  Returns the launches
+    and errors for the kernels line."""
     import collections
 
     import torch
@@ -3631,6 +3642,7 @@ def flythrough(card, cuda_ms, max_err):
 
     from d3d12renderer_tpu_torch import entry as entry_mod
     from d3d12renderer_tpu_torch.ops import image, raster, ray_trace
+    from d3d12renderer_tpu_torch.ops import ssr as ssr_ops
     from d3d12renderer_tpu_torch.physics import (collide, solver_cuda, step,
                                                  substep_cuda)
     from d3d12renderer_tpu_torch.physics.types import PhysicsSettings
@@ -3645,13 +3657,14 @@ def flythrough(card, cuda_ms, max_err):
                 "brute": ray_trace.ray_closest_hit_brute,
                 "raster": raster.rasterize_tiles,
                 "groups": raster.rasterize_groups,
-                "tonemap": image.tonemap, "blur": image.gaussian_blur}
+                "tonemap": image.tonemap, "blur": image.gaussian_blur,
+                "ssr": ssr_ops.ssr_march}
     # Each launch's inputs and outputs, recorded by wrapping the modules'
     # launch helpers (the wrappers above still launch and count once).
     recorded = collections.defaultdict(list)
     hooks = {"raster": (raster, "launch"), "blur": (image, "blur_launch"),
              "tonemap": (image, "tonemap_launch"),
-             "bvh": (ray_trace, "launch")}
+             "bvh": (ray_trace, "launch"), "ssr": (post, "ssr_march")}
     originals = {k: getattr(mod, name) for k, (mod, name) in hooks.items()}
 
     def recorder(kind):
@@ -3682,7 +3695,7 @@ def flythrough(card, cuda_ms, max_err):
     substeps = entry_mod.FLYTHROUGH_SUBSTEPS * (FLY_SETTLE_FRAMES
                                                 + FLY_FRAMES)
     per_frame = {k: counts[k] / FLY_FRAMES for k in
-                 ("raster", "tonemap", "blur", "bvh")}
+                 ("raster", "tonemap", "blur", "bvh", "ssr")}
     if counts["colored"] != substeps or counts["fused"] or counts["brute"] \
             or counts["groups"] or not all(
                 v >= 1 and v == int(v) for v in per_frame.values()):
@@ -3690,7 +3703,16 @@ def flythrough(card, cuda_ms, max_err):
              f"{FLY_SETTLE_FRAMES} + {FLY_FRAMES} frames: want one colored "
              f"launch a substep ({substeps}), no fused, brute or group "
              "launch, and a whole number (at least one) of raster, tonemap, "
-             "blur and BVH launches a filmed frame")
+             "blur, SSR and BVH launches a filmed frame")
+    phys_graphs = [bool(g) for g in out["physics"].graphs.values()]
+    frame_graphs = out["graphs"]
+    if phys_graphs != [True] or out["physics"].failed \
+            or frame_graphs.captures != 1 or frame_graphs.failed \
+            or frame_graphs.replays != FLY_FRAMES - 1:
+        fail(f"flythrough: the physics frame's graph {phys_graphs} "
+             f"({out['physics'].failed}), the posed frame's graph: "
+             f"{frame_graphs.captures} captures, {frame_graphs.replays} "
+             f"replays, failed {list(frame_graphs.failed.values())}")
     last = frames[-1]
     heights = out["state"].pos[0, :, 1]
     if len(frames) != FLY_FRAMES or last.shape != (OPT_H, OPT_W, 3) \
@@ -3734,6 +3756,13 @@ def flythrough(card, cuda_ms, max_err):
                 fail(f"flythrough: the blur kernel differs from its plain "
                      f"version on the filmed frame at {shapes[-1]}")
         errs["blur"] = 0.0
+        for args, kw, got in last_of["ssr"]:
+            want = ssr_ops.ssr_march_plain(*args[:11], args[11], args[12])
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                fail("flythrough: the SSR march kernel differs from its "
+                     "plain version on the filmed frame")
+        errs["ssr"] = 0.0
         ray_rows = []
         errs["bvh"] = 0.0
         for args, kw, got in last_of["bvh"]:
@@ -3805,8 +3834,10 @@ def flythrough(card, cuda_ms, max_err):
           f"{FLY_FRAMES} filmed frames, {out['ms_per_frame']:.2f} ms a frame "
           f"past the first ({out['frame_ms'][0]:.1f} ms), entry "
           f"{run_s:.1f} s | launches {json.dumps(counts)} (per filmed frame "
-          f"{json.dumps(per_frame)}) | last filmed frame vs plain: raster, "
-          f"tonemap and {len(last_of['blur'])} blurs ({'; '.join(shapes)}) "
+          f"{json.dumps(per_frame)}; graphs: physics {phys_graphs}, frame "
+          f"{frame_graphs.captures} capture / {frame_graphs.replays} "
+          f"replays) | last filmed frame vs plain: raster, tonemap, SSR "
+          f"and {len(last_of['blur'])} blurs ({'; '.join(shapes)}) "
           f"bit-equal; BVH kernel on the cascades: {'; '.join(ray_rows)} "
           f"({check_s:.1f} s) | the pile's fused family: {reason}; one "
           f"substep of the settled pile ({active} active contact rows), "
@@ -4121,7 +4152,7 @@ def characters(card, cuda_ms, max_err):
           f"{g_ptxas} | "
           f"the query {q_ms['without']:.3f} ms without feedback, "
           f"{q_ms['own']:.3f} with its own (CUDA events) | group kernel {g_ms:.3f} ms, pair kernel "
-          f"{p_ms:.3f} ms ({int(pair_tri.shape[0])} pairs) on the same "
+          f"{p_ms:.3f} ms ({int(seg[-1])} pairs) on the same "
           f"frame (CUDA events), plain {g_plain_ms:.1f} ms, bound "
           f"{g_bound[0]:.4f} ms ({g_bound[1]}: {g_bound[2]} (visit, band, "
           f"row, pixel) tests; counted per tile, "

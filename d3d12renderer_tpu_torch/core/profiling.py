@@ -596,10 +596,11 @@ def pair_tests_needed(raster, planes, pair_tri, seg, q, jitter, width,
     ntx = width // raster.TILE_X
     least = q.reshape(height // rows, rows, ntx, raster.TILE_X).amin(
         dim=(1, 3))                                   # (band rows, ntx)
+    pairs = int(seg[-1])                   # `bin_pairs` may list more slots
     tile = torch.repeat_interleave(
         torch.arange(seg.shape[0] - 1, device=q.device),
-        (seg[1:] - seg[:-1]).long(), output_size=int(pair_tri.shape[0]))
-    qp = planes[pair_tri.long(), 9:12]
+        (seg[1:] - seg[:-1]).long(), output_size=pairs)
+    qp = planes[pair_tri[:pairs].long(), 9:12]
     needed = 0
     for band in range(raster.BANDS):
         band_row = tile // ntx * raster.BANDS + band

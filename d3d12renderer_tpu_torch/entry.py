@@ -13,6 +13,7 @@ raster frame and ragdolls fitted from their skeleton."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -118,13 +119,18 @@ class _FrameGraph:
     """One frame `frame(state) -> (state, contacts)` captured into a CUDA
     graph for states of one shape.  `run(state, steps)` replays it `steps`
     times from `state` and returns copies of the graph's buffers, so that
-    a later replay does not overwrite what the caller holds."""
+    a later replay does not overwrite what the caller holds.  The kernel
+    wrappers' launch counts include the replays (`core.graphs.LaunchTally`:
+    the launches the capture recorded, added per replay)."""
 
     def __init__(self, frame, state):
+        from .core.graphs import LaunchTally
+
         self.state = state.replace(**{f: getattr(state, f).clone()
                                       for f in _BODY_FIELDS})
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        self.tally = LaunchTally()
+        with self.tally.capturing(), torch.cuda.graph(self.graph):
             out, self.contacts = frame(self.state)
             for f in _BODY_FIELDS:
                 getattr(self.state, f).copy_(getattr(out, f))
@@ -136,6 +142,7 @@ class _FrameGraph:
             getattr(self.state, f).copy_(getattr(state, f))
         for _ in range(steps):
             self.graph.replay()
+        self.tally.replayed(steps)
         return tree_map(_copy, self.state), tree_map(_copy, self.contacts)
 
 
@@ -143,20 +150,16 @@ def _copy(x):
     return x.clone() if isinstance(x, torch.Tensor) else x
 
 
-def _launch_total():
-    return sum(w.launches for w in _kernel_wrappers().values())
-
-
 def _physics_runner(arch, settings, default_steps=None, overrides=None):
     """`fn(state, steps)` advances every scene by `steps` frames.  A frame
     of these paths launches tens of thousands of small kernels (the
     vehicle's about 95,000, the 1k stack drop's about 27,000) and keeps
     the card busy for a tenth of its host time, so on a CUDA device the
-    first call of more than one frame for a state shape runs one frame
-    eagerly (which fills the step's caches), captures the next into a CUDA
-    graph and replays that graph for every later frame of that shape.  A
-    frame that launched a hand-written kernel stays eager: a replay would
-    not count its launches."""
+    first frame of a state shape runs eagerly (which fills the step's
+    caches and builds its kernels), the next is captured into a CUDA graph
+    (`_FrameGraph`) and that graph replays every later frame of that
+    shape, the hand-written kernels' launches counted through the
+    replays."""
     from .physics.step import physics_step
 
     def frame(state):
@@ -169,21 +172,26 @@ def _physics_runner(arch, settings, default_steps=None, overrides=None):
     def fn(state, steps=default_steps):
         contacts = None
         key = tuple(getattr(state, f).shape for f in _BODY_FIELDS)
-        graph = graphs.get(key)
-        if state.pos.device.type == "cuda" and graph is None and steps > 1:
-            before = _launch_total()
-            state, contacts = frame(state)
-            steps -= 1
-            eager = _launch_total() != before
-            with torch.cuda.device(state.pos.device):
-                graph = graphs[key] = (
-                    False if eager else _FrameGraph(frame, state))
-        if graph and steps > 0:
-            return graph.run(state, steps)
+        if state.pos.device.type == "cuda" and steps > 0:
+            if key not in graphs:
+                state, contacts = frame(state)
+                steps -= 1
+                graphs[key] = None
+            if steps > 0 and graphs[key] is None:
+                try:
+                    with torch.cuda.device(state.pos.device):
+                        graphs[key] = _FrameGraph(frame, state)
+                except RuntimeError as e:      # eager from now on
+                    torch.cuda.synchronize(state.pos.device)
+                    graphs[key] = False
+                    fn.failed[key] = str(e)
+            if steps > 0 and graphs[key]:
+                return graphs[key].run(state, steps)
         for _ in range(steps):
             state, contacts = frame(state)
         return state, contacts
 
+    fn.graphs, fn.failed = graphs, {}
     return fn
 
 
@@ -750,6 +758,8 @@ FLYTHROUGH_SUBSTEPS = 2
 # frame 60 bodies rest, slide and fall onto each other (contact rows
 # active) while the top of the column is still in the air.
 FLYTHROUGH_SETTLE_FRAMES = 60
+# examples/flythrough.py:65: the pile's numpy seed.
+FLYTHROUGH_PILE_SEED = 4
 
 
 @dataclass
@@ -767,8 +777,10 @@ class FlythroughWorld:
     lights: object
 
 
-def flythrough_world(device="cuda") -> FlythroughWorld:
-    """examples/flythrough.py:58-104 on `device`."""
+def flythrough_world(device="cuda",
+                     pile_seed: int = FLYTHROUGH_PILE_SEED) -> FlythroughWorld:
+    """examples/flythrough.py:58-104 on `device`, the bodies' x and z drawn
+    from `pile_seed` (`models.scenes.add_flythrough_pile`)."""
     from .models.scenes import (FLYTHROUGH_BOX_HALF, FLYTHROUGH_SPHERE_RADIUS,
                                 add_flythrough_pile)
     from .physics.builder import SceneBuilder
@@ -779,7 +791,7 @@ def flythrough_world(device="cuda") -> FlythroughWorld:
 
     device = resolve_device(device)
     b = SceneBuilder()
-    kinds = add_flythrough_pile(b)
+    kinds = add_flythrough_pile(b, pile_seed)
     arch, state = b.finalize(device=device)
     meshes = [(mesh_mod.box((FLYTHROUGH_BOX_HALF,) * 3), 1),
               (mesh_mod.ico_sphere(FLYTHROUGH_SPHERE_RADIUS,
@@ -814,31 +826,81 @@ def flythrough_camera(f: int, frames: int, width: int, height: int,
                    v_fov=math.radians(48))
 
 
+@dataclass
+class GameState:
+    """What the game frame carries from frame to frame: the pile's bodies
+    (batch 1), the raster frame's temporal state, the filmed frames so far
+    (the camera's place on its orbit) and the previous frame's camera
+    (None before the first: TAA's motion vectors then see no motion)."""
+
+    bodies: object
+    frame_state: object
+    frame: int = 0
+    prev_camera: object = None
+
+
 def flythrough_entry(device="cuda", width: int = 1920, height: int = 1080,
                      frames: int = 16,
                      settle_frames: int = FLYTHROUGH_SETTLE_FRAMES,
-                     seed: int = 0, jitters=None, state=None):
+                     seed: int = 0, jitters=None, state=None,
+                     shadow_resolution: Optional[int] = None,
+                     orbit_frames: Optional[int] = None,
+                     pile_seed: int = FLYTHROUGH_PILE_SEED,
+                     half_res_effects: bool = False):
     """examples/flythrough.py's path (physics under the raster frame while
     an orbiting camera films it), at the reference editor's 1920x1080 by
     default: `settle_frames` frames of physics alone, then `frames` filmed
-    frames, each one `physics_step` of two 120 Hz substeps (colored
-    contacts: the pile's pair rows keep it outside the fused kernel's
-    family, so each substep is one colored-solver launch on the card), the
-    instances posed on the device (`render.instances.retransform`, the
-    per-frame BVH), and `render_frame_with_shadows` with sun cascades of
-    FLYTHROUGH_SHADOW_RESOLUTION^2 rendered every frame, the point light,
-    TAA history carried and the previous frame's camera as `prev_camera`
-    (its motion vectors), `flythrough_camera`'s orbit over the filmed
-    frames.  The frame takes the raster primary
-    (`RendererSettings(primary="raster")`, as the port's other raster
-    paths; JAX's script takes `RendererSettings()`, whose primary is
-    "ray").  Each frame's sub-pixel jitter comes from a generator seeded
-    `seed` on the device, or from `jitters[f]`.  `state` replaces the
-    pile's initial BodyState (batch 1).
+    frames of the game frame `fn`.
 
-    Returns a dict: "frames" (each filmed frame's ldr (H, W, 3) in [0, 1]
-    on the device), "state" (the final
-    BodyState, batch 1), "frame_state", "settle_s", "frame_ms" (host ms of
+    The game frame `fn(game, jitter=None, profile_stages=False) -> (ldr,
+    game, aux)` takes a `GameState` and does, in order: one physics frame
+    of two 120 Hz substeps (colored contacts: the pile's pair rows keep it
+    outside the fused kernel's family, so each substep is one
+    colored-solver launch on the card), replayed from a CUDA graph after
+    the first (`_physics_runner`); the instances posed on the device with
+    their tree refitted (`render.instances.retransform(tree=True)`); the
+    sun's 3 cascades at `shadow_resolution`^2 (FLYTHROUGH_SHADOW_RESOLUTION
+    by default) through the BVH kernel; `render_frame` with the point
+    light, TAA history carried and the previous frame's camera as
+    `prev_camera`.  On the card the steps after the physics (the tree, the
+    cascades, the raster frame) replay from a second CUDA graph from the
+    second frame on (`core.graphs.Graphed`, returned as "graphs"); a frame
+    with `profile_stages` runs them eagerly.  The camera is frame
+    `game.frame` of `flythrough_camera`'s orbit of `orbit_frames` frames a
+    turn (`frames` by default), the cameras made once here.  The frame
+    takes the raster primary (`RendererSettings(primary="raster")`, as the
+    port's other raster paths; JAX's script takes `RendererSettings()`,
+    whose primary is "ray").  A jitter not given comes from a generator
+    seeded `seed` on the device.  The cascades' error word is read a frame
+    late (`ray_trace.DeferredError`) and the raster primary lists the
+    pile's pairs in slots for every pair that can exist
+    (`ops.raster.bin_pairs`), so the frame never waits for the card on the
+    host.
+
+    Spans (`core/profiling.py`, device-timed on the card): `game.frame` >
+    `phys.frame` (the physics frame: a graph replay after the first) and,
+    in frames with `profile_stages` (eager: a replay holds no timing
+    events), `inst.tree` (posing and the tree), `shadow.cascades` (fit and
+    query), `raster.frame` (the raster frame, its stages `raster.<stage>`
+    inside it); counters `phys.pairs` (the
+    contact table's candidate rows a substep: the pile's static pair
+    buckets and plane rows), `phys.contact_rows` (active rows, the frame's
+    last substep, a 0-d tensor), `shadow.rays`.  With `profile_stages`
+    aux holds "stage_ms" (those spans' ms, one wait) and "counts" (the
+    counters, and on the card `shadow.rows_tested`: kernel #3's plane
+    tests a cascade ray, from its stats, which only such frames collect,
+    in a second query of the frame's cascade rays after the spans: the
+    counts cost the kernel an atomic add a ray).
+
+    `pile_seed` draws the pile (`flythrough_world`); `state` replaces its
+    initial BodyState (batch 1).  `half_res_effects`: AO and SSR at half
+    resolution with temporal accumulation (the reference application's
+    default; JAX's script renders them at full resolution).
+
+    Returns a dict: "fn", "game" (the GameState after the filmed frames),
+    "start" (the GameState after the settling frames), "frames" (each
+    filmed frame's ldr (H, W, 3) in [0, 1] on the device), "state" (the
+    final BodyState), "frame_state", "settle_s", "frame_ms" (host ms of
     each filmed frame, synchronised), "ms_per_frame" (their mean past the
     first: the first builds the kernels), "world" (`flythrough_world`'s),
     "settled" (the state after the settling frames), and "advance" /
@@ -847,74 +909,160 @@ def flythrough_entry(device="cuda", width: int = 1920, height: int = 1080,
     frame_state, aux)` and `camera(f)`."""
     import time
 
-    from .physics.step import physics_step
+    from .core import profiling
+    from .core.graphs import Graphed
+    from .ops.ray_trace import DeferredError
     from .render import pathtracer as pt
     from .render.instances import retransform
     from .render.pipeline import (RendererSettings, initial_frame_state,
-                                  render_frame_with_shadows)
+                                  render_frame)
+    from .render.shadows import fit_cascades, render_sun_shadow_maps
 
     device = resolve_device(device)
-    world = flythrough_world(device)
-    arch, psettings = world.arch, PhysicsSettings()
-    settings = RendererSettings(primary="raster")
+    world = flythrough_world(device, pile_seed)
+    settings = RendererSettings(primary="raster",
+                                half_res_effects=half_res_effects)
+    resolution = (FLYTHROUGH_SHADOW_RESOLUTION if shadow_resolution is None
+                  else shadow_resolution)
+    orbit = frames if orbit_frames is None else orbit_frames
     static_pos = torch.zeros((1, 3), device=device)
     static_rot = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=device)
     generator = torch.Generator(device=device).manual_seed(seed)
+    physics = _physics_runner(world.arch, PhysicsSettings())
+    error = DeferredError(device)
+    cuda = device.type == "cuda"
+    cameras = [flythrough_camera(f, orbit, width, height, device)
+               for f in range(max(orbit, 1))]
 
     def sync():
-        if device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize(device)
 
-    @torch.inference_mode()
-    def step(state):
-        return physics_step(arch, state, psettings, FLYTHROUGH_FRAME_DT,
-                            FLYTHROUGH_SUBSTEPS)[0]
-
-    @torch.inference_mode()
-    def advance(state):
-        state = step(state)
-        return state, retransform(
-            world.instances, torch.cat([state.pos[0], static_pos]),
-            torch.cat([state.rot[0], static_rot]))
-
-    @torch.inference_mode()
-    def render(bvh, camera, prev_camera, frame_state, jitter):
-        scene = pt.Scene(bvh=bvh, materials=world.materials, sky=world.sky)
-        return render_frame_with_shadows(
-            scene, camera, width, height, settings,
-            shadow_resolution=FLYTHROUGH_SHADOW_RESOLUTION,
-            point_lights=world.lights, frame_state=frame_state,
-            prev_camera=prev_camera, jitter=jitter)
+    def pose(pos, rot):
+        return retransform(world.instances, torch.cat([pos[0], static_pos]),
+                           torch.cat([rot[0], static_rot]), tree=True)
 
     def camera(f):
-        return flythrough_camera(f, frames, width, height, device)
+        return cameras[f % len(cameras)]
 
-    state = world.state if state is None else state
+    def cascades(bvh, cam, stats=None):
+        maps = fit_cascades(cam.position, -world.sky.sun_direction)
+        return render_sun_shadow_maps(bvh, maps, resolution=resolution,
+                                      error=error.word, stats=stats)
+
+    def span(name, on):
+        return profiling.profile_block(name, device=cuda, force=on)
+
+    def posed_frame(pos, rot, frame_state, cam, prev_camera, jitter,
+                    profile_stages=False, timed=None):
+        """The frame after the physics: the pile posed into its tree, the
+        cascades, the raster frame.  (ldr, frame state, bvh, maps, aux)."""
+        timed = timed or (lambda name: contextlib.nullcontext())
+        with timed("inst.tree"):
+            bvh = pose(pos, rot)
+        with timed("shadow.cascades"):
+            maps = cascades(bvh, cam)
+        with timed("raster.frame"):
+            scene = pt.Scene(bvh=bvh, materials=world.materials,
+                             sky=world.sky)
+            ldr, fstate, aux = render_frame(
+                scene, cam, width, height, settings, shadow_maps=maps,
+                point_lights=world.lights, frame_state=frame_state,
+                prev_camera=prev_camera, jitter=jitter,
+                profile_stages=profile_stages)
+        return ldr, fstate, bvh, maps, aux
+
+    def graphed_part(*args):
+        return posed_frame(*args)[:4]
+
+    graphs = Graphed(graphed_part)
+
+    @torch.inference_mode()
+    def fn(game: GameState, jitter=None, profile_stages: bool = False):
+        error.poll()
+        spans = []
+
+        def timed(name):
+            s = span(name, profile_stages)
+            if profile_stages:
+                spans.append(s)
+            return s
+
+        cam = camera(game.frame)
+        if jitter is None:
+            jitter = torch.rand(2, generator=generator, device=device)
+        with timed("game.frame"):
+            with timed("phys.frame"):
+                bodies, contacts = physics(game.bodies, 1)
+            args = (bodies.pos, bodies.rot, game.frame_state, cam,
+                    game.prev_camera or cam, jitter)
+            if profile_stages:
+                ldr, fstate, bvh, maps, aux = posed_frame(
+                    *args, profile_stages=True, timed=timed)
+            else:
+                ldr, fstate, bvh, maps = graphs(*args)
+                aux = {}
+        error.arm()
+        counts = {"phys.pairs": int(contacts.active.shape[-1]),
+                  "phys.contact_rows": contacts.active.sum(),
+                  "shadow.rays": int(maps.depth.numel())}
+        for name, value in counts.items():
+            profiling.profile_stat(name, value)
+        aux.update(bvh=bvh, shadow_maps=maps, contacts=contacts)
+        if profile_stages:
+            profiling._resolve(spans)
+            stage_ms = aux.get("stage_ms", {})
+            aux["stage_ms"] = {**{s.name: (s.host_ms if s.device_ms is None
+                                           else s.device_ms) for s in spans},
+                               **{f"raster.{k}": v for k, v in stage_ms.items()}}
+            counts = {k: (float(v) if isinstance(v, torch.Tensor) else v)
+                      for k, v in counts.items()}
+            if cuda:
+                # The kernel's test counts cost an atomic a ray: taken from a
+                # second query of the same rays, outside the spans.
+                stats = torch.zeros(2, dtype=torch.int64, device=device)
+                cascades(bvh, cam, stats)
+                counts["shadow.rows_tested"] = (float(stats[0])
+                                                / counts["shadow.rays"])
+            aux["counts"] = counts
+        return ldr, GameState(bodies, fstate, game.frame + 1, cam), aux
+
+    @torch.inference_mode()
+    def advance(bodies):
+        bodies, _ = physics(bodies, 1)
+        return bodies, pose(bodies.pos, bodies.rot)
+
+    @torch.inference_mode()
+    def render(bvh, cam, prev_camera, frame_state, jitter):
+        scene = pt.Scene(bvh=bvh, materials=world.materials, sky=world.sky)
+        return render_frame(
+            scene, cam, width, height, settings,
+            shadow_maps=cascades(bvh, cam), point_lights=world.lights,
+            frame_state=frame_state, prev_camera=prev_camera, jitter=jitter)
+
+    bodies = world.state if state is None else state
     t0 = time.perf_counter()
-    for _ in range(settle_frames):
-        state = step(state)
+    if settle_frames:
+        bodies, _ = physics(bodies, settle_frames)
     sync()
     settle_s = time.perf_counter() - t0
-    settled = state
-    fstate = initial_frame_state(width, height, device)
-    out, frame_ms, prev = [], [], None
+    start = GameState(bodies, initial_frame_state(width, height, device))
+    game, out, frame_ms = start, [], []
     for f in range(frames):
         t0 = time.perf_counter()
-        state, bvh = advance(state)
-        cam = camera(f)
-        jitter = (torch.rand(2, generator=generator, device=device)
-                  if jitters is None else jitters[f])
-        ldr, fstate, _ = render(bvh, cam, prev or cam, fstate, jitter)
+        ldr, game, _ = fn(game, None if jitters is None else jitters[f])
         sync()
         frame_ms.append(1e3 * (time.perf_counter() - t0))
-        prev = cam
         out.append(ldr)
+    error.check()
     steady = frame_ms[1:] or frame_ms
-    return {"frames": out, "state": state, "frame_state": fstate,
+    return {"fn": fn, "game": game, "start": start, "frames": out,
+            "state": game.bodies, "frame_state": game.frame_state,
             "settle_s": settle_s, "frame_ms": frame_ms,
             "ms_per_frame": sum(steady) / max(len(steady), 1),
-            "world": world, "settled": settled, "advance": advance,
-            "render": render, "camera": camera}
+            "world": world, "settled": start.bodies, "advance": advance,
+            "render": render, "camera": camera, "physics": physics,
+            "graphs": graphs}
 
 
 # The skinned character of character_entry and character_ragdoll_entry,

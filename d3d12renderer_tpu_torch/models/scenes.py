@@ -300,13 +300,14 @@ FLYTHROUGH_BOX_HALF = 0.35
 FLYTHROUGH_SPHERE_RADIUS = 0.33
 
 
-def add_flythrough_pile(b):
+def add_flythrough_pile(b, seed: int = 4):
     """examples/flythrough.py's pile: a plane of friction 0.8 and 18 bodies
-    at heights 1.2 + 0.75 i over a 3.2 m square (numpy seed 4), every third
-    a sphere (restitution 0.35), the others boxes (friction 0.7).  Returns
-    the bodies' kinds ("box" or "sphere") in body order."""
+    at heights 1.2 + 0.75 i over a 3.2 m square (x and z drawn by numpy's
+    `default_rng(seed)`, the script's seed 4 by default), every third a
+    sphere (restitution 0.35), the others boxes (friction 0.7).  Returns the
+    bodies' kinds ("box" or "sphere") in body order."""
     b.add_static_plane((0, 1, 0), 0.0, friction=0.8)
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed)
     kinds = []
     for i in range(FLYTHROUGH_BODIES):
         kind = "box" if i % 3 else "sphere"

@@ -70,6 +70,9 @@ from ..cuda_build import launcher
 # Mirrors of csrc/raster.cu.
 TILE_X = 64
 TILE_Y = 32
+# `bin_pairs` lists every pair that can exist, with no host read, up to
+# this many (tile, row) slots: 4,112 rows at 1080p's 1,020 tiles.
+STATIC_PAIRS = 1 << 22
 PX = TILE_X * TILE_Y
 PLANE_COLS = 12
 W_EPS = 1e-6
@@ -124,7 +127,7 @@ def perspective_rows(camera, width: int, height: int):
     row_w = torch.cat([-ez, torch.dot(ez, c)[None]])
     row_x = 0.5 * width * (row_vx / (th * camera.aspect) + row_w)
     row_y = 0.5 * height * (row_w - row_vy / th)
-    attr = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=q.device)
+    attr = m.constant(((0.0, 0.0, 0.0, 1.0),), torch.float32, q.device)
     return torch.stack([row_x, row_y, row_w]), attr
 
 
@@ -215,8 +218,13 @@ def bin_pairs(rect, q_tri, width: int, height: int):
     """Exact per-triangle tile binning at TILE_X x TILE_Y (width, height
     multiples of the tile): (pair_tri (P,) int32, seg (n_tiles + 1,) int32),
     the pairs of tile t being pair_tri[seg[t]:seg[t + 1]], front to back by
-    the quantised bound of `visit_plan_pairs`, then by triangle id.  Reads
-    the pair count P to the host."""
+    the quantised bound of `visit_plan_pairs`, then by triangle id.
+
+    Where rows x tiles is at most STATIC_PAIRS, the list has a slot for
+    every pair that can exist (none is ever dropped; the slots past seg[-1]
+    are never read): nothing waits for the card and the shapes depend on
+    the row count alone, so a CUDA graph can hold the binning.  Larger
+    scenes read the pair count P to the host and list P pairs."""
     assert width % TILE_X == 0 and height % TILE_Y == 0, (width, height)
     ntx, nty = width // TILE_X, height // TILE_Y
     n_tiles = ntx * nty
@@ -235,6 +243,8 @@ def bin_pairs(rect, q_tri, width: int, height: int):
                      torch.clamp(qmax - torch.ceil(q_tri / scale), 1, qmax - 1),
                      0.0).to(torch.int64)
 
+    if q_tri.shape[0] * n_tiles <= STATIC_PAIRS:
+        return _bin_pairs_static(counts, tx0, ty0, cx, qq, ntx, n_tiles, qmax)
     total = int(counts.sum())                      # the one host read
     tri = torch.repeat_interleave(torch.arange(q_tri.shape[0], device=dev),
                                   counts, output_size=total)
@@ -245,6 +255,31 @@ def bin_pairs(rect, q_tri, width: int, height: int):
     seg = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
     seg[1:] = torch.cumsum(torch.bincount(tile, minlength=n_tiles), 0)
     return tri[order].to(torch.int32), seg.to(torch.int32)
+
+
+def _bin_pairs_static(counts, tx0, ty0, cx, qq, ntx: int, n_tiles: int,
+                      qmax: int):
+    """`bin_pairs` of a small scene: slot p of rows x tiles holds pair p of the
+    dynamic list (the triangle whose running count passes p) or, past the
+    last pair, a key above every tile's, so that the stable sort leaves the
+    live pairs in the dynamic list's order."""
+    n_rows = counts.shape[0]
+    dev = counts.device
+    ends = torch.cumsum(counts, 0)
+    slot = torch.arange(n_rows * n_tiles, device=dev)
+    tri = torch.searchsorted(ends, slot, right=True)
+    live = tri < n_rows
+    tri = torch.clamp(tri, max=n_rows - 1)
+    local = slot - (ends - counts)[tri]
+    tile = ((ty0[tri] + local // cx[tri]) * ntx + tx0[tri] + local % cx[tri])
+    # tile < 2^tile_bits and qq <= qmax < 2^(30 - tile_bits): int32 keys.
+    key = torch.where(live, tile * (qmax + 1) + qq[tri],
+                      n_tiles * (qmax + 1)).to(torch.int32)
+    key, order = torch.sort(key, stable=True)
+    firsts = torch.arange(n_tiles + 1, device=dev, dtype=torch.int32) \
+        * (qmax + 1)
+    seg = torch.searchsorted(key, firsts).to(torch.int32)
+    return tri[order].to(torch.int32), seg
 
 
 # --------------------------------------------------------------------------
@@ -884,8 +919,9 @@ def closest_hit_raster(bvh, camera, width: int, height: int, jitter=None,
     0: nothing is dropped) and `tile_qmin` (each padded tile's least q, the
     next frame's occlusion feedback).
 
-    `binning="tri"` (JAX's default) bins each triangle's own rect: adds
-    `pairs` (the frame's (tile, triangle) pairs).  `binning="group"`, or
+    `binning="tri"` (JAX's default) bins each triangle's own rect
+    (`bin_pairs`): adds `pairs` (the frame's (tile, triangle) pairs, a 0-d
+    tensor on the device).  `binning="group"`, or
     any `tile_qmin=` (last frame's `tile_qmin`), takes the group path with
     its two-phase occlusion feedback: adds `visits` (`rasterize`'s); the
     barycentrics are the winner's e1 / q and e2 / q at the sample, as the
@@ -917,7 +953,7 @@ def closest_hit_raster(bvh, camera, width: int, height: int, jitter=None,
         q, tri, u, v = rasterize_tiles(planes, pair_tri, seg, jit2, wp, hp)
         qmin_out = tile_min(q, wp, hp)
         overflow = torch.zeros((), dtype=torch.int64, device=dev)
-        extra = {"pairs": int(pair_tri.shape[0])}
+        extra = {"pairs": seg[-1]}
 
     def crop(x):
         return x.reshape(hp, wp)[:height, :width].reshape(-1)

@@ -170,6 +170,46 @@ def raise_on_error(error, stack_limit: int = MAX_STACK):
                            f"{stack_limit}-entry stack")
 
 
+class DeferredError:
+    """An error word read a frame late, so that a frame's ray queries never
+    wait for the card: `word` goes to the kernels (`launch`'s `error`),
+    `arm()` after the frame copies it to pinned host memory without
+    waiting, `poll()` before the next frame raises if a copy that has
+    landed holds an error bit, and `check()` waits and raises.  The word
+    is never cleared: a set bit stays set until it is read."""
+
+    def __init__(self, device, stack_limit: int = MAX_STACK):
+        self.word = new_error_word(device)
+        self.cuda = self.word.is_cuda
+        self.host = torch.zeros((1,), dtype=torch.int32,
+                                pin_memory=self.cuda)
+        self.event = None
+        self.stack_limit = stack_limit
+
+    def _raise(self):
+        if int(self.host[0]) & ERR_STACK:
+            raise RuntimeError(f"ray kernel: a BVH walk overflowed its "
+                               f"{self.stack_limit}-entry stack")
+
+    def arm(self):
+        self.host.copy_(self.word, non_blocking=self.cuda)
+        if self.cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self._raise()
+
+    def poll(self):
+        if self.event is not None and self.event.query():
+            self._raise()
+
+    def check(self):
+        if self.event is not None:
+            self.event.synchronize()
+        self.host.copy_(self.word)
+        self._raise()
+
+
 def launch(launch_fn: Callable, planes, nodes, origin, direction, t_max,
            any_hit: bool, stack_limit: int = MAX_STACK, stats=None,
            error=None):
@@ -290,7 +330,8 @@ def uv_from_hit(dense, origin, direction, t, tri, hit):
 
 
 def trace(bvh, origin, direction, t_max=1e30, regroup=False,
-          any_hit=False, error=None) -> Dict[str, torch.Tensor]:
+          any_hit=False, error=None, stats=None,
+          uv: bool = True) -> Dict[str, torch.Tensor]:
     """The one dispatch, as JAX's Pallas backend (`closest_hit_pallas`
     `:577-581`, `bvh.any_hit` `:620-629`): more than TRI_CHUNK rows -> the
     BVH kernel, else the brute-force kernel; CPU tensors -> the plain
@@ -298,6 +339,10 @@ def trace(bvh, origin, direction, t_max=1e30, regroup=False,
     t and tri back (multi-chunk scenes only, as in JAX); an exact
     permutation.  origin/direction (R, 3) float32; t_max a scalar or (R,).
     `error`: the kernels' error word, read later by the caller (`launch`).
+    `stats`: a (2,) int64 tensor the kernel adds its plane and box tests to
+    (`launch`; the plain version adds nothing).  A scalar `t_max` is filled
+    on the device (a tensor made from a host number waits for the card).
+    `uv=False` leaves the barycentrics out (`uv` None): a depth query.
 
     Spans (`core/profiling.py`), device-timed on the card: `ray.trace`,
     the whole query, holding `ray.walk` (the kernel's launch) and, where
@@ -309,9 +354,12 @@ def trace(bvh, origin, direction, t_max=1e30, regroup=False,
         r = origin.shape[0]
         origin = origin.contiguous()
         direction = direction.contiguous()
-        t_max = torch.as_tensor(t_max, dtype=torch.float32,
-                                device=origin.device)
-        t_max = t_max.expand(r).contiguous()
+        if isinstance(t_max, torch.Tensor):
+            t_max = t_max.to(dtype=torch.float32, device=origin.device)
+            t_max = t_max.expand(r).contiguous()
+        else:
+            t_max = torch.full((r,), float(t_max), dtype=torch.float32,
+                               device=origin.device)
         multi_chunk = dense.n.shape[0] > TRI_CHUNK
         planes, nodes = kernel_tables(bvh)
 
@@ -319,9 +367,10 @@ def trace(bvh, origin, direction, t_max=1e30, regroup=False,
             with profiling.profile_block("ray.walk", device=on_card):
                 if multi_chunk:
                     return ray_closest_hit_bvh(planes, nodes, o, d, tm,
-                                               any_hit, error=error)
+                                               any_hit, stats=stats,
+                                               error=error)
                 return ray_closest_hit_brute(planes, o, d, tm, any_hit,
-                                             error=error)
+                                             stats=stats, error=error)
 
         if regroup and multi_chunk:
             with profiling.profile_block("ray.regroup", device=on_card):
@@ -340,6 +389,8 @@ def trace(bvh, origin, direction, t_max=1e30, regroup=False,
         else:
             t, tri = query(origin, direction, t_max)
         hit = tri >= 0
+        if not uv:
+            return {"t": t, "tri": tri, "uv": None, "hit": hit}
         if any_hit:
             uv = torch.zeros((r, 2), dtype=torch.float32,
                              device=origin.device)

@@ -350,13 +350,15 @@ def build_dense(bvh: BVH) -> DenseTris:
 
 
 def closest_hit(bvh: BVH, origin, direction, t_max=1e30, regroup=False,
-                error=None):
+                error=None, stats=None, uv: bool = True):
     """Closest hit of each ray: dict of t (R,), tri (R,) int32 (-1 = miss),
     uv (R, 2), hit (R,) bool.  `regroup` sorts scattered rays into
     coherent order inside the call (an exact permutation).  `error`: an
-    error word the caller reads later (`ray_trace.launch`)."""
+    error word the caller reads later (`ray_trace.launch`); `stats`: the
+    kernel's (2,) plane and box test counts, added to; `uv=False`: no
+    barycentrics (`uv` None)."""
     return ray_trace.trace(bvh, origin, direction, t_max, regroup=regroup,
-                           error=error)
+                           error=error, stats=stats, uv=uv)
 
 
 def any_hit(bvh: BVH, origin, direction, t_max, regroup=False, error=None):

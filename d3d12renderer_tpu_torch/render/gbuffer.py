@@ -36,9 +36,9 @@ class GBuffer:
     motion: torch.Tensor       # (H, W, 2) pixel offset to the previous frame
     hit: torch.Tensor          # (H, W) bool
     # The raster primary's pairs dropped (always 0) and pair count (binning
-    # "tri"); None for the ray primary.
+    # "tri"), 0-d tensors; None for the ray primary.
     overflow: Optional[torch.Tensor] = None
-    pairs: Optional[int] = None
+    pairs: Optional[torch.Tensor] = None
     # Not fields (the JAX package's G-buffer has neither): the raster
     # primary's group-path visits and each tile's least q (the next
     # frame's occlusion feedback), set by `render_gbuffer`.

@@ -19,8 +19,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import maths as m
 from ..core.maths import roll2
 from ..ops import image
+from ..ops.ssr import ssr_march
 
 # --------------------------------------------------------------------------
 # Settings (reference: render_algorithms.h:23-118)
@@ -336,6 +338,22 @@ def screen_space_shadows(view_pos, sun_dir_view, depth=None,
     return 1.0 - (1.0 - shadow) * fade
 
 
+def pyramid_levels(h: int, w: int, max_mip: int = 6):
+    """(offsets, widths, heights) of `build_min_depth_pyramid`'s levels of
+    an (h, w) image, as host integers."""
+    heights, widths = [h], [w]
+    for _ in range(max_mip):
+        hh, ww = heights[-1], widths[-1]
+        if hh < 2 or ww < 2:
+            break
+        heights.append((hh + hh % 2) // 2)
+        widths.append((ww + ww % 2) // 2)
+    offsets = [0]
+    for hh, ww in zip(heights[:-1], widths[:-1]):
+        offsets.append(offsets[-1] + hh * ww)
+    return offsets, widths, heights
+
+
 def build_min_depth_pyramid(depth, max_mip: int = 6):
     """Linear-depth MIN pyramid, all levels in one flat vector.  Odd sizes
     are edge-replicated to even before each 2x2 min.  Returns (flat,
@@ -361,19 +379,19 @@ def build_min_depth_pyramid(depth, max_mip: int = 6):
         offsets.append(offsets[-1] + hh * ww)
 
     def ints(x):
-        return torch.tensor(x, dtype=torch.int32, device=dev)
+        # Cached: a tensor built from host data waits for the card's queue.
+        return m.constant(tuple(x), torch.int32, dev)
 
     flat = torch.cat([l.reshape(-1) for l in levels])
     return flat, ints(offsets), ints(widths), ints(heights)
 
 
-def ssr(color, view_pos, normal, roughness,
-        settings: SSRSettings = SSRSettings(), tan_half: float = 1.0,
-        aspect: float = 1.0):
-    """Screen-space reflections: a hierarchical-Z march of the linear-depth
-    min-pyramid, projected with the camera's frustum (tan_half =
-    tan(v_fov / 2)).  Returns (H, W, 3) reflected colour and (H, W) hit
-    confidence."""
+def ssr_rays(view_pos, normal, settings: SSRSettings = SSRSettings(),
+             tan_half: float = 1.0, aspect: float = 1.0) -> dict:
+    """`ssr`'s march inputs: every pixel's reflected ray projected to the
+    screen (start x0, y0 and extent dx, dy in pixels, inverse depths k0 and
+    dk, the exit parameter t_max) and the linear-depth min-pyramid (flat,
+    offs, ws, hs; `levels` its offsets, widths and heights on the host)."""
     h, w, _ = view_pos.shape
     dev = view_pos.device
     view_dir = view_pos / torch.clamp(
@@ -383,7 +401,6 @@ def ssr(color, view_pos, normal, roughness,
 
     depth = torch.clamp(-view_pos[..., 2], min=1e-4)
     flat, offs, ws, hs = build_min_depth_pyramid(depth, settings.max_mip)
-    n_mips = int(offs.shape[0])
 
     def project(p):
         z = torch.clamp(-p[..., 2], min=1e-4)
@@ -410,59 +427,26 @@ def ssr(color, view_pos, normal, roughness,
     t_max = torch.clamp(torch.minimum(
         torch.minimum(axis_exit(x0, dx, float(w)), axis_exit(y0, dy, float(h))),
         torch.ones((), device=dev)), min=0.0)
-    sx = torch.where(dx >= 0, 1.0, -1.0)
-    sy = torch.where(dy >= 0, 1.0, -1.0)
+    return dict(x0=x0, y0=y0, dx=dx, dy=dy, k0=k0, dk=dk, t_max=t_max,
+                flat=flat, offs=offs, ws=ws, hs=hs,
+                levels=pyramid_levels(h, w, settings.max_mip))
 
-    def cell_exit_t(t, mip):
-        size = (1 << mip).to(torch.float32)
-        x = x0 + t * dx
-        y = y0 + t * dy
-        bx = (torch.floor(x / size) + (sx > 0)) * size + sx * 0.01
-        by = (torch.floor(y / size) + (sy > 0)) * size + sy * 0.01
-        tx = torch.where(torch.abs(dx) > 1e-6, (bx - x0) / dx, torch.inf)
-        ty = torch.where(torch.abs(dy) > 1e-6, (by - y0) / dy, torch.inf)
-        return torch.minimum(tx, ty)
 
-    def z_at(t):
-        return 1.0 / torch.clamp(k0 + t * dk, min=1e-8)
-
-    # Step out of the originating pixel first, so a surface never reflects
-    # itself.
-    mip = torch.zeros((h, w), dtype=torch.int32, device=dev)
-    t = torch.minimum(cell_exit_t(torch.zeros((h, w), device=dev), mip), t_max)
-    found = torch.zeros((h, w), dtype=torch.bool, device=dev)
-    t_hit = torch.zeros((h, w), device=dev)
-    for _ in range(settings.num_steps):
-        t_exit = torch.minimum(cell_exit_t(t, mip), t_max)
-        x = x0 + t * dx
-        y = y0 + t * dy
-        size_i = 1 << mip
-        mi = mip.long()
-        mw, mh = ws[mi], hs[mi]
-        cx = torch.clamp(torch.div(x.to(torch.int32), size_i,
-                                   rounding_mode="floor"), min=0)
-        cx = torch.minimum(cx, mw - 1)
-        cy = torch.clamp(torch.div(y.to(torch.int32), size_i,
-                                   rounding_mode="floor"), min=0)
-        cy = torch.minimum(cy, mh - 1)
-        zmin = flat[(offs[mi] + cy * mw + cx).long()]
-        z_a, z_b = z_at(t), z_at(t_exit)
-        z_far = torch.maximum(z_a, z_b)
-        in_front = z_far < zmin + 0.01
-        # A mip-0 crossing is a hit when the ray depth lands within
-        # [zmin, zmin + thickness]; crossings in the last cell count too.
-        hit_now = ((mip == 0) & ~in_front & (z_far >= zmin)
-                   & (torch.minimum(z_a, z_b) <= zmin + settings.thickness)
-                   & ~found)
-        advance = in_front | ((mip == 0) & ~hit_now)
-        stop = found | hit_now
-        t_new = torch.where(stop, t, torch.where(advance, t_exit, t))
-        mip = torch.where(stop, mip, torch.where(
-            advance, torch.clamp(mip + 1, max=n_mips - 1),
-            torch.clamp(mip - 1, min=0)))
-        t_hit = torch.where(hit_now, t, t_hit)
-        found = stop
-        t = t_new
+def ssr(color, view_pos, normal, roughness,
+        settings: SSRSettings = SSRSettings(), tan_half: float = 1.0,
+        aspect: float = 1.0):
+    """Screen-space reflections: a hierarchical-Z march of the linear-depth
+    min-pyramid, projected with the camera's frustum (tan_half =
+    tan(v_fov / 2)): the rays of `ssr_rays`, the march of `ops/ssr.py`
+    (one kernel launch on the card).  Returns (H, W, 3) reflected colour and
+    (H, W) hit confidence."""
+    h, w, _ = view_pos.shape
+    r = ssr_rays(view_pos, normal, settings, tan_half, aspect)
+    x0, y0, dx, dy = r["x0"], r["y0"], r["dx"], r["dy"]
+    t_hit, found = ssr_march(x0, y0, dx, dy, r["k0"], r["dk"], r["t_max"],
+                             r["flat"], r["offs"], r["ws"], r["hs"],
+                             settings.num_steps, settings.thickness,
+                             levels=r["levels"])
 
     xh = torch.clamp(x0 + t_hit * dx, 0, w - 1)
     yh = torch.clamp(y0 + t_hit * dy, 0, h - 1)

@@ -67,9 +67,12 @@ def fit_cascades(camera_pos, sun_direction, num_cascades=DEFAULT_CASCADES,
 
 
 def render_sun_shadow_maps(scene_bvh, maps: SunShadowMaps,
-                           resolution: int = 512) -> SunShadowMaps:
+                           resolution: int = 512, error=None,
+                           stats=None) -> SunShadowMaps:
     """Depth from the light for every cascade: C R^2 rays in one
-    closest-hit query (+inf where a ray escapes)."""
+    closest-hit query (+inf where a ray escapes).  `error` and `stats` go
+    to the query (`bvh.closest_hit`): with an error word the caller reads
+    later, the query does not wait for the card."""
     c = maps.origin.shape[0]
     dev = maps.origin.device
     u = (torch.arange(resolution, device=dev) + 0.5) / resolution * 2 - 1
@@ -79,7 +82,8 @@ def render_sun_shadow_maps(scene_bvh, maps: SunShadowMaps,
     o = (maps.origin[:, None, None, :] + maps.right[:, None, None, :] * span
          + maps.up[:, None, None, :] * spanv).reshape(-1, 3)
     d = maps.direction.expand(o.shape)
-    res = bvh_mod.closest_hit(scene_bvh, o, d)
+    res = bvh_mod.closest_hit(scene_bvh, o, d, error=error, stats=stats,
+                              uv=False)
     z = torch.where(res["hit"], res["t"], torch.inf)
     return replace(maps, depth=z.reshape(c, resolution, resolution))
 

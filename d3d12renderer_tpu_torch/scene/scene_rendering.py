@@ -144,4 +144,5 @@ class RenderSubmission:
         planes = frustum_planes(camera).to(self.device)
         vis = cull_spheres(planes, pos, self.bound_radius)
         scale = torch.where(vis, 1.0, 0.0)
-        return retransform(self.instanced, pos, rot, scales=scale), vis
+        return (retransform(self.instanced, pos, rot, scales=scale, tree=True),
+                vis)

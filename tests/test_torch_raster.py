@@ -303,6 +303,37 @@ def test_binning_matches_jax(case, scenes):
     assert _assert_same_binning(jb, tb, mat, attr, wp, hp, PAIR_CAP) > 0
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_static_binning_matches_dynamic(case, scenes, monkeypatch):
+    """`bin_pairs` of a scene under STATIC_PAIRS (slots for every pair that
+    can exist, no host read): the same segments and, below seg[-1], the
+    same pairs in the same order as the list of a larger scene's; and
+    `closest_hit_raster` gives the same bits on either list."""
+    scene, _, _, w, h, _ = CASES[case]
+    _, tb = scenes[scene]
+    cam = convert.camera_from_numpy(_camera(case), "cpu")
+    wp, hp = w + (-w) % raster.TILE_X, h + (-h) % raster.TILE_Y
+    mat, attr = raster.perspective_rows(cam, w, h)
+    _, rect, q_tri = raster.project_planes(tb.tri_v0, tb.tri_e1, tb.tri_e2,
+                                           tb.tri_valid, mat, attr, wp, hp)
+    n_tiles = (wp // raster.TILE_X) * (hp // raster.TILE_Y)
+    jit = torch.tensor([0.3, 0.7])
+    assert tb.tri_v0.shape[0] * n_tiles <= raster.STATIC_PAIRS
+    s_tri, s_seg = raster.bin_pairs(rect, q_tri, wp, hp)
+    a = raster.closest_hit_raster(tb, cam, w, h, jitter=jit)
+    monkeypatch.setattr(raster, "STATIC_PAIRS", 0)
+    pair_tri, seg = raster.bin_pairs(rect, q_tri, wp, hp)
+    b = raster.closest_hit_raster(tb, cam, w, h, jitter=jit)
+    assert s_tri.shape == (tb.tri_v0.shape[0] * n_tiles,)
+    assert pair_tri.shape == (int(seg[-1]),)
+    assert s_seg.dtype == torch.int32 and pair_tri.dtype == torch.int32
+    assert torch.equal(s_seg, seg) and int(seg[-1]) > 0
+    assert torch.equal(s_tri[:int(seg[-1])], pair_tri)
+    assert int(a["pairs"]) == int(b["pairs"]) == int(seg[-1])
+    for k in ("t", "tri", "uv", "hit", "tile_qmin"):
+        assert torch.equal(a[k], b[k]), k
+
+
 @pytest.mark.parametrize("detail,tris,pairs", [(1.4, 256_798, 314_444),
                                                 (1.0, 120_146, 164_199)])
 def test_atrium_binning_matches_jax(detail, tris, pairs):
@@ -488,7 +519,7 @@ def test_host_kernel_matches_plain(host_raster, case):
     assert (want[1] >= 0).float().mean() > 0.2
     for name, a, b in zip(("q", "tri", "u", "v"), got, want):
         assert torch.equal(a, b), name
-    assert tested + culled == raster.BANDS * args[1].shape[0]
+    assert tested + culled == raster.BANDS * int(args[2][-1])
 
 
 def _occluded_scene():
@@ -520,7 +551,7 @@ def test_host_kernel_culls_occluded_pairs(host_raster, jitter):
     got, (tested, culled) = _host_run(host_raster, args, wp, hp)
     for name, a, b in zip(("q", "tri", "u", "v"), got, want):
         assert torch.equal(a, b), name
-    assert tested + culled == raster.BANDS * args[1].shape[0]
+    assert tested + culled == raster.BANDS * int(args[2][-1])
     assert culled > 0.2 * (tested + culled)
     assert (want[1] >= 0).float().mean() > 0.3
 
@@ -544,7 +575,7 @@ def test_host_kernel_matches_plain_on_sub_pixel_planes(host_raster, jitter):
     assert int((want[1] >= 0).sum()) > 1000
     for name, a, b in zip(("q", "tri", "u", "v"), got, want):
         assert torch.equal(a, b), name
-    assert tested + culled == raster.BANDS * pair_tri.shape[0]
+    assert tested + culled == raster.BANDS * int(seg[-1])
 
 
 def test_host_kernel_matches_plain_on_the_atrium(host_raster):
@@ -564,7 +595,7 @@ def test_host_kernel_matches_plain_on_the_atrium(host_raster):
     got, (tested, culled) = _host_run(host_raster, args, 1920, 1088)
     for name, a, b in zip(("q", "tri", "u", "v"), got, want):
         assert torch.equal(a, b), name
-    assert tested + culled == raster.BANDS * pair_tri.shape[0]
+    assert tested + culled == raster.BANDS * int(seg[-1])
     assert tested < 0.3 * (tested + culled)
 
 

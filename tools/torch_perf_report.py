@@ -242,11 +242,11 @@ def raster_row(torch, device, size):
         q = raster.rasterize_plain(*args)[0]
         needed = profiling.pair_tests_needed(raster, planes, pair_tri, seg,
                                              q, jitter, wp, hp)
-        return profiling.pair_bound(raster, planes, int(pair_tri.shape[0]),
+        return profiling.pair_bound(raster, planes, int(seg[-1]),
                                     seg, needed, wp, hp)
 
     yield Row(f"raster pair mode, atrium {int(b.tri_valid.sum())} tris at "
-              f"{w}x{h} ({int(pair_tri.shape[0])} pairs)", "#5",
+              f"{w}x{h} ({int(seg[-1])} pairs)", "#5",
               raster.rasterize_tiles, args, bound)
 
 

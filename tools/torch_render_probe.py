@@ -281,7 +281,7 @@ def group_probe(torch, dev, sync, emit, cuda_ms, lib):
         fail("the pair kernel differs from its plain version")
     p_ms = cuda_ms(lambda: raster.rasterize_tiles(*pair_args))
     emit(kernel="raster_groups", ms=g_ms, pair_kernel_ms=p_ms,
-         pairs=int(pair_tri.shape[0]), reps=REPS, bit_equal=True)
+         pairs=int(seg[-1]), reps=REPS, bit_equal=True)
     loop, pixels = inner_loop(kernel_sass(lib, "raster_groups"))
     per_test = loop / pixels
     if g_bound is not None:
@@ -608,7 +608,7 @@ def main():
     planes, rect, q_tri = raster.project_planes(
         b.tri_v0, b.tri_e1, b.tri_e2, b.tri_valid, mat, attr, W, hp)
     pair_tri, seg = raster.bin_pairs(rect, q_tri, W, hp)[:2]
-    pairs = pair_tri.shape[0]
+    pairs = int(seg[-1])
     culls = hasattr(raster, "BANDS")           # a kernel that counts its cull
     want = raster.rasterize_plain(planes, pair_tri, seg, jitter, W, hp)
 
